@@ -1,0 +1,233 @@
+"""Full on-device JPEG decode: compressed bytes in, pixel frames out.
+
+The Motion-JPEG ingestion path of the port.  Only the entropy-coded
+segment words go to the device; both stages run there --
+
+  restart-segment decode   (entropy.place_cuda.decode_segments)
+  -> [F * total_blocks, 64] plane-major coefficients in device memory
+  dense decode             (dequant -> IDCT -> upsample -> color -> u8)
+  -> uint8 frames [F, H, W, C] that stay on the device.
+
+Frames of a Motion-JPEG stream share geometry and Huffman tables, so a
+chunk of frames decodes in one kernel launch with lanes = frames x
+restart segments.  The segment kernel decodes each lane to its end, so
+there is no step bound to learn and no starvation retry.
+"""
+
+from __future__ import annotations
+
+import warnings
+from dataclasses import dataclass
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve
+from ..entropy.lockstep import ScanPlan
+from ..entropy.lockstep_torch import _cached_plan, pack_words
+from ..entropy.place_cuda import check_shape, decode_segments
+from ..errors import UnsupportedError
+from ..format.parse import parse_codestream, unstuff_ranges
+from ..geometry import FrameGeometry
+from ..models.batch import decode_blocks_batch
+from ..ops.color import to_rgb, ycc_to_rgb_planar
+from ..ops.resample import upsample_nn
+from ..utils.floatops import roundf
+from ..utils.metrics import default_metrics, trace
+
+
+def _dense_from_coeffs(coeffs: torch.Tensor, geom: FrameGeometry,
+                       qtables: torch.Tensor) -> torch.Tensor:
+    """[F, total_blocks, 64] plane-ordered coefficients -> device pixels
+    [F, H, W, C] (uint8, or uint16 above 8 bits)."""
+    size_y, size_x = geom.size_y, geom.size_x
+    chans = []
+    off = 0
+    for comp in geom.components:
+        n = comp.n_blocks
+        plane = decode_blocks_batch(
+            coeffs[:, off : off + n], qtables[comp.tq], comp.b_y, comp.b_x,
+            geom.precision,
+        )
+        off += n
+        chans.append(
+            upsample_nn(plane, size_y // (comp.b_y * 8), size_x // (comp.b_x * 8))
+        )
+    maxval = (1 << geom.precision) - 1
+    out_dt = torch.uint8 if geom.precision <= 8 else torch.uint16
+    h, w = geom.height, geom.width
+
+    def quantize(p):
+        return roundf(p).clamp(0, maxval).to(out_dt)
+
+    if geom.nf == 3:
+        # Planar color math; crop before the one interleave.
+        r, g, b = ycc_to_rgb_planar(chans[0], chans[1], chans[2],
+                                    geom.precision)
+        return torch.stack(
+            [quantize(c[:, :h, :w]) for c in (r, g, b)], dim=-1
+        )
+    rgb = to_rgb(torch.stack(chans, dim=-1), geom.precision)
+    # Drop the dummy K channel of YCCK frames (write_frame semantics,
+    # frame.c:548-567): deliverable is RGB (or one gray channel).
+    nch = 3 if geom.nf >= 3 else 1
+    return quantize(rgb[:, :h, :w, :nch]).contiguous()
+
+
+@dataclass
+class DeviceDecoder:
+    """Whole-chunk decoder for streams sharing one geometry and tables.
+
+    Build once from a representative frame with ``for_stream``, then
+    ``decode_batch`` lists of JPEG byte strings (e.g. the frames of a
+    Motion-JPEG stream).  Pixels stay on ``device``.
+    """
+
+    plan: ScanPlan
+    geom: FrameGeometry
+    ri: int
+    segs_per_frame: int
+    htable_key: tuple
+    device: torch.device
+    qtables_host: np.ndarray  # [4, 64] int32 of the sample frame
+    qtables: torch.Tensor  # the same on ``device``
+
+    @staticmethod
+    def for_stream(sample_jpeg: bytes, device) -> "DeviceDecoder":
+        dev = resolve(device)
+        cs = parse_codestream(sample_jpeg)
+        if cs.geometry is None or len(cs.scans) != 1:
+            raise UnsupportedError("device decoder needs a single-scan frame")
+        scan = cs.scans[0]
+        htable_key = tuple(sorted(scan.htables.items()))
+        plan = _cached_plan(cs.geometry, scan.info, htable_key)
+        if scan.ri <= 0:
+            raise UnsupportedError(
+                "stream has no restart markers: the segment decoder needs "
+                "restart intervals"
+            )
+        spf = len(scan.ecs_ranges)
+        total_blocks = sum(c.n_blocks for c in cs.geometry.components)
+        check_shape(plan, 1, spf, scan.ri, total_blocks)
+        qt = cs.qtables.astype(np.int32)
+        return DeviceDecoder(
+            plan=plan,
+            geom=cs.geometry,
+            ri=scan.ri,
+            segs_per_frame=spf,
+            htable_key=htable_key,
+            device=dev,
+            qtables_host=qt,
+            qtables=torch.from_numpy(qt).to(dev),
+        )
+
+    @property
+    def total_blocks(self) -> int:
+        return sum(c.n_blocks for c in self.geom.components)
+
+    def prepare(self, jpegs: Sequence[bytes]):
+        """Host prep: parse + batch-unstuff + word packing, then upload.
+
+        -> (words [S, Wn] int32, nbits [S] int32, qtables [4, 64] int32),
+        all on ``device``; the quantization tables are the chunk's first
+        frame's.
+        """
+        spf = self.segs_per_frame
+        parts: List[np.ndarray] = []
+        lens_parts: List[np.ndarray] = []
+        qts = None
+        for data in jpegs:
+            cs = parse_codestream(data)
+            if cs.geometry != self.geom or len(cs.scans) != 1:
+                raise UnsupportedError(
+                    "frame geometry differs from the stream's -- decode it "
+                    "separately"
+                )
+            scan = cs.scans[0]
+            if tuple(sorted(scan.htables.items())) != self.htable_key:
+                raise UnsupportedError(
+                    "frame's Huffman tables differ from the stream's -- "
+                    "re-encode with shared (e.g. default MJPEG) tables or "
+                    "decode it separately"
+                )
+            seg_bytes, seg_offsets = unstuff_ranges(data, scan.ecs_ranges)
+            # Surplus segments are dropped; missing ones become empty lanes
+            # (contribute zero MCUs, caught by the MCU accounting).
+            seg_offsets = seg_offsets[: spf + 1]
+            lens = np.zeros(spf, dtype=np.int64)
+            lens[: seg_offsets.size - 1] = np.diff(seg_offsets)
+            parts.append(seg_bytes[: seg_offsets[-1]])
+            lens_parts.append(lens)
+            if qts is None:
+                qts = cs.qtables.astype(np.int32)
+        words, nbits = pack_words(
+            np.concatenate(parts) if parts else np.zeros(0, np.uint8),
+            np.concatenate(lens_parts) if lens_parts else np.zeros(0, np.int64),
+        )
+        dev = self.device
+        words_t = torch.from_numpy(words.view(np.int32)).to(dev)
+        nbits_t = torch.from_numpy(nbits.astype(np.int32)).to(dev)
+        if qts is None or np.array_equal(qts, self.qtables_host):
+            qt = self.qtables
+        else:
+            qt = torch.from_numpy(qts).to(dev)
+        return words_t, nbits_t, qt
+
+    def decode_prepared(self, words: torch.Tensor, nbits: torch.Tensor,
+                        frames: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Prepared chunk -> (coeffs [frames, total_blocks, 64] int32,
+        mcu_counts [S] int32), on ``device``."""
+        tb = self.total_blocks
+        coeffs, counts = decode_segments(
+            self.plan, words, nbits, frames, self.segs_per_frame, self.ri, tb
+        )
+        return coeffs.reshape(frames, tb, 64), counts
+
+    def _run(self, jpegs: Sequence[bytes], chunk: int, finish) -> torch.Tensor:
+        """Decode in ``chunk``-frame chunks; ``finish(coeffs, qtables)``
+        maps each chunk's coefficients to its output."""
+        n = len(jpegs)
+        if n == 0:
+            raise ValueError("no frames to decode")
+        if chunk <= 0 or n <= chunk:
+            bounds = [(0, n)]
+        else:
+            bounds = [(i, min(i + chunk, n)) for i in range(0, n, chunk)]
+        outs, sums = [], []
+        for lo, hi in bounds:
+            with trace("device_decode.prepare"):
+                words, nbits, qt = self.prepare(jpegs[lo:hi])
+            with trace("device_decode.dispatch"):
+                coeffs, counts = self.decode_prepared(words, nbits, hi - lo)
+                outs.append(finish(coeffs, qt))
+            sums.append(counts.sum())
+        # Always-on decoded-MCU accounting (common.c:174): a truncated or
+        # corrupt frame must not ship silent black blocks.  All chunks'
+        # sums come back in one device round trip.
+        got_all = torch.stack(sums).tolist()
+        for (lo, hi), got in zip(bounds, got_all):
+            want = self.plan.n_mcus * (hi - lo)
+            if got != want:
+                default_metrics.count("device_decode.short_mcus")
+                warnings.warn(
+                    f"chunk decoded {got} MCUs, geometry expects {want} "
+                    "(truncated or corrupt frames?)",
+                    RuntimeWarning,
+                    stacklevel=3,
+                )
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+
+    def decode_batch(self, jpegs: Sequence[bytes], chunk: int = 8):
+        """-> device-resident pixel batch [F, H, W, C] (uint8/uint16)."""
+        px = len(jpegs) * self.geom.height * self.geom.width
+        with default_metrics.stage("device_decode.batch", items=px):
+            return self._run(
+                jpegs, chunk,
+                lambda c, qt: _dense_from_coeffs(c, self.geom, qt),
+            )
+
+    def decode_coeffs_batch(self, jpegs: Sequence[bytes], chunk: int = 8):
+        """-> plane-major coefficients [F, total_blocks, 64] int32 on
+        ``device`` (components in geometry order)."""
+        return self._run(jpegs, chunk, lambda c, qt: c)
