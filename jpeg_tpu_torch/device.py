@@ -29,3 +29,17 @@ def resolve(device) -> torch.device:
         )
     set_precision()
     return dev
+
+
+def check_tensor(name: str, t: torch.Tensor, dtypes, shape,
+                 device: torch.device) -> None:
+    """Raise ``ValueError`` unless ``t`` is a contiguous tensor on
+    ``device`` with one of ``dtypes`` and exactly ``shape``: what a
+    kernel wrapper checks before it hands ``t.data_ptr()`` to a kernel."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {dtypes} tensor of "
+                         f"shape {tuple(shape)}, got {t.dtype} "
+                         f"{tuple(t.shape)}")

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 ``load_library`` compiles every ``csrc/*.cu`` source with ``nvcc`` for
-Hopper (``sm_90a``) into one shared library with a plain ``extern "C"``
+Hopper (``sm_90a``), one nvcc process per source, all started together,
+links the objects into one shared library with a plain ``extern "C"``
 interface, and loads it with ``ctypes``.  The library lands in
 ``build/jpeg_tpu_torch/`` under the repository root, named by a hash of
 the sources and flags, so an unchanged source is never rebuilt.  A
@@ -26,9 +27,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "jpeg_tpu_torch"
+# No --use_fast_math, and nvcc's IEEE defaults (-prec-div=true,
+# -prec-sqrt=true, -ftz=false): the encode kernel's quantizer needs a true
+# division and the plain versions' float32 values.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 
@@ -53,11 +57,36 @@ def _nvcc() -> str:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.jt_decode_segments.argtypes = [p, p, p, p, p] + [i] * 10 + [p]
-    lib.jt_decode_segments.restype = i
-    lib.jt_decode_segments_table_ints.argtypes = []
-    lib.jt_decode_segments_table_ints.restype = i
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    signatures = {
+        "jt_decode_segments": [p, p, p, p, p] + [i] * 10 + [p],
+        "jt_decode_segments_table_ints": [],
+        "jt_pixels_to_zz": [p, i, p, p, p, p, p, p, p] + [i] * 6 + [p],
+        "jt_encode_bits": [p] * 6 + [i, i, p, p, p],
+        "jt_encode_pack": [p] * 6 + [i, i, p, p, p],
+        "jt_encode_scan_t_max": [],
+        "jt_hist_blocks": [p, p, p, i, ll, p, p],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = i
+
+
+def _check_layouts(lib: ctypes.CDLL) -> None:
+    """Raise if a source's compiled-in layout constants differ from the
+    Python side that packs its inputs."""
+    from .entropy.encode_cuda import T_MAX
+    from .entropy.place_cuda import TABLE_INTS
+
+    for name, got, want in (
+        ("decode_segments.cu table ints", lib.jt_decode_segments_table_ints(),
+         TABLE_INTS),
+        ("encode_scan.cu T_MAX", lib.jt_encode_scan_t_max(), T_MAX),
+    ):
+        if got != want:
+            raise RuntimeError(f"csrc/{name} is {got}, the Python side "
+                               f"packs {want}")
 
 
 @lru_cache(maxsize=None)
@@ -74,23 +103,33 @@ def load_library() -> KernelLibrary:
     seconds = 0.0
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+            nvcc = _nvcc()
+            objs = [Path(work) / f"{src.stem}.o" for src in sources]
+            procs = [
+                subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                  str(src)], stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+                for src, obj in zip(sources, objs)
+            ]
+            logs = [(src, proc.communicate()[0], proc.returncode)
+                    for src, proc in zip(sources, procs)]
+            failed = [(src, log, rc) for src, log, rc in logs if rc != 0]
+            if failed:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(
+                    f"{src.name} ({rc}):\n{log}" for src, log, rc in failed))
+            tmp = Path(work) / so.name
+            res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                                  *map(str, objs)],
+                                 capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc link failed ({res.returncode}):\n"
+                    f"{res.stdout}{res.stderr}")
+            os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
         seconds = time.perf_counter() - t0
-        if res.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}"
-            )
-        os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
     lib = ctypes.CDLL(str(so))
     _declare(lib)
-    from .entropy.place_cuda import TABLE_INTS
-
-    if lib.jt_decode_segments_table_ints() != TABLE_INTS:
-        raise RuntimeError("csrc/decode_segments.cu table layout differs "
-                           "from entropy/place_cuda.py")
+    _check_layouts(lib)
     return KernelLibrary(lib=lib, path=so, build_seconds=seconds)

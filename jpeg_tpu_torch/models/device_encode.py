@@ -1,0 +1,433 @@
+"""Full on-device JPEG encode: pixel frames in, compressed bytes out.
+
+The mirror of ``device_decode.DeviceDecoder``: frames that already live
+in device memory compress on the card --
+
+  dense stage      (models.encode_dense.pixels_to_zz: colour convert ->
+                    box downsample -> FDCT -> quantize -> zig-zag ->
+                    differential DC)
+  -> [F * Bf, 64] natural-order zig-zag blocks in device memory
+  entropy stage    (entropy.encode_cuda.encode_scan: per-block Huffman
+                    bits, segmented prefix sums, pack)
+  -> one tight u32 word stream + per-segment bit counts
+
+-- and only the words (~the compressed size) come back to the host, which
+finishes with the byte-serial work: 1-padding, 0xFF byte stuffing and
+marker assembly (vectorized numpy over the whole chunk, copied unchanged
+from the JAX package).  With ``optimize=True`` the chunks' symbol
+histograms (entropy.encode_cuda.block_histogram) sum into per-batch
+Annex K.2 tables first, and the entropy stage re-packs the quantized
+blocks still in device memory.
+
+Output is byte-identical to the JAX package's ``DeviceEncoder`` wherever
+the quantized blocks agree (they may differ by 1 on rare rounding
+boundaries, as the JAX package's device and host encoders do).
+
+Reference semantics covered here: libjpeg-compatible quality scaling
+(encoder.c:38-65), K.1 base tables (encoder.c:14-34), edge-replication
+padding (frame.c:277-350), box chroma downsample (frame.c:84-132),
+differential DC with per-restart-interval reset (encoder.c:442-456,
+decoder.c:371-373), RST0..7 cycling (encoder.c write_ecs path).
+
+Left out on purpose, against the JAX module: the sticky capacities and
+their retry loop, the learned slot phases, the device word compaction and
+the 17-bit chunk cap all work around XLA's static shapes, which a
+per-thread kernel writing at exact offsets does not have.
+``tables_for_stream`` needs the single-image pipeline and comes with it.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..constants import (
+    DEFAULT_HTABLES,
+    STD_CHROMINANCE_QUANT,
+    STD_LUMINANCE_QUANT,
+    scale_qtable,
+)
+from ..device import resolve
+from ..encoder import EncodeParams, geometry_for_image
+from ..entropy.encode import build_visit_order
+from ..entropy.encode_cuda import block_histogram, encode_scan
+from ..errors import UnsupportedError
+from ..format import emit
+from ..geometry import FrameGeometry, ScanInfo
+from ..models.encode_dense import pixels_to_zz
+from ..tables import HuffSpec, derive_table, optimize_table
+from ..utils.metrics import default_metrics, trace
+
+
+@dataclass
+class _Shape:
+    components: int
+    precision: int
+    height: int
+    width: int
+
+
+def _build_header(geom, qtables, specs, ri, info) -> bytes:
+    """SOI..SOS marker bytes for the given qtables/Huffman specs."""
+    hdr = bytearray()
+    hdr += emit.emit_soi()
+    hdr += emit.emit_dqt(qtables[0].astype(np.uint16), 0)
+    if geom.nf > 1:
+        hdr += emit.emit_dqt(qtables[1].astype(np.uint16), 1)
+    hdr += emit.emit_sof0(geom)
+    hdr += emit.emit_dht(specs[(0, 0)], 0, 0)
+    hdr += emit.emit_dht(specs[(1, 0)], 1, 0)
+    if geom.nf > 1:
+        hdr += emit.emit_dht(specs[(0, 1)], 0, 1)
+        hdr += emit.emit_dht(specs[(1, 1)], 1, 1)
+    hdr += emit.emit_dri(ri)
+    hdr += emit.emit_sos(info)
+    return bytes(hdr)
+
+
+def _code_tables(specs: dict, keys) -> Tuple[np.ndarray, np.ndarray]:
+    """Stacked [T, 256] ehufco/ehufsi of ``specs`` in ``keys`` order."""
+    tables = {k: derive_table(specs[k], build_lut=False) for k in keys}
+    ehufco = np.stack([tables[k].ehufco for k in keys]).astype(np.int32)
+    ehufsi = np.stack([tables[k].ehufsi for k in keys]).astype(np.int32)
+    return ehufco, ehufsi
+
+
+@dataclass
+class DeviceEncoder:
+    """Whole-chunk encoder for frames sharing one geometry.
+
+    Build once with ``for_config``, then ``encode_batch`` a [F, H, W, C]
+    pixel batch on ``device`` -> list of JPEG byte strings.  Streaming
+    shape: shared Huffman tables (the MJPEG defaults, ``htables=``, or
+    per-batch optimized ones), restart markers every ``restart_interval``
+    MCUs, so the output is itself parallel-decodable by DeviceDecoder.
+    """
+
+    geom: FrameGeometry
+    info: ScanInfo
+    ri: int
+    n_segments: int
+    qtables: np.ndarray  # [2, 64] int32 (luma, chroma)
+    header: bytes
+    visit_src: np.ndarray  # [Bf] bitstream position -> natural row
+    prev_idx: np.ndarray  # [Bf] natural row -> previous same-comp row, -1
+    dc_tab: np.ndarray  # [Bf] natural (component-major) order
+    ac_tab: np.ndarray  # [Bf] natural order
+    seg_of: np.ndarray  # [Bf] bitstream (visit) order
+    ehufco: np.ndarray  # [T, 256] int32
+    ehufsi: np.ndarray
+    table_keys: tuple  # (class, id) per stacked code-table row
+    device: torch.device
+    _dev: dict = field(default_factory=dict, repr=False)
+
+    @staticmethod
+    def for_config(
+        height: int,
+        width: int,
+        components: int = 3,
+        params: Optional[EncodeParams] = None,
+        htables: Optional[dict] = None,
+        precision: int = 8,
+        *,
+        device,
+    ) -> "DeviceEncoder":
+        """Build the stream encoder for frames of this shape on ``device``.
+
+        ``htables`` optionally supplies fixed Huffman table specs
+        ({(class, id): HuffSpec}) shared by every frame.  Default: the
+        implicit Annex K.3 (MJPEG) tables.
+        """
+        dev = resolve(device)
+        params = params or EncodeParams(h=2, v=2, optimize=False, exact=False)
+        if params.optimize:
+            raise UnsupportedError(
+                "DeviceEncoder streams with shared tables; pass per-stream "
+                "specs via htables= or encode_batch(optimize=True) for "
+                "per-batch optimized tables"
+            )
+        if not params.restart_interval:
+            raise UnsupportedError(
+                "DeviceEncoder needs a restart interval (the parallel axis)"
+            )
+        geom = geometry_for_image(
+            _Shape(components, precision, height, width),  # type: ignore[arg-type]
+            params,
+        )
+        comps = sorted(geom.components, key=lambda c: c.cid)
+        info = ScanInfo(
+            component_ids=tuple(c.cid for c in comps),
+            td=tuple(c.td for c in comps),
+            ta=tuple(c.ta for c in comps),
+        )
+        ri = params.restart_interval
+        comp_idx, block_seq = build_visit_order(geom, info)
+        offsets = np.zeros(len(comps), np.int64)
+        off = 0
+        for j, c in enumerate(comps):
+            offsets[j] = off
+            off += c.n_blocks
+        visit_src = offsets[comp_idx] + block_seq
+
+        bpm = comp_idx.size // geom.n_mcus if info.ns > 1 else (
+            comps[0].h * comps[0].v
+        )
+        mcu_of = np.arange(comp_idx.size) // bpm
+        seg_of = mcu_of // ri
+        n_segments = int(seg_of.max()) + 1
+
+        # Previous same-component block within the restart interval, as a
+        # NATURAL-row -> NATURAL-row map (the DC prediction chain runs in
+        # visit order; rows stay component-major on device).
+        prev_visit = np.full(comp_idx.size, -1, np.int64)
+        for j in range(len(comps)):
+            sel = np.nonzero(comp_idx == j)[0]
+            same_seg = seg_of[sel][1:] == seg_of[sel][:-1]
+            prev_visit[sel[1:][same_seg]] = sel[:-1][same_seg]
+        prev_idx = np.full(comp_idx.size, -1, np.int64)
+        prev_idx[visit_src] = np.where(
+            prev_visit >= 0, visit_src[np.clip(prev_visit, 0, None)], -1
+        )
+
+        keys: List[Tuple[int, int]] = []
+        for td in info.td:
+            if (0, td) not in keys:
+                keys.append((0, td))
+        for ta in info.ta:
+            if (1, ta) not in keys:
+                keys.append((1, ta))
+        specs = {k: HuffSpec.from_pair(v) for k, v in DEFAULT_HTABLES.items()}
+        if htables:
+            specs.update(htables)
+        ehufco, ehufsi = _code_tables(specs, keys)
+        tmap = {k: i for i, k in enumerate(keys)}
+        td_arr = np.asarray([tmap[(0, info.td[j])] for j in range(info.ns)])
+        ta_arr = np.asarray([tmap[(1, info.ta[j])] for j in range(info.ns)])
+
+        qtables = np.ones((2, 64), dtype=np.int32)
+        qtables[0] = scale_qtable(STD_LUMINANCE_QUANT, params.quality)
+        qtables[1] = scale_qtable(STD_CHROMINANCE_QUANT, params.quality)
+
+        dc_nat = np.empty(comp_idx.size, np.int32)
+        ac_nat = np.empty(comp_idx.size, np.int32)
+        dc_nat[visit_src] = td_arr[comp_idx]
+        ac_nat[visit_src] = ta_arr[comp_idx]
+        return DeviceEncoder(
+            geom=geom,
+            info=info,
+            ri=ri,
+            n_segments=n_segments,
+            qtables=qtables,
+            header=_build_header(geom, qtables, specs, ri, info),
+            visit_src=visit_src.astype(np.int32),
+            prev_idx=prev_idx.astype(np.int32),
+            dc_tab=dc_nat,
+            ac_tab=ac_nat,
+            seg_of=seg_of.astype(np.int32),
+            ehufco=ehufco,
+            ehufsi=ehufsi,
+            table_keys=tuple(keys),
+            device=dev,
+        )
+
+    @property
+    def blocks_per_frame(self) -> int:
+        return int(self.visit_src.size)
+
+    def _on_device(self, name: str, arr: np.ndarray) -> torch.Tensor:
+        t = self._dev.get(name)
+        if t is None:
+            t = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+            self._dev[name] = t
+        return t
+
+    def chunk_tables(self, frames: int):
+        """(order, seg_of, dc_tab, ac_tab) for a ``frames``-frame chunk,
+        on the device: bitstream positions and segments run frame-major."""
+        key = ("tiled", frames)
+        got = self._dev.get(key)
+        if got is None:
+            bf = self.blocks_per_frame
+            fr = np.repeat(np.arange(frames, dtype=np.int64), bf)
+            got = tuple(
+                torch.from_numpy(a.astype(np.int32)).to(self.device)
+                for a in (np.tile(self.visit_src, frames) + fr * bf,
+                          np.tile(self.seg_of, frames)
+                          + fr * self.n_segments,
+                          np.tile(self.dc_tab, frames),
+                          np.tile(self.ac_tab, frames)))
+            self._dev[key] = got
+        return got
+
+    def _pixels(self, pixels) -> torch.Tensor:
+        if isinstance(pixels, np.ndarray):
+            pixels = torch.from_numpy(pixels)
+        if pixels.dim() != 4:
+            raise UnsupportedError("encode_batch wants [F, H, W, C]")
+        want = (self.geom.height, self.geom.width, self.geom.nf)
+        if tuple(pixels.shape[1:]) != want:
+            raise UnsupportedError(
+                f"frames are {tuple(pixels.shape[1:])}, the encoder was "
+                f"built for {want}"
+            )
+        out_dt = torch.uint8 if self.geom.precision <= 8 else torch.uint16
+        if pixels.dtype != out_dt:
+            raise UnsupportedError(
+                f"{self.geom.precision}-bit frames must be {out_dt}, got "
+                f"{pixels.dtype}"
+            )
+        return pixels.to(self.device).contiguous()
+
+    def dense(self, pixels: torch.Tensor) -> torch.Tensor:
+        """[f, H, W, C] device pixels -> [f * Bf, 64] int32 zig-zag blocks
+        (natural order, differential DC): the dense stage alone."""
+        return pixels_to_zz(pixels, self._on_device("qtables", self.qtables),
+                            self._on_device("prev_idx", self.prev_idx),
+                            self.geom)
+
+    def histogram(self, zz: torch.Tensor) -> torch.Tensor:
+        """Symbol counts [T, 256] int32 of a chunk's blocks (the dry pass)."""
+        frames = zz.shape[0] // self.blocks_per_frame
+        _, _, dc_tab, ac_tab = self.chunk_tables(frames)
+        return block_histogram(zz, dc_tab, ac_tab, len(self.table_keys))
+
+    def scan(self, zz: torch.Tensor, ehufco=None, ehufsi=None):
+        """Entropy-code a chunk's blocks with the given (default: the
+        encoder's) code tables -> (words, seg_wbase, seg_bits, missing)
+        on the device."""
+        frames = zz.shape[0] // self.blocks_per_frame
+        order, seg_of, dc_tab, ac_tab = self.chunk_tables(frames)
+        if ehufco is None:
+            ehufco = self._on_device("ehufco", self.ehufco)
+            ehufsi = self._on_device("ehufsi", self.ehufsi)
+        return encode_scan(zz, order, seg_of, dc_tab, ac_tab, ehufco, ehufsi,
+                           frames * self.n_segments)
+
+    def pack(self, zz: torch.Tensor, ehufco=None, ehufsi=None,
+             header: Optional[bytes] = None) -> List[bytes]:
+        """A chunk's blocks -> one JPEG byte string per frame."""
+        frames = zz.shape[0] // self.blocks_per_frame
+        with trace("device_encode.scan"):
+            words, _, seg_bits, missing = self.scan(zz, ehufco, ehufsi)
+        with trace("device_encode.pull"):
+            if bool(missing):
+                raise UnsupportedError(
+                    "a symbol has no code in the selected Huffman tables "
+                    "(content exceeds table range; use optimize=True)"
+                )
+            words_h = words.cpu().numpy().view(np.uint32)
+            seg_bits_h = seg_bits.cpu().numpy()
+        with trace("device_encode.finalize"):
+            return self._finalize_flat(words_h, seg_bits_h, frames,
+                                       header or self.header)
+
+    def optimized_tables(self, hist: np.ndarray):
+        """Per-batch Annex K.2 tables from a [T, 256] histogram ->
+        (ehufco, ehufsi on the device, header bytes)."""
+        specs = {k: HuffSpec.from_pair(v) for k, v in DEFAULT_HTABLES.items()}
+        for i, key in enumerate(self.table_keys):
+            specs[key] = optimize_table(hist[i])
+        ehufco, ehufsi = _code_tables(specs, self.table_keys)
+        header = _build_header(self.geom, self.qtables, specs, self.ri,
+                               self.info)
+        return (torch.from_numpy(ehufco).to(self.device),
+                torch.from_numpy(ehufsi).to(self.device), header)
+
+    def encode_batch(self, pixels, optimize: bool = False,
+                     chunk: int = 8) -> List[bytes]:
+        """[F, H, W, C] uint8/uint16 frames -> JPEG bytes, one per frame.
+
+        ``optimize=True`` runs the two-pass Annex K.2 optimization on the
+        card: pass 1 sums every chunk's symbol histogram (the
+        write_ecs_dry analog, encoder.c:525-558) while the quantized
+        blocks stay in device memory, the host derives per-BATCH optimal
+        tables, and pass 2 re-packs the same blocks with them.
+        """
+        px = self._pixels(pixels)
+        frames = int(px.shape[0])
+        if frames == 0:
+            return []
+        step = chunk if chunk > 0 else frames
+        spans = [(i, min(i + step, frames)) for i in range(0, frames, step)]
+        with default_metrics.stage(
+            "device_encode.batch",
+            items=frames * self.geom.height * self.geom.width,
+        ):
+            if not optimize:
+                out: List[bytes] = []
+                for lo, hi in spans:
+                    with trace("device_encode.dense"):
+                        zz = self.dense(px[lo:hi])
+                    out.extend(self.pack(zz))
+                return out
+            blocks, hist = [], None
+            for lo, hi in spans:
+                with trace("device_encode.dense"):
+                    zz = self.dense(px[lo:hi])
+                with trace("device_encode.histogram"):
+                    h = self.histogram(zz)
+                blocks.append(zz)
+                hist = h if hist is None else hist + h
+            with trace("device_encode.tables"):
+                ehufco, ehufsi, header = self.optimized_tables(
+                    hist.cpu().numpy())
+            out = []
+            for zz in blocks:
+                out.extend(self.pack(zz, ehufco, ehufsi, header))
+            return out
+
+    def _finalize_flat(self, flat_words: np.ndarray, seg_bits: np.ndarray,
+                       frames: int, header: bytes = b""):
+        """_finalize for the device-compacted word stream (no padded
+        matrix): per-segment live bytes come straight from word offsets."""
+        nbytes = (seg_bits + 7) // 8
+        nw = (seg_bits + 31) // 32
+        base = np.cumsum(nw) - nw
+        arr = np.ascontiguousarray(flat_words[: int(nw.sum())]).byteswap(
+        ).view(np.uint8)
+        if arr.size == 0:
+            return self._assemble(arr, nbytes, frames, header)
+        pad = nbytes * 8 - seg_bits
+        lastpos = np.minimum(4 * base + np.maximum(nbytes - 1, 0),
+                             arr.size - 1)
+        padded_last = arr[lastpos] | ((1 << pad) - 1).astype(np.uint8)
+        arr[lastpos] = np.where(nbytes > 0, padded_last, arr[lastpos])
+        off = np.arange(arr.size) - np.repeat(4 * base, 4 * nw)
+        live = off < np.repeat(nbytes, 4 * nw)
+        return self._assemble(arr[live], nbytes, frames, header)
+
+    def _assemble(self, flat: np.ndarray, nbytes: np.ndarray, frames: int,
+                  header: bytes = b""):
+        """Shared tail: byte-stuff the concatenated live segment bytes,
+        then drop RSTn/EOI markers into the per-frame gaps."""
+        ends = np.cumsum(nbytes)
+        is_ff = flat == 0xFF
+        out = np.zeros(flat.size + int(is_ff.sum()), dtype=np.uint8)
+        dst = np.arange(flat.size) + np.cumsum(is_ff) - is_ff
+        out[dst] = flat
+        ffcum = np.concatenate(([0], np.cumsum(is_ff)))
+        s_end = ends + ffcum[ends]  # stuffed end offset per segment
+        s_start = np.concatenate(([0], s_end[:-1]))
+
+        # Assemble each frame in one vectorized pass: every stuffed byte
+        # shifts right by 2 per preceding in-frame segment boundary (the
+        # RSTn marker), then the markers drop into the gaps.
+        res: List[bytes] = []
+        ns = self.n_segments
+        hdr = np.frombuffer(header or self.header, np.uint8)
+        for f in range(frames):
+            seg_lens = s_end[f * ns:(f + 1) * ns] - s_start[f * ns:(f + 1) * ns]
+            body = out[s_start[f * ns]:s_end[(f + 1) * ns - 1]]
+            buf = np.empty(hdr.size + body.size + 2 * (ns - 1) + 2, np.uint8)
+            buf[: hdr.size] = hdr
+            shift = np.repeat(np.arange(ns, dtype=np.int64), seg_lens)
+            buf[hdr.size + np.arange(body.size) + 2 * shift] = body
+            gap = hdr.size + np.cumsum(seg_lens[:-1]) + 2 * np.arange(ns - 1)
+            buf[gap] = 0xFF
+            buf[gap + 1] = 0xD0 + (np.arange(ns - 1) & 7)
+            buf[-2:] = (0xFF, 0xD9)
+            res.append(buf.tobytes())
+        return res

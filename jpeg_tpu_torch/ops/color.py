@@ -1,6 +1,6 @@
-"""Color space conversion to RGB, fast (float32) path.
+"""Color space conversions, fast (float32) path.
 
-Reference semantics (frame.c:188-244).  The JAX package's ``exact=True``
+Reference semantics (frame.c:154-244).  The JAX package's ``exact=True``
 mode reproduces the reference's mixed f32/f64 arithmetic bit-for-bit;
 this port carries only its ``exact=False`` form, which keeps everything
 float32 and differs by at most ~1 ulp.
@@ -11,6 +11,23 @@ Grayscale (C=1) passes through untouched, like the reference ``case 1``.
 from __future__ import annotations
 
 import torch
+
+
+def rgb_to_ycc(pixels: torch.Tensor, precision: int) -> torch.Tensor:
+    """RGB -> YCbCr (frame.c:154-186) over a [..., 3] tensor, float32.
+
+    The JAX package's ``exact=False`` form: every product and sum in
+    float32, in the order the C expression is written.
+    """
+    x = pixels.to(torch.float32)
+    if x.shape[-1] == 1:
+        return x
+    shift = float(1 << (precision - 1))
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = -0.1687 * r - 0.3313 * g + 0.5 * b + shift
+    cr = 0.5 * r - 0.4187 * g - 0.0813 * b + shift
+    return torch.stack([y, cb, cr], dim=-1)
 
 
 def _centered_f32(chan: torch.Tensor, precision: int) -> torch.Tensor:

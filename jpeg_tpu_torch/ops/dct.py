@@ -1,10 +1,11 @@
-"""8x8 inverse DCT over raster-flattened ``[..., 64]`` blocks (fast path).
+"""8x8 DCTs over raster-flattened ``[..., 64]`` blocks (fast path).
 
 The cosine LUT reproduces the reference's float path exactly
 (imgproc.c:84-102): the angle is computed in double, rounded to float32,
-and the correctly-rounded cosine of that float32 is taken.  The IDCT is
-the separable ``A X A^T`` written as one ``[N, 64] @ [64, 64]`` product
-with the Kronecker operator, in float32 with TF32 off (``device.py``) --
+and the correctly-rounded cosine of that float32 is taken.  The IDCT
+(the separable ``A X A^T``) and the FDCT (``A^T X A``) are each one
+``[N, 64] @ [64, 64]`` product with a Kronecker operator, in float32
+with TF32 off (``device.py``) --
 the counterpart of the JAX package's ``precision="highest"`` matmul.
 Not bit-identical to the reference's LUT loop (different summation
 order) but within ~1e-4.
@@ -49,4 +50,10 @@ def _kron_mats():
 def idct8x8_kron(flat: torch.Tensor) -> torch.Tensor:
     """IDCT on raster-flattened float32 [..., 64] blocks via one matmul."""
     m = torch.from_numpy(_kron_mats()[0]).to(flat.device)
+    return torch.matmul(flat.to(torch.float32), m)
+
+
+def fdct8x8_kron(flat: torch.Tensor) -> torch.Tensor:
+    """FDCT on raster-flattened float32 [..., 64] blocks via one matmul."""
+    m = torch.from_numpy(_kron_mats()[1]).to(flat.device)
     return torch.matmul(flat.to(torch.float32), m)

@@ -1,0 +1,101 @@
+"""Synthetic test inputs, made from a seed with numpy.
+
+``make_frame_ppm`` is a copy of ``bench.make_frame_ppm`` (the repository's
+benchmark frames: smooth gradients plus seeded Gaussian noise), so the
+port's chip check encodes the same content the JAX package's benchmark
+does without importing ``bench`` (which imports JAX).  ``symbol_blocks``
+is a chunk of quantized blocks that holds every kind of Huffman symbol,
+for holding the entropy kernels against their plain versions;
+``tie_frame`` is a grayscale frame whose quantization meets exact
+rounding ties, for holding the dense encode stage to round-half-away.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+WIDTH, HEIGHT = 1920, 1080
+
+
+def make_frame_ppm(seed: int) -> bytes:
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:HEIGHT, 0:WIDTH].astype(np.float32)
+    img = np.stack(
+        [
+            0.5 + 0.5 * np.sin(xx / 37.0 + seed) * np.cos(yy / 23.0),
+            (xx + yy) / (WIDTH + HEIGHT),
+            0.5 + 0.5 * np.cos(xx / 61.0 - yy / 41.0),
+        ],
+        axis=-1,
+    )
+    img += rng.normal(0, 0.02, img.shape).astype(np.float32)
+    samples = np.clip(np.round(img * 255), 0, 255).astype(np.uint8)
+    return b"P6\n%d %d\n255\n" % (WIDTH, HEIGHT) + samples.tobytes()
+
+
+def make_frame(seed: int) -> np.ndarray:
+    """``make_frame_ppm(seed)``'s samples as [HEIGHT, WIDTH, 3] uint8."""
+    data = make_frame_ppm(seed)
+    return np.frombuffer(data[-HEIGHT * WIDTH * 3:], np.uint8).reshape(
+        HEIGHT, WIDTH, 3).copy()
+
+
+def symbol_blocks(n_blocks: int, seed: int = 11) -> np.ndarray:
+    """[n_blocks, 64] int32 zig-zag blocks (DC differential), n_blocks >= 8.
+
+    Seeded sparse blocks, in which rows 3-7 are made by hand: 63 nonzeros
+    (no EOB), a lone nonzero at position 63 (three ZRLs, no EOB), DC
+    category 15 with AC category 14 after 38 zeros (two ZRLs), a negative
+    DC of category 14 with AC category 14 after a 16-zero run (one ZRL),
+    and an all-zero block (DC category 0, EOB).  Categories 14 and 15 need
+    12-bit tables that code them.
+    """
+    rng = np.random.default_rng(seed)
+    zz = np.zeros((n_blocks, 64), np.int32)
+    sparse = rng.random((n_blocks, 64)) < 0.15
+    zz[sparse] = rng.integers(-60, 61, int(sparse.sum()))
+    zz[:, 0] = rng.integers(-300, 301, n_blocks)
+    zz[3] = rng.integers(1, 9, 64) * rng.choice([-1, 1], 64)
+    zz[4] = 0
+    zz[4, 63] = -5
+    zz[5] = 0
+    zz[5, 0] = 20000
+    zz[5, 40] = -10000
+    zz[6] = 0
+    zz[6, 0] = -16383
+    zz[6, 17] = 12000
+    zz[7] = 0
+    return zz
+
+
+def tie_frame(fdct: np.ndarray, qtable: np.ndarray, shift: int = 128):
+    """A grayscale frame whose quantized AC coefficients meet exact ties.
+
+    ``fdct`` is the [64, 64] float32 FDCT operator (``ops.dct._kron_mats()
+    [1]``), ``qtable`` the [64] raster-order quantization table.  Every
+    8x8 block is flat at ``shift`` (0 after the level shift) but for one
+    sample ``shift + t``, so its coefficient k is the one float32 product
+    ``t * fdct[i, k]`` in any summation order.  The blocks are every
+    (t, i), 0 < |t| < shift, for which some AC quotient ``c / qtable[k]``
+    is, in float32, exactly an even integer + 0.5: rounding half away from
+    zero and half to even disagree there.
+
+    -> (frame [8, 8 * n, 1] uint8, want [n, 64] int32: the raster-order
+    quantized blocks, rounded half away from zero).
+    """
+    m = np.asarray(fdct, np.float32)
+    q = np.asarray(qtable, np.float32).reshape(64)
+    ts = np.arange(1 - shift, shift, dtype=np.float32)
+    ts = ts[ts != 0]
+    r = ts[:, None, None] * m[None] / q  # [t, i, k], float32 throughout
+    mag = np.abs(r.astype(np.float64))
+    tie = (mag - np.floor(mag) == 0.5) & (np.floor(mag) % 2 == 0)
+    tie[:, :, 0] = False
+    ti, ii = np.nonzero(tie.any(axis=2))
+    n = ti.size
+    blocks = np.full((n, 64), shift, np.int64)
+    blocks[np.arange(n), ii] += ts[ti].astype(np.int64)
+    frame = blocks.reshape(n, 8, 8).transpose(1, 0, 2).reshape(8, 8 * n, 1)
+    rr = r[ti, ii].astype(np.float64)
+    want = (np.sign(rr) * np.floor(np.abs(rr) + 0.5)).astype(np.int32)
+    return frame.astype(np.uint8), want

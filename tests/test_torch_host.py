@@ -20,7 +20,8 @@ import torch
 
 import jpeg_tpu
 from jpeg_tpu import mjpeg as jmjpeg
-from jpeg_tpu.encoder import EncodeParams, encode_jpeg
+from jpeg_tpu.encoder import EncodeParams, encode_jpeg, geometry_for_image
+from jpeg_tpu.utils.pnm import read_pnm as jax_read_pnm
 from jpeg_tpu.entropy.lockstep_jax import _cached_plan as jax_plan
 from jpeg_tpu.entropy.lockstep_jax import pack_words as jax_pack_words
 from jpeg_tpu.format.parse import parse_codestream as jax_parse
@@ -31,8 +32,10 @@ from jpeg_tpu_torch.entropy import place_cuda
 from jpeg_tpu_torch.entropy.lockstep_torch import _cached_plan, pack_words
 from jpeg_tpu_torch.format.parse import parse_codestream, unstuff_ranges
 from jpeg_tpu_torch.models.device_decode import DeviceDecoder
+from jpeg_tpu_torch import encoder as port_encoder
 from jpeg_tpu_torch.utils.metrics import default_metrics
-from refbin import make_ppm
+from jpeg_tpu_torch.utils.pnm import read_pnm
+from refbin import make_pgm, make_ppm
 
 REPO = Path(__file__).resolve().parent.parent
 CORPUS = REPO / "tests" / "data" / "torch_port"
@@ -64,6 +67,33 @@ def assert_same(a, b, path="root"):
             assert_same(x, y, f"{path}[{i}]")
     else:
         assert a == b, path
+
+
+@pytest.mark.parametrize("path", ["utils/pnm.py", "format/emit.py",
+                                  "entropy/encode.py"])
+def test_encode_host_copies_are_verbatim(path):
+    """Numpy-only host modules whose imports are all package-relative are
+    carried over byte for byte."""
+    assert ((REPO / "jpeg_tpu_torch" / path).read_bytes()
+            == (REPO / "jpeg_tpu" / path).read_bytes())
+
+
+@pytest.mark.parametrize("pnm", [
+    make_ppm(37, 21, seed=1),
+    make_pgm(16, 9, seed=2),
+    make_ppm(20, 12, seed=3, maxval=4095),
+])
+def test_encoder_params_and_geometry_match_jax(pnm):
+    assert ([f.name for f in dataclasses.fields(port_encoder.EncodeParams)]
+            == [f.name for f in dataclasses.fields(EncodeParams)])
+    assert_same(port_encoder.EncodeParams(), EncodeParams())
+    img, ref = read_pnm(pnm, pad_to=(16, 16)), jax_read_pnm(pnm, pad_to=(16, 16))
+    assert_same(img, ref)
+    for h, v in ((2, 2), (2, 1), (1, 1)):
+        kw = dict(h=h, v=v, restart_interval=2, optimize=False)
+        assert_same(
+            port_encoder.geometry_for_image(img, port_encoder.EncodeParams(**kw)),
+            geometry_for_image(ref, EncodeParams(**kw)))
 
 
 def test_corpus_size():
