@@ -11,12 +11,16 @@ process exits non-zero without printing the result line:
 2. build: compile ``jpeg_tpu_torch/csrc/*.cu`` with nvcc and load it;
 3. kernel vs plain: ``decode_segments`` on the card against
    ``decode_segments_ref`` on the same card inputs, integer for integer,
-   on every corpus stream and on an 8-frame 1080p chunk (16,320 lanes),
-   each intact, with seeded damage to its segment words, and with the
-   damaged words under hostile Huffman tables, so that every way a lane
-   can die runs through the kernel;
-4. against JAX: every corpus frame's coefficients against the sha256
-   digests jpeg_tpu produced (``digests.json``);
+   on every small corpus stream whose segments tile MCU rows and on an
+   8-frame chunk of the 1080p bench frames (16,320 lanes), and
+   ``decode_segments_general`` against ``decode_segments_general_ref`` on
+   a 3-frame chunk of every other corpus stream (a short last segment, a
+   restart interval that does not divide the MCU row, 4:2:2, 12-bit,
+   grayscale, no restart markers), each intact, with seeded damage to its
+   segment words, and with the damaged words under hostile Huffman
+   tables, so that every way a lane can die runs through the kernels;
+4. against JAX: every single-scan corpus frame's coefficients against the
+   sha256 digests jpeg_tpu produced (``digests.json``);
 5. the slice: ``mjpeg.decode_stream_device`` on a 16-frame 1080p stream,
    with the kernel's launch count, checked against the CPU decode;
 6. times: end-to-end stream rate, device-resident rate, host prep, per
@@ -48,7 +52,24 @@ process exits non-zero without printing the result line:
     (dense stage and segment encode with the words left on the card,
     CUDA events), ``device_encode_optimized_Mpix_s``, per 8-frame chunk
     each kernel against its plain version, and the card's busy share of
-    one encode under ``torch.profiler`` with its host spans.
+    one encode under ``torch.profiler`` with its host spans;
+11. general shape at full width: 16 frames of 1080p 4:2:0 q75 encoded on
+    the card with restart interval 7 (1,166 segments per frame, the last
+    one short) decode through ``mjpeg.decode_stream_device`` on the
+    general kernel alone, to exactly the encoder's blocks and within +-1
+    of the CPU decode; the kernel equals its plain version on an 8-frame
+    chunk of it, intact, damaged and under hostile tables; times of the
+    general kernel, its plain version, the one-pass kernel on the ri=4
+    bench chunk, and the stream's end-to-end rate;
+12. single image: ``decode_jpeg(..., exact=True)`` of the 1080p bench frame
+    and of every small corpus frame on the card, hashed against
+    jpeg_tpu's exact ``to_pnm()`` digests (``exact.json``);
+    ``decode_frame_device`` on the multi-scan frames within +-1 of its CPU
+    run; ``encode_jpeg(..., exact=True)`` of the 1080p bench frame
+    byte-identical to jpeg_tpu's committed digests; a mixed stream falls
+    back frame by frame and counts it; each exact kernel (``idct_exact``,
+    ``fdct_exact``, ``color_exact``) bitwise equal to its plain version
+    on 1080p planes and on seeded random inputs, with times.
 
 The line before the last is a JSON object describing the kernels; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -71,12 +92,13 @@ from torch.profiler import ProfilerActivity, profile
 import jpeg_tpu_torch
 from jpeg_tpu_torch import kernels
 from jpeg_tpu_torch.constants import (
+    STD_CHROMINANCE_QUANT,
     STD_LUMINANCE_QUANT,
     ZIGZAG,
     scale_qtable,
 )
 from jpeg_tpu_torch.device import set_precision
-from jpeg_tpu_torch.encoder import EncodeParams
+from jpeg_tpu_torch.encoder import EncodeParams, geometry_for_image
 from jpeg_tpu_torch.entropy.encode_cuda import block_histogram, encode_scan
 from jpeg_tpu_torch.entropy.encode_torch import (
     encode_scan_ref,
@@ -85,26 +107,45 @@ from jpeg_tpu_torch.entropy.encode_torch import (
 from jpeg_tpu_torch.entropy.lockstep import ScanPlan, build_scan_plan
 from jpeg_tpu_torch.entropy.place_cuda import (
     decode_segments,
+    decode_segments_general,
+    decode_segments_general_ref,
     decode_segments_ref,
+    region_path,
 )
-from jpeg_tpu_torch.errors import UnsupportedError
 from jpeg_tpu_torch.format.parse import parse_codestream
 from jpeg_tpu_torch.tables import HuffSpec, derive_table
 from jpeg_tpu_torch.models.device_decode import (
     DeviceDecoder,
     _dense_from_coeffs,
 )
+from jpeg_tpu_torch.models.dense_exact import (
+    color_exact,
+    color_exact_ref,
+    fdct_exact,
+    fdct_exact_ref,
+    idct_exact,
+    idct_exact_ref,
+)
 from jpeg_tpu_torch.models.device_encode import DeviceEncoder
+from jpeg_tpu_torch.models.pipeline import encode_frame
+from jpeg_tpu_torch.ops.blocks import plane_to_blocks
 from jpeg_tpu_torch.ops.dct import _kron_mats
+from jpeg_tpu_torch.ops.resample import downsample_box
 from jpeg_tpu_torch.models.encode_dense import (
     pixels_to_zz,
     pixels_to_zz_ref,
     raster_to_zz,
 )
 from jpeg_tpu_torch.utils import synth
+from jpeg_tpu_torch.utils.metrics import default_metrics
+from jpeg_tpu_torch.utils.pnm import read_pnm
 
 CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "torch_port"
 STREAMS = ("bench", "yuv420_ri2", "yuv444_ri3", "gray_ri4", "p12_422_ri2")
+# Corpus streams of general shape (tools/make_torch_fixtures.py).
+GENERAL = ("ineligible_420_ri3", "short_422_ri5", "short_p12_420_ri5",
+           "row_420_ri3", "short_gray_ri4", "rstless_420")
+MULTISCAN = ("multiscan_ri4", "multiscan_ri0")
 CHUNK = 8  # frames per chunk, as bench.py decodes the stream
 STREAM_FRAMES = 16
 E2E_RUNS = 5
@@ -112,6 +153,11 @@ E2E_RUNS = 5
 # restart interval 4, default tables, fast dense path.
 BENCH_PARAMS = EncodeParams(h=2, v=2, quality=75, optimize=False,
                             restart_interval=4, exact=False)
+# The general-shape stream: bench.py's shape with restart interval 7,
+# which does not divide the 120-MCU row (8,160 MCUs: 1,166 segments, the
+# last of 5 MCUs).
+GENERAL_PARAMS = EncodeParams(h=2, v=2, quality=75, optimize=False,
+                              restart_interval=7, exact=False)
 # Corpus quality (tools/make_torch_fixtures.py): bench q75, the rest q80.
 CORPUS_QUALITY = {"bench": 75}
 # Small dense-stage shapes: (components, h, v, height, width, bits).
@@ -136,8 +182,16 @@ HOSTILE = {
 }
 
 
+T0 = [time.perf_counter()]  # the run's start, reset by main()
+
+
 def log(*a) -> None:
     print(*a, flush=True)
+
+
+def mark(phase: str) -> None:
+    """Log the seconds since the run started, at a phase's start."""
+    log(f"phase {phase} starts at {time.perf_counter() - T0[0]:.1f} s")
 
 
 def card_label() -> str:
@@ -240,13 +294,15 @@ def damage(words: torch.Tensor, nbits: torch.Tensor, seed: int):
 
     Of every 8 lanes, on average: one becomes pure noise, one is cut
     short, one becomes all-zero words over its whole row, three get 3
-    flipped bits each and two stay intact.
+    flipped bits each and two stay intact.  Lane 0 is always noise, so
+    a chunk of two lanes is damaged too.
     """
     rng = np.random.default_rng(seed)
     w = words.cpu().numpy().view(np.uint32).copy()
     nb = nbits.cpu().numpy().copy()
     S, wn = w.shape
     kind = rng.integers(0, 8, S)
+    kind[0] = 0
     noise = kind == 0
     w[noise] = rng.integers(0, 1 << 32, (int(noise.sum()), wn),
                             dtype=np.uint32)
@@ -263,29 +319,73 @@ def damage(words: torch.Tensor, nbits: torch.Tensor, seed: int):
             torch.from_numpy(nb).to(words.device))
 
 
+def lane_mcus(dec: DeviceDecoder, frames: int) -> torch.Tensor:
+    """Each lane's MCU count in an intact chunk of ``frames`` frames."""
+    per = dec.ri or dec.plan.n_mcus
+    ends = np.minimum(np.arange(1, dec.segs_per_frame + 1) * per,
+                      dec.plan.n_mcus)
+    return torch.from_numpy(np.tile(np.diff(ends, prepend=0), frames)
+                            .astype(np.int32))
+
+
+def segment_kernel(dec: DeviceDecoder, plan: ScanPlan, words: torch.Tensor,
+                   nbits: torch.Tensor, frames: int):
+    """(kernel wrapper, plain version, their arguments) of the segment
+    decode a chunk of ``dec``'s stream takes."""
+    spf, tb = dec.segs_per_frame, dec.total_blocks
+    if region_path(dec.plan, spf, dec.ri, tb):
+        return (decode_segments, decode_segments_ref,
+                (plan, words, nbits, frames, spf, dec.ri, tb))
+    return (decode_segments_general, decode_segments_general_ref,
+            (plan, words, nbits, frames, spf, tb))
+
+
 def compare_kernel(label: str, plan: ScanPlan, words: torch.Tensor,
                    nbits: torch.Tensor, dec: DeviceDecoder, frames: int):
     """Kernel vs plain version on the same card inputs.
 
-    -> (max |coeff diff|, mcu_counts).
+    -> (kernel name, max |coeff diff|, mcu_counts - intact lane counts).
     """
-    args = (plan, words, nbits, frames, dec.segs_per_frame, dec.ri,
-            dec.total_blocks)
-    got_c, got_n = decode_segments(*args)
-    ref_c, ref_n = decode_segments_ref(*args)
+    kern, ref, args = segment_kernel(dec, plan, words, nbits, frames)
+    got_c, got_n = kern(*args)
+    ref_c, ref_n = ref(*args)
     torch.cuda.synchronize()
     err = int((got_c.to(torch.int64) - ref_c).abs().max().item())
     if not (torch.equal(got_c, ref_c) and torch.equal(got_n, ref_n)):
         raise AssertionError(
-            f"{label}: decode_segments differs from decode_segments_ref "
+            f"{label}: {kern.__name__} differs from {ref.__name__} "
             f"(max |coeff diff| {err}, mcu_counts equal: "
             f"{torch.equal(got_n, ref_n)})"
         )
-    dead = int((got_n < dec.ri).sum())
-    log(f"kernel-vs-plain {label}: {words.shape[0]} lanes ({dead} died "
-        f"short of ri), coeffs {tuple(got_c.shape)} and mcu_counts equal "
+    short = got_n.cpu() - lane_mcus(dec, frames)
+    log(f"kernel-vs-plain {kern.__name__} {label}: {words.shape[0]} lanes "
+        f"({int((short < 0).sum())} died short of their MCUs), coeffs "
+        f"{tuple(got_c.shape)} and mcu_counts equal "
         f"(sum {int(got_n.sum())})")
-    return err, got_n
+    return kern.__name__, err, short
+
+
+def compare_all(cases) -> dict:
+    """``compare_kernel`` on each (label, decoder, frames, seed) case
+    intact, with damage from ``seed``, and damaged under hostile tables;
+    -> max |diff| per kernel name."""
+    errs = {}
+    for label, dec, fr, seed in cases:
+        words, nbits, _ = dec.prepare(fr)
+        name, err, short = compare_kernel(label, dec.plan, words, nbits, dec,
+                                          len(fr))
+        errs[name] = max(errs.get(name, 0), err)
+        if bool((short != 0).any()):
+            raise AssertionError(f"{label}: intact stream lost MCUs")
+        bad_w, bad_n = damage(words, nbits, seed)
+        for tag, plan in (("damaged", dec.plan),
+                          ("damaged, hostile tables", hostile_plan(fr[0]))):
+            name, err, short = compare_kernel(f"{label} {tag}", plan, bad_w,
+                                              bad_n, dec, len(fr))
+            errs[name] = max(errs[name], err)
+            if not bool((short < 0).any()):
+                raise AssertionError(f"{label} {tag}: no lane died")
+    return errs
 
 
 def check_dense(label: str, diff: torch.Tensor, share: float) -> int:
@@ -371,14 +471,14 @@ def encode_phases(card: str, streams: dict, decs: dict,
                   dev: torch.device) -> list:
     """Phases 7-10 (the encoder); -> the encode kernels' JSON entries."""
     enc = DeviceEncoder.for_config(1080, 1920, 3, BENCH_PARAMS, device=dev)
-    uniq = [torch.from_numpy(synth.make_frame(s)) for s in range(2)]
-    px = torch.stack([uniq[i % 2] for i in range(STREAM_FRAMES)]).to(dev)
+    px = bench_pixels(dev)
     qt = torch.from_numpy(enc.qtables).to(dev)
     prev = torch.from_numpy(enc.prev_idx).to(dev)
     geom = enc.geom
     T = len(enc.table_keys)
 
     # ---- 7. encode kernels vs plain versions -----------------------------
+    mark("7")
     chunk = px[:CHUNK]
     zz = pixels_to_zz(chunk, qt, prev, geom)
     zz_ref = pixels_to_zz_ref(chunk, qt, prev, geom)
@@ -433,6 +533,7 @@ def encode_phases(card: str, streams: dict, decs: dict,
     hist_err = max(e[1] for e in errs)
 
     # ---- 8. encode against JAX (the committed frames) -------------------
+    mark("8")
     for name, fr in streams.items():
         cs = parse_codestream(fr[0])
         g, scan = cs.geometry, cs.scans[0]
@@ -458,6 +559,7 @@ def encode_phases(card: str, streams: dict, decs: dict,
             f"jpeg_tpu's ({sum(map(len, fr))} bytes)")
 
     # ---- 9. the encode slice ---------------------------------------------
+    mark("9")
     counts = {}
     outs = {}
     for opt in (False, True):
@@ -492,6 +594,7 @@ def encode_phases(card: str, streams: dict, decs: dict,
             f"card to exactly the encoder's blocks")
 
     # ---- 10. encode times -------------------------------------------------
+    mark("10")
     mpix = STREAM_FRAMES * 1920 * 1080 / 1e6
     for key, opt in (("device_encode_Mpix_s", False),
                      ("device_encode_optimized_Mpix_s", True)):
@@ -549,9 +652,277 @@ def encode_phases(card: str, streams: dict, decs: dict,
              "plain_ms": times[name][1]}
             for name, src, replaces, n, err in rows]
 
+def bench_pixels(dev: torch.device) -> torch.Tensor:
+    """The 16 frames of 1080p pixels the encode phases use, on ``dev``."""
+    uniq = [torch.from_numpy(synth.make_frame(s)) for s in range(2)]
+    return torch.stack([uniq[i % 2] for i in range(STREAM_FRAMES)]).to(dev)
+
+
+def general_phase(card: str, dev: torch.device, corpus_err: int,
+                  region_ms: float) -> dict:
+    """Phase 11 (general shape at full width); -> the general kernel's
+    JSON entry.  ``corpus_err`` is its max |diff| on the corpus (phase 3),
+    ``region_ms`` the one-pass kernel's time on the ri=4 bench chunk."""
+    mark("11")
+    enc = DeviceEncoder.for_config(synth.HEIGHT, synth.WIDTH, 3,
+                                   GENERAL_PARAMS, device=dev)
+    n_mcus = enc.geom.n_mcus
+    if enc.n_segments != -(-n_mcus // 7) or n_mcus % 7 == 0 or \
+            enc.geom.m_x % 7 == 0:
+        raise AssertionError(f"ri=7 encoder has {enc.n_segments} segments")
+    px = bench_pixels(dev)
+    frames = enc.encode_batch(px, optimize=False, chunk=CHUNK)
+    stream = b"".join(frames)
+    decode_segments.launches = decode_segments_general.launches = 0
+    out = jpeg_tpu_torch.mjpeg.decode_stream_device(stream, dev,
+                                                    chunk=CHUNK)
+    torch.cuda.synchronize()
+    launches = decode_segments_general.launches
+    if launches <= 0 or decode_segments.launches:
+        raise AssertionError(
+            f"ri=7 stream: decode_segments_general launched {launches} "
+            f"times, decode_segments {decode_segments.launches} times")
+    want = (STREAM_FRAMES, synth.HEIGHT, synth.WIDTH, 3)
+    if tuple(out.shape) != want or out.dtype != torch.uint8 or \
+            out.device.type != dev.type:
+        raise AssertionError(f"ri=7 output {tuple(out.shape)} {out.dtype}")
+    dec = DeviceDecoder.for_stream(frames[0], dev)
+    coeffs = dec.decode_coeffs_batch(frames, chunk=CHUNK)
+    blocks = torch.cat([enc.dense(px[i:i + CHUNK])
+                        for i in range(0, STREAM_FRAMES, CHUNK)])
+    prev = torch.from_numpy(enc.prev_idx).to(dev)
+    if not torch.equal(raster_to_zz(coeffs, prev), blocks):
+        raise AssertionError("ri=7 stream: decoded blocks differ from the "
+                             "encoder's")
+    cpu = DeviceDecoder.for_stream(frames[0], "cpu").decode_batch(frames[:1])
+    diff = int((out[0].cpu().to(torch.int16) - cpu[0].to(torch.int16))
+               .abs().max())
+    if diff > 1:
+        raise AssertionError(f"ri=7 frame 0 differs from the CPU decode by "
+                             f"{diff}")
+    log(f"general: decode_stream_device of {STREAM_FRAMES} ri=7 frames "
+        f"({dec.segs_per_frame} segments per frame) -> {want} uint8, "
+        f"decode_segments_general launches {launches}, decode_segments 0; "
+        f"blocks equal to the encoder's, frame 0 vs CPU max diff {diff}")
+
+    chunk = frames[:CHUNK]
+    errs = compare_all([(f"ri=7 1080p chunk x{CHUNK}", dec, chunk, 0)])
+    words, nbits, _ = dec.prepare(chunk)
+    args = (dec.plan, words, nbits, CHUNK, dec.segs_per_frame,
+            dec.total_blocks)
+    k_ms = cuda_ms(lambda: decode_segments_general(*args), 20)
+    p_ms = cuda_ms(lambda: decode_segments_general_ref(*args), 2)
+    log(f"time decode_segments_general_ms={k_ms} plain_ms={p_ms} per "
+        f"{CHUNK}-frame ri=7 1080p chunk ({words.shape[0]} lanes); "
+        f"decode_segments_ms={region_ms} on the ri=4 bench chunk [{card}]")
+    mpix = STREAM_FRAMES * synth.WIDTH * synth.HEIGHT / 1e6
+    med, runs = median_s(lambda: jpeg_tpu_torch.mjpeg.decode_stream_device(
+        stream, dev, chunk=CHUNK), E2E_RUNS)
+    log(f"time general_e2e_stream_Mpix_s={mpix / med} (median of {len(runs)} "
+        f"runs of {STREAM_FRAMES} ri=7 frames from bytes; run ms "
+        f"{[round(r * 1e3, 3) for r in runs]}) [{card}]")
+    return {"name": "decode_segments_general", "route": "cuda",
+            "source": "jpeg_tpu_torch/csrc/decode_segments.cu",
+            "replaces": "jpeg_tpu/entropy/lockstep_jax.py:568",
+            "launches": launches,
+            "max_abs_err": max(corpus_err, errs["decode_segments_general"]),
+            "ms": k_ms, "plain_ms": p_ms}
+
+
+def bitwise(name: str, label: str, got: torch.Tensor,
+            ref: torch.Tensor) -> float:
+    """Hold a K4 kernel's output to its plain version's, bit for bit;
+    -> max |diff| (0.0)."""
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{name} {label}: {tuple(got.shape)} "
+                             f"{got.dtype} vs plain {tuple(ref.shape)} "
+                             f"{ref.dtype}")
+    err = float((got.to(torch.float64) - ref.to(torch.float64)).abs().max())
+    if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+        n = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+        raise AssertionError(f"{name} {label}: {n} of {got.numel()} values "
+                             f"differ from the plain version (max |diff| "
+                             f"{err})")
+    log(f"kernel-vs-plain {name} {label}: {got.numel()} values bitwise equal")
+    return err
+
+
+def single_image_phase(card: str, dev: torch.device, streams: dict) -> list:
+    """Phase 12 (the single-image API, exact mode); -> the K4 kernels'
+    JSON entries."""
+    mark("12")
+    exact = json.loads((CORPUS / "exact.json").read_text())
+    bench0 = streams["bench"][0]
+    # -- the exact decode path, at 1080p
+    idct_exact.launches = color_exact.launches = 0
+    img = jpeg_tpu_torch.decode_jpeg(bench0, dev, exact=True)
+    torch.cuda.synchronize()
+    dec_launches = (idct_exact.launches, color_exact.launches)
+    if min(dec_launches) <= 0:
+        raise AssertionError(f"exact decode skipped a kernel: {dec_launches}")
+    got = hashlib.sha256(img.to_pnm()).hexdigest()
+    if got != exact["pnm"]["bench"][0]:
+        raise AssertionError("exact 1080p decode differs from jpeg_tpu's "
+                             "to_pnm() digest")
+    log(f"single: decode_jpeg(bench frame 0, {dev}, exact=True).to_pnm() "
+        f"equals jpeg_tpu's digest; launches idct_exact {dec_launches[0]}, "
+        f"color_exact {dec_launches[1]}")
+    for name, want in exact["pnm"].items():
+        if name == "bench":
+            continue
+        fr = frames_of(name)
+        got = [hashlib.sha256(jpeg_tpu_torch.decode_jpeg(f, dev)
+                              .to_pnm()).hexdigest() for f in fr]
+        if got != want:
+            raise AssertionError(f"{name}: exact decode differs from "
+                                 "jpeg_tpu's to_pnm() digests")
+    log(f"single: exact to_pnm() of {len(exact['pnm']) - 1} small corpus "
+        f"streams equal to jpeg_tpu's digests")
+    for name in MULTISCAN:
+        frame = frames_of(name)[0]
+        got = jpeg_tpu_torch.decode_frame_device(frame, dev)
+        cpu = jpeg_tpu_torch.decode_frame_device(frame, "cpu")
+        diff = int((got.cpu().to(torch.int16) - cpu.to(torch.int16))
+                   .abs().max())
+        if got.device.type != dev.type or got.shape != cpu.shape or diff > 1:
+            raise AssertionError(f"{name}: decode_frame_device differs from "
+                                 f"its CPU run by {diff}")
+        log(f"single: decode_frame_device {name} {tuple(got.shape)} on {dev}, "
+            f"max diff {diff} against the CPU run")
+    mixed = frames_of("mixed_420_ri2")
+    before = default_metrics.counters.get("device_decode.mixed_fallbacks", 0)
+    px = DeviceDecoder.for_stream(mixed[0], dev).decode_batch(mixed, chunk=1)
+    fell = default_metrics.counters["device_decode.mixed_fallbacks"] - before
+    if fell != 1 or px.device.type != dev.type or px.shape[0] != len(mixed):
+        raise AssertionError(f"mixed stream: {fell} fallbacks, want 1")
+    log(f"single: mixed stream {tuple(px.shape)} on {dev}, 1 chunk fell back "
+        f"to per-frame decode (device_decode.mixed_fallbacks)")
+
+    # -- the exact encode path, at 1080p
+    ppm = synth.make_frame_ppm(0)
+    fdct_exact.launches = 0
+    enc_color = 0
+    for name, rec in exact["encode"].items():
+        color_exact.launches = 0
+        data = jpeg_tpu_torch.encode_jpeg(
+            ppm, EncodeParams(exact=True, **rec["params"]), dev)
+        enc_color += color_exact.launches
+        if hashlib.sha256(data).hexdigest() != rec["sha256"] or \
+                len(data) != rec["bytes"]:
+            raise AssertionError(f"exact encode {name}: {len(data)} bytes, "
+                                 "differs from jpeg_tpu's digest")
+        log(f"single: encode_jpeg({name}, {dev}, exact=True) byte-identical "
+            f"to jpeg_tpu's ({len(data)} bytes)")
+    if fdct_exact.launches <= 0 or enc_color <= 0:
+        raise AssertionError("exact encode skipped a kernel")
+    launches = {"idct_exact": dec_launches[0],
+                "fdct_exact": fdct_exact.launches,
+                "color_exact": dec_launches[1] + enc_color}
+
+    # -- each K4 kernel against its plain version
+    cs, planes = jpeg_tpu_torch.decode_coefficients(bench0)
+    qt = torch.from_numpy(cs.qtables.astype(np.int32)).to(dev)
+    rgb = torch.from_numpy(synth.make_frame(0)).to(dev).to(torch.float32)
+    ycc = color_exact_ref(rgb, 8, "to_ycc")
+    rng = np.random.default_rng(12)
+    rnd_c = torch.from_numpy(rng.integers(-1024, 1024, (4096, 64))
+                             .astype(np.int32)).to(dev)
+    rnd_q = torch.from_numpy(rng.integers(1, 256, 64).astype(np.int32)
+                             ).to(dev)
+    rnd_s = torch.from_numpy(rng.uniform(0, 4095, (4096, 64))
+                             .astype(np.float32)).to(dev)
+    rnd_px = torch.from_numpy(rng.uniform(-100, 4200, (65536, 4))
+                              .astype(np.float32)).to(dev)
+    errs = {n: 0.0 for n in launches}
+    for comp in cs.geometry.components:
+        c = torch.from_numpy(planes[comp.cid]).to(dev)
+        args = (c, qt[comp.tq], 8)
+        errs["idct_exact"] = max(errs["idct_exact"], bitwise(
+            "idct_exact", f"1080p component {comp.cid} {tuple(c.shape)}",
+            idct_exact(*args), idct_exact_ref(*args)))
+    for prec in (8, 12):
+        args = (rnd_c, rnd_q, prec)
+        errs["idct_exact"] = max(errs["idct_exact"], bitwise(
+            "idct_exact", f"random {prec}-bit blocks", idct_exact(*args),
+            idct_exact_ref(*args)))
+    y_blocks = plane_to_blocks(ycc[..., 0], 135, 240).reshape(-1, 64)
+    cb_blocks = plane_to_blocks(downsample_box(ycc[:1072, :, 1], 2, 2), 67,
+                                120).reshape(-1, 64)
+    for label, blocks, q, prec in (
+            ("1080p Y plane", y_blocks, qt[0], 8),
+            ("1080p Cb plane (box 2x2)", cb_blocks, qt[1], 8),
+            ("random 12-bit samples", rnd_s, rnd_q, 12)):
+        args = (blocks.contiguous(), q, prec)
+        errs["fdct_exact"] = max(errs["fdct_exact"], bitwise(
+            "fdct_exact", f"{label} {tuple(blocks.shape)}",
+            fdct_exact(*args), fdct_exact_ref(*args)))
+    for label, pix, mode, prec in (
+            ("1080p RGB -> YCbCr", rgb, "to_ycc", 8),
+            ("1080p YCbCr -> RGB", ycc, "to_rgb", 8),
+            ("random 12-bit YCbCr -> RGB", rnd_px[:, :3].contiguous(),
+             "to_rgb", 12),
+            ("random YCCK -> RGB", rnd_px, "to_rgb", 8),
+            ("random RGB -> YCbCr", rnd_px[:, :3].contiguous(), "to_ycc",
+             12)):
+        errs["color_exact"] = max(errs["color_exact"], bitwise(
+            "color_exact", f"{label} {tuple(pix.shape)}",
+            color_exact(pix, prec, mode), color_exact_ref(pix, prec, mode)))
+
+    # Where a single image's time goes: the whole call (host clock) and
+    # one stage of it.
+    params0 = EncodeParams(exact=True,
+                           **next(iter(exact["encode"].values()))["params"])
+    enc_geom = geometry_for_image(read_pnm(ppm), params0)
+    padded = torch.from_numpy(read_pnm(ppm, pad_to=(
+        8 * enc_geom.max_v, 8 * enc_geom.max_h)).data).to(dev)
+    enc_qt = np.ones((4, 64), np.int32)
+    enc_qt[0] = scale_qtable(STD_LUMINANCE_QUANT, params0.quality)
+    enc_qt[1] = scale_qtable(STD_CHROMINANCE_QUANT, params0.quality)
+    for key, run, part, what in (
+            ("exact_decode_ms",
+             lambda: jpeg_tpu_torch.decode_jpeg(bench0, dev, exact=True),
+             lambda: jpeg_tpu_torch.decode_coefficients(bench0),
+             "host entropy decode (decode_coefficients)"),
+            ("exact_encode_ms",
+             lambda: jpeg_tpu_torch.encode_jpeg(ppm, params0, dev),
+             lambda: encode_frame(padded, enc_geom, enc_qt, True),
+             f"dense stage on {dev} (encode_frame)")):
+        med, runs = median_s(run, 2)
+        med_p, _ = median_s(part, 2)
+        log(f"time {key}={med * 1e3} (1080p, median of {len(runs)} runs, "
+            f"host clock; {what} {med_p * 1e3} ms) [{card}]")
+
+    c_y = torch.from_numpy(planes[cs.geometry.components[0].cid]).to(dev)
+    y_in = y_blocks.contiguous()
+    times = {
+        "idct_exact": (cuda_ms(lambda: idct_exact(c_y, qt[0], 8), 20),
+                       cuda_ms(lambda: idct_exact_ref(c_y, qt[0], 8), 2)),
+        "fdct_exact": (cuda_ms(lambda: fdct_exact(y_in, qt[0], 8), 20),
+                       cuda_ms(lambda: fdct_exact_ref(y_in, qt[0], 8), 2)),
+        "color_exact": (cuda_ms(lambda: color_exact(ycc, 8, "to_rgb"), 20),
+                        cuda_ms(lambda: color_exact_ref(ycc, 8, "to_rgb"),
+                                2)),
+    }
+    what = {"idct_exact": f"1080p Y plane, {c_y.shape[0]} blocks",
+            "fdct_exact": f"1080p Y plane, {y_in.shape[0]} blocks",
+            "color_exact": "1080p frame, YCbCr -> RGB"}
+    for name, (k_ms, p_ms) in times.items():
+        log(f"time {name}_ms={k_ms} plain_ms={p_ms} per {what[name]} "
+            f"[{card}]")
+    return [{"name": name, "route": "cuda",
+             "source": "jpeg_tpu_torch/csrc/dense_exact.cu",
+             "replaces": replaces, "launches": launches[name],
+             "max_abs_err": errs[name], "ms": times[name][0],
+             "plain_ms": times[name][1]}
+            for name, replaces in (
+                ("idct_exact", "jpeg_tpu/ops/dct.py:70"),
+                ("fdct_exact", "jpeg_tpu/ops/dct.py:81"),
+                ("color_exact", "jpeg_tpu/ops/color.py:53"))]
+
 
 def main() -> None:
-    t_start = time.perf_counter()
+    t_start = T0[0] = time.perf_counter()
     # ---- 1. environment ------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -567,37 +938,26 @@ def main() -> None:
     log(f"build: {lib.path.name} in {lib.build_seconds:.2f} s [{card}]")
 
     # ---- 3. kernel vs plain version ----------------------------------
-    streams = {name: frames_of(name) for name in STREAMS}
+    mark("3")
+    streams = {name: frames_of(name) for name in STREAMS + GENERAL}
     decs = {name: DeviceDecoder.for_stream(fr[0], "cuda")
             for name, fr in streams.items()}
     bench = streams["bench"]
-    cases = [(name, decs[name], fr) for name, fr in streams.items()]
+    # The bench chunk holds both bench frames; each general stream goes in
+    # a 3-frame chunk (all of its frames), so the prefix sums restart.
+    cases = [(name, decs[name], streams[name], seed)
+             for seed, name in enumerate(STREAMS) if name != "bench"]
     cases.append((f"bench chunk x{CHUNK}", decs["bench"],
-                  [bench[i % len(bench)] for i in range(CHUNK)]))
-    max_err = 0
-    for seed, (label, dec, fr) in enumerate(cases):
-        words, nbits, _ = dec.prepare(fr)
-        err, counts = compare_kernel(label, dec.plan, words, nbits, dec,
-                                     len(fr))
-        max_err = max(max_err, err)
-        if not bool((counts == dec.ri).all()):
-            raise AssertionError(f"{label}: intact stream lost MCUs")
-        bad_w, bad_n = damage(words, nbits, seed)
-        for tag, plan in (("damaged", dec.plan),
-                          ("damaged, hostile tables", hostile_plan(fr[0]))):
-            err, counts = compare_kernel(f"{label} {tag}", plan, bad_w,
-                                         bad_n, dec, len(fr))
-            max_err = max(max_err, err)
-            if not bool((counts < dec.ri).any()):
-                raise AssertionError(f"{label} {tag}: no lane died")
-    try:
-        DeviceDecoder.for_stream(frames_of("ineligible_420_ri3")[0], "cuda")
-    except UnsupportedError:
-        log("ineligible stream: UnsupportedError as expected")
-    else:
-        raise AssertionError("ineligible stream was accepted")
+                  [bench[i % len(bench)] for i in range(CHUNK)], 5))
+    for seed, name in enumerate(GENERAL, 6):
+        fr = streams[name]
+        cases.append((f"{name} x3", decs[name],
+                      [fr[i % len(fr)] for i in range(3)], seed))
+    errs = compare_all(cases)
+    max_err = errs["decode_segments"]
 
     # ---- 4. against JAX (committed digests) ----------------------------
+    mark("4")
     digests = json.loads((CORPUS / "digests.json").read_text())
     for name, fr in streams.items():
         coeffs = decs[name].decode_coeffs_batch(fr).cpu()
@@ -609,6 +969,7 @@ def main() -> None:
         log(f"digests {name}: {len(fr)} frames equal to jpeg_tpu")
 
     # ---- 5. the slice ----------------------------------------------------
+    mark("5")
     stream_frames = [bench[i % len(bench)] for i in range(STREAM_FRAMES)]
     stream = b"".join(stream_frames)
     decode_segments.launches = 0
@@ -635,6 +996,7 @@ def main() -> None:
         f"{diff}")
 
     # ---- 6. times ---------------------------------------------------------
+    mark("6")
     mpix = STREAM_FRAMES * 1920 * 1080 / 1e6
     e2e = []
     for _ in range(E2E_RUNS + 1):  # the first run is the warm-up
@@ -703,7 +1065,12 @@ def main() -> None:
         "ms": k_ms,
         "plain_ms": p_ms,
     }]
-    entries += encode_phases(card, streams, decs, torch.device("cuda"))
+    dev = torch.device("cuda")
+    encode_streams = {name: streams[name] for name in STREAMS}
+    entries += encode_phases(card, encode_streams, decs, dev)
+    entries.append(general_phase(card, dev, errs["decode_segments_general"],
+                                 k_ms))
+    entries += single_image_phase(card, dev, streams)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": entries}), flush=True)

@@ -9,6 +9,8 @@ in TF32.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 
@@ -43,3 +45,8 @@ def check_tensor(name: str, t: torch.Tensor, dtypes, shape,
         raise ValueError(f"{name} must be a contiguous {dtypes} tensor of "
                          f"shape {tuple(shape)}, got {t.dtype} "
                          f"{tuple(t.shape)}")
+
+
+def cuda_stream(device: torch.device) -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream on ``device``, for a kernel launch."""
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

@@ -21,11 +21,10 @@ raises on anything the kernel does not take, and on any CUDA error.
 
 from __future__ import annotations
 
-import ctypes
-
+import numpy as np
 import torch
 
-from ..device import check_tensor
+from ..device import check_tensor, cuda_stream
 from .encode_torch import encode_scan_ref, hist_from_blocks_ref, segment_layout
 
 T_MAX = 8  # stacked code tables; csrc/encode_scan.cu
@@ -42,10 +41,6 @@ def _check_blocks(zz: torch.Tensor, T: int) -> torch.device:
     if not 0 < T <= T_MAX:
         raise ValueError(f"{T} code tables; the kernels take 1..{T_MAX}")
     return dev
-
-
-def _stream(dev: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
 def encode_scan(zz: torch.Tensor, order: torch.Tensor, seg_of: torch.Tensor,
@@ -81,7 +76,7 @@ def encode_scan(zz: torch.Tensor, order: torch.Tensor, seg_of: torch.Tensor,
         rc = lib.jt_encode_bits(
             zz.data_ptr(), order.data_ptr(), dc_tab.data_ptr(),
             ac_tab.data_ptr(), ehufco.data_ptr(), ehufsi.data_ptr(), T, b,
-            blk_bits.data_ptr(), missing.data_ptr(), _stream(dev))
+            blk_bits.data_ptr(), missing.data_ptr(), cuda_stream(dev))
         if rc != 0:
             raise RuntimeError(f"encode_scan pass 1 failed: CUDA error {rc}")
         dst, seg_wbase, seg_bits, total = segment_layout(blk_bits, seg_of,
@@ -90,7 +85,7 @@ def encode_scan(zz: torch.Tensor, order: torch.Tensor, seg_of: torch.Tensor,
         rc = lib.jt_encode_pack(
             zz.data_ptr(), order.data_ptr(), dc_tab.data_ptr(),
             ac_tab.data_ptr(), ehufco.data_ptr(), ehufsi.data_ptr(), T, b,
-            dst.data_ptr(), words.data_ptr(), _stream(dev))
+            dst.data_ptr(), words.data_ptr(), cuda_stream(dev))
     if rc != 0:
         raise RuntimeError(f"encode_scan pass 2 failed: CUDA error {rc}")
     encode_scan.launches += 1
@@ -117,7 +112,7 @@ def block_histogram(zz: torch.Tensor, dc_tab: torch.Tensor,
     with torch.cuda.device(dev):
         rc = lib.jt_hist_blocks(zz.data_ptr(), dc_tab.data_ptr(),
                                 ac_tab.data_ptr(), T, b, hist.data_ptr(),
-                                _stream(dev))
+                                cuda_stream(dev))
     if rc != 0:
         raise RuntimeError(f"block_histogram launch failed: CUDA error {rc}")
     block_histogram.launches += 1
@@ -125,3 +120,109 @@ def block_histogram(zz: torch.Tensor, dc_tab: torch.Tensor,
 
 
 block_histogram.launches = 0
+
+
+def visit_zz_and_tables(planes, geom, info, tables, ri: int = 0):
+    """Shared host prep for the device/native entropy encoders.
+
+    Returns (zz [B,64] int32 visit order with differential DC, dc_tab,
+    ac_tab, seg_of [B] int32, ehufco, ehufsi [T,256] int32).
+    """
+    from ..constants import ZIGZAG
+    from .encode import build_visit_order
+
+    comp_idx, block_seq = build_visit_order(geom, info)
+    stacked = [np.asarray(planes[cid], np.int64) for cid in info.component_ids]
+    zz = np.empty((comp_idx.size, 64), np.int64)
+    for j in range(len(info.component_ids)):
+        sel = comp_idx == j
+        zz[sel] = stacked[j][block_seq[sel]][:, ZIGZAG]
+
+    if info.ns == 1:
+        c0 = geom.by_id(info.component_ids[0])
+        bpm = c0.h * c0.v
+    else:
+        bpm = comp_idx.size // geom.n_mcus
+    mcu_of = np.arange(comp_idx.size) // bpm
+    seg_of = mcu_of // ri if ri else np.zeros_like(mcu_of)
+
+    # Differential DC per component with per-segment predictor reset.
+    dc = zz[:, 0].copy()
+    for j in range(len(info.component_ids)):
+        sel = np.nonzero(comp_idx == j)[0]
+        seq = dc[sel]
+        prev = np.concatenate(([0], seq[:-1]))
+        iv = seg_of[sel]
+        first = np.concatenate(([True], iv[1:] != iv[:-1]))
+        zz[sel, 0] = np.where(first, seq, seq - prev)
+
+    keys = []
+    for td in info.td:
+        if (0, td) not in keys:
+            keys.append((0, td))
+    for ta in info.ta:
+        if (1, ta) not in keys:
+            keys.append((1, ta))
+    tmap = {k: i for i, k in enumerate(keys)}
+    ehufco = np.stack([tables[k].ehufco for k in keys]).astype(np.int32)
+    ehufsi = np.stack([tables[k].ehufsi for k in keys]).astype(np.int32)
+    td = np.asarray([tmap[(0, info.td[j])] for j in range(info.ns)])
+    ta = np.asarray([tmap[(1, info.ta[j])] for j in range(info.ns)])
+    return (
+        zz.astype(np.int32),
+        td[comp_idx].astype(np.int32),
+        ta[comp_idx].astype(np.int32),
+        seg_of.astype(np.int32),
+        ehufco,
+        ehufsi,
+    )
+
+
+def pack_scan_device(planes, geom, info, tables, ri: int, device):
+    """Device entropy encode: planes -> stuffed ECS segments.
+
+    Mirrors ``entropy.encode.pack_scan`` (byte-identical output), with the
+    symbols coded and packed by ``encode_scan`` on ``device``; the host
+    lays out the visit order and trims, pads and byte-stuffs each segment.
+    """
+    from ..errors import UnsupportedError
+
+    zz, dct, act, seg_of, ehufco, ehufsi = visit_zz_and_tables(
+        planes, geom, info, tables, ri
+    )
+    n_segments = int(seg_of.max()) + 1
+    dev = torch.device(device)
+    words, seg_wbase, seg_bits, missing = encode_scan(
+        *(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+          for a in (zz, np.arange(zz.shape[0], dtype=np.int32), seg_of, dct,
+                    act, ehufco, ehufsi)),
+        n_segments,
+    )
+    if bool(missing):
+        # Same hard failure as the host packer / reference value_to_vlc.
+        raise UnsupportedError(
+            "a symbol has no code in the selected Huffman table "
+            "(content exceeds table range; use optimized tables)"
+        )
+    words = words.cpu().numpy().view(np.uint32)
+    base = seg_wbase.cpu().numpy()
+    bits = seg_bits.cpu().numpy()
+    return [finalize_segment(words[base[s]:base[s] + (bits[s] + 31) // 32],
+                             int(bits[s])) for s in range(n_segments)]
+
+
+def finalize_segment(words: np.ndarray, total_bits: int) -> bytes:
+    """Host-side: trim, 1-pad the tail byte (flush_bits) and byte-stuff."""
+    nbytes = (int(total_bits) + 7) // 8
+    by = words.astype(">u4").tobytes()[:nbytes]
+    arr = np.frombuffer(by, np.uint8).copy()
+    pad = nbytes * 8 - int(total_bits)
+    if pad:
+        arr[-1] |= (1 << pad) - 1
+    is_ff = arr == 0xFF
+    if is_ff.any():
+        out = np.zeros(arr.size + int(is_ff.sum()), dtype=np.uint8)
+        dst = np.arange(arr.size) + np.cumsum(is_ff) - is_ff
+        out[dst] = arr
+        return out.tobytes()
+    return arr.tobytes()

@@ -60,12 +60,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     signatures = {
         "jt_decode_segments": [p, p, p, p, p] + [i] * 10 + [p],
+        "jt_decode_segments_count": [p] * 4 + [i] * 8 + [p],
+        "jt_decode_segments_place": [p] * 8 + [i] * 9 + [p],
         "jt_decode_segments_table_ints": [],
         "jt_pixels_to_zz": [p, i, p, p, p, p, p, p, p] + [i] * 6 + [p],
         "jt_encode_bits": [p] * 6 + [i, i, p, p, p],
         "jt_encode_pack": [p] * 6 + [i, i, p, p, p],
         "jt_encode_scan_t_max": [],
         "jt_hist_blocks": [p, p, p, i, ll, p, p],
+        "jt_idct_exact": [p, p, p, p, ll, i, p],
+        "jt_fdct_exact": [p, p, p, p, ll, i, p],
+        "jt_color_exact": [p, p, ll, i, i, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

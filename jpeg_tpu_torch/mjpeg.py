@@ -7,17 +7,27 @@ parsing.  This module adds the stream-level pieces around that:
   * ``split_stream``: cut a concatenated-JPEG byte stream (the common
     raw .mjpeg layout: SOI..EOI SOI..EOI ...) into frames (copied
     unchanged from the JAX package);
-  * ``decode_stream_device``: decode a restart-marker stream into pixels
-    that stay on the device.
+  * ``decode_stream``: decode every frame with ``api.decode_jpeg``,
+    isolating per-frame failures (``StreamResult``);
+  * ``decode_stream_device``: decode a stream into pixels that stay on
+    the device.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from dataclasses import dataclass, field
+from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
-from .errors import FileIOError
+from .api import DecodedImage, decode_jpeg
+from .errors import FileIOError, JpegError
+from .utils.metrics import default_metrics
+
+# RST-less frames above this size take the host rung (the JAX package's
+# speculative-engine threshold, jpeg_tpu/mjpeg.py:111).
+RSTLESS_DEVICE_MAX_BYTES = 8192
 
 
 def split_stream(data: bytes) -> List[bytes]:
@@ -77,20 +87,60 @@ def split_stream(data: bytes) -> List[bytes]:
     return frames
 
 
+@dataclass
+class StreamResult:
+    """Batch decode outcome with per-frame fault isolation."""
+
+    frames: List[Optional[DecodedImage]]
+    errors: List[Tuple[int, str]] = field(default_factory=list)
+
+    @property
+    def ok_count(self) -> int:
+        return sum(f is not None for f in self.frames)
+
+
 def decode_stream_device(data: bytes, device, chunk: int = 8):
     """Raw MJPEG bytes -> pixel batch [F, H, W, C] on ``device``.
 
     All frames share one geometry and (implicit or repeated) Huffman
     tables; segment and dense decode run on the device in ``chunk``-frame
-    chunks and the pixels stay there.  The stream must carry restart
-    markers that tile MCU rows evenly; otherwise (RST-less streams
-    included) this raises ``UnsupportedError``.  Raises on malformed
-    streams.
+    chunks and the pixels stay there (``DeviceDecoder``: any restart
+    layout, and small RST-less frames as one lane each).  RST-less frames
+    over ``RSTLESS_DEVICE_MAX_BYTES`` bytes, where the JAX package runs
+    its speculative engine, take that engine's last rung here, because
+    the engine (kernels K8-K10) is not ported yet: each frame decodes with
+    ``decode_jpeg(exact=False)`` (entropy on the host, dense stage on
+    ``device``) and its pixels are uploaded, counted in the metric
+    ``mjpeg.rstless_host_frames``.  Raises on malformed streams -- use
+    ``decode_stream`` when per-frame fault isolation matters more than
+    throughput.
     """
-    from .models.device_decode import DeviceDecoder
+    from .models.device_decode import DeviceDecoder, _host_pixels
 
     parts = split_stream(data)
     if not parts:
         raise FileIOError("no JPEG frames in stream")
     dec = DeviceDecoder.for_stream(parts[0], device)
+    if dec.segs_per_frame <= 1 and len(parts[0]) > RSTLESS_DEVICE_MAX_BYTES:
+        default_metrics.count("mjpeg.rstless_host_frames", len(parts))
+        return torch.stack([_host_pixels(p, dec.geom, dec.device)
+                            for p in parts])
     return dec.decode_batch(parts, chunk=chunk)
+
+
+def decode_stream(
+    data: bytes, device, exact: bool = False, entropy: str = "auto"
+) -> StreamResult:
+    """Decode every frame of a raw MJPEG byte stream (dense stage on
+    ``device``); isolate failures."""
+    parts = split_stream(data)
+    out: List[Optional[DecodedImage]] = []
+    errors: List[Tuple[int, str]] = []
+    for i, frame in enumerate(parts):
+        try:
+            out.append(decode_jpeg(frame, device, exact=exact,
+                                   entropy=entropy))
+        except JpegError as e:
+            out.append(None)
+            errors.append((i, f"{type(e).__name__}: {e}"))
+    return StreamResult(frames=out, errors=errors)

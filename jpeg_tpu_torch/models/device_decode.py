@@ -10,8 +10,15 @@ segment words go to the device; both stages run there --
 
 Frames of a Motion-JPEG stream share geometry and Huffman tables, so a
 chunk of frames decodes in one kernel launch with lanes = frames x
-restart segments.  The segment kernel decodes each lane to its end, so
-there is no step bound to learn and no starvation retry.
+restart segments (one lane per frame when the stream has no restart
+markers).  The segment kernel decodes each lane to its end, so there is
+no step bound to learn and no starvation retry.  A chunk whose frames
+do not share the stream's geometry or tables decodes frame by frame on
+the host path instead (``_fallback_chunk``).
+
+``decode_frame_device`` is the single-frame entry: every scan of a
+multi-scan (e.g. non-interleaved) frame decodes on the device into its
+slice of the planes, then the dense stage runs once.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ from ..entropy.lockstep import ScanPlan
 from ..entropy.lockstep_torch import _cached_plan, pack_words
 from ..entropy.place_cuda import check_shape, decode_segments
 from ..errors import UnsupportedError
-from ..format.parse import parse_codestream, unstuff_ranges
+from ..format.parse import parse_codestream, unstuff, unstuff_ranges
 from ..geometry import FrameGeometry
 from ..models.batch import decode_blocks_batch
 from ..ops.color import to_rgb, ycc_to_rgb_planar
@@ -102,14 +109,12 @@ class DeviceDecoder:
         scan = cs.scans[0]
         htable_key = tuple(sorted(scan.htables.items()))
         plan = _cached_plan(cs.geometry, scan.info, htable_key)
-        if scan.ri <= 0:
-            raise UnsupportedError(
-                "stream has no restart markers: the segment decoder needs "
-                "restart intervals"
-            )
+        # Any restart layout, none included (one lane per frame): shapes
+        # that tile the MCU rows take the one-pass region kernel, the
+        # rest the general one (entropy.place_cuda.decode_segments).
         spf = len(scan.ecs_ranges)
         total_blocks = sum(c.n_blocks for c in cs.geometry.components)
-        check_shape(plan, 1, spf, scan.ri, total_blocks)
+        check_shape(plan, 1, spf, total_blocks)
         qt = cs.qtables.astype(np.int32)
         return DeviceDecoder(
             plan=plan,
@@ -184,9 +189,13 @@ class DeviceDecoder:
         )
         return coeffs.reshape(frames, tb, 64), counts
 
-    def _run(self, jpegs: Sequence[bytes], chunk: int, finish) -> torch.Tensor:
+    def _run(self, jpegs: Sequence[bytes], chunk: int, finish,
+             fallback=None) -> torch.Tensor:
         """Decode in ``chunk``-frame chunks; ``finish(coeffs, qtables)``
-        maps each chunk's coefficients to its output."""
+        maps each chunk's coefficients to its output.  With ``fallback``,
+        a chunk whose frames the stream's plan does not take
+        (``prepare`` raises ``UnsupportedError``: a mixed stream) becomes
+        ``fallback(frames)`` instead of killing the batch."""
         n = len(jpegs)
         if n == 0:
             raise ValueError("no frames to decode")
@@ -194,19 +203,28 @@ class DeviceDecoder:
             bounds = [(0, n)]
         else:
             bounds = [(i, min(i + chunk, n)) for i in range(0, n, chunk)]
-        outs, sums = [], []
+        outs, sums, checked = [], [], []
         for lo, hi in bounds:
-            with trace("device_decode.prepare"):
-                words, nbits, qt = self.prepare(jpegs[lo:hi])
+            try:
+                with trace("device_decode.prepare"):
+                    words, nbits, qt = self.prepare(jpegs[lo:hi])
+            except UnsupportedError:
+                if fallback is None:
+                    raise
+                # Mixed stream (SURVEY §5 failure-isolation row).
+                default_metrics.count("device_decode.mixed_fallbacks")
+                outs.append(fallback(jpegs[lo:hi]))
+                continue
             with trace("device_decode.dispatch"):
                 coeffs, counts = self.decode_prepared(words, nbits, hi - lo)
                 outs.append(finish(coeffs, qt))
             sums.append(counts.sum())
+            checked.append((lo, hi))
         # Always-on decoded-MCU accounting (common.c:174): a truncated or
         # corrupt frame must not ship silent black blocks.  All chunks'
         # sums come back in one device round trip.
-        got_all = torch.stack(sums).tolist()
-        for (lo, hi), got in zip(bounds, got_all):
+        got_all = torch.stack(sums).tolist() if sums else []
+        for (lo, hi), got in zip(checked, got_all):
             want = self.plan.n_mcus * (hi - lo)
             if got != want:
                 default_metrics.count("device_decode.short_mcus")
@@ -225,9 +243,87 @@ class DeviceDecoder:
             return self._run(
                 jpegs, chunk,
                 lambda c, qt: _dense_from_coeffs(c, self.geom, qt),
+                fallback=self._fallback_chunk,
             )
+
+    def _fallback_chunk(self, jpegs: Sequence[bytes]) -> torch.Tensor:
+        """Per-frame decode for frames the stream's plan rejects (other
+        Huffman tables or sampling than the stream's): the host entropy
+        decode and the fast dense stage of ``api.decode_jpeg``, pixels
+        uploaded to ``device``.  Sizes must still match so the batch can
+        concatenate."""
+        return torch.stack([
+            _host_pixels(f, self.geom, self.device) for f in jpegs
+        ])
 
     def decode_coeffs_batch(self, jpegs: Sequence[bytes], chunk: int = 8):
         """-> plane-major coefficients [F, total_blocks, 64] int32 on
         ``device`` (components in geometry order)."""
         return self._run(jpegs, chunk, lambda c, qt: c)
+
+
+def _host_pixels(data: bytes, geom: FrameGeometry,
+                 device: torch.device) -> torch.Tensor:
+    """``api.decode_jpeg(data, device, exact=False).pixels()`` of a frame
+    of ``geom``'s size, as [H, W, C] uint8/uint16 on ``device``."""
+    from ..api import decode_jpeg
+
+    c = 3 if geom.nf >= 3 else 1
+    dt = np.uint8 if geom.precision <= 8 else np.uint16
+    px = decode_jpeg(data, device, exact=False).pixels().astype(dt)
+    if px.shape != (geom.height, geom.width, c):
+        raise UnsupportedError("mixed-size frame in batch: decode it "
+                               "separately")
+    return torch.from_numpy(px).to(device)
+
+
+def _dense_only(geom: FrameGeometry, coeffs: torch.Tensor,
+                qtables: torch.Tensor) -> torch.Tensor:
+    """[F, total_blocks, 64] coefficients -> [F, H, W, C] device pixels."""
+    return _dense_from_coeffs(coeffs, geom, qtables)
+
+
+def decode_frame_device(data: bytes, device) -> torch.Tensor:
+    """One JPEG (any scan structure the kernel tables hold) -> pixels
+    [H, W, C] on ``device``.
+
+    The single-frame device entry: every scan of a multi-scan
+    (non-interleaved, decoder.c:274-302) frame decodes on the device
+    through ``decode_segments`` into its slice of the concatenated planes
+    (scans cover whole components, so the slices are disjoint), then the
+    dense stage runs once over the assembled frame.  Raises
+    ``UnsupportedError`` for scans the kernels do not take (more than 16
+    blocks per MCU); callers fall back to ``api.decode_jpeg``.
+    """
+    dev = resolve(device)
+    cs = parse_codestream(data)
+    geom = cs.geometry
+    if geom is None or not cs.scans:
+        raise UnsupportedError("no decodable frame")
+    comp_off = {}
+    off = 0
+    for c in geom.components:
+        comp_off[c.cid] = off
+        off += c.n_blocks
+    coeffs = torch.zeros(off, 64, dtype=torch.int32, device=dev)
+    for scan in cs.scans:
+        if scan.info.ns == 0:
+            continue
+        plan = _cached_plan(geom, scan.info,
+                            tuple(sorted(scan.htables.items())))
+        nb = sum(geom.by_id(cid).n_blocks for cid in scan.info.component_ids)
+        spf = len(scan.ecs_ranges)
+        check_shape(plan, 1, spf, nb)
+        segments = [unstuff(data[s:e]) for s, e in scan.ecs_ranges]
+        lens = np.array([s.size for s in segments], dtype=np.int64)
+        words, nbits = pack_words(
+            np.concatenate(segments) if lens.sum() else np.zeros(0, np.uint8),
+            lens)
+        c_i, _ = decode_segments(
+            plan, torch.from_numpy(words.view(np.int32)).to(dev),
+            torch.from_numpy(nbits.astype(np.int32)).to(dev), 1, spf,
+            scan.ri, nb)
+        o = comp_off[scan.info.component_ids[0]]
+        coeffs[o : o + nb] = c_i
+    qt = torch.from_numpy(cs.qtables.astype(np.int32)).to(dev)
+    return _dense_only(geom, coeffs[None], qt)[0]

@@ -33,7 +33,6 @@ Left out on purpose, against the JAX module: the sticky capacities and
 their retry loop, the learned slot phases, the device word compaction and
 the 17-bit chunk cap all work around XLA's static shapes, which a
 per-thread kernel writing at exact offsets does not have.
-``tables_for_stream`` needs the single-image pipeline and comes with it.
 """
 
 from __future__ import annotations
@@ -232,6 +231,54 @@ class DeviceEncoder:
             table_keys=tuple(keys),
             device=dev,
         )
+
+    @staticmethod
+    def tables_for_stream(sample_pnm: bytes, params: EncodeParams,
+                          device) -> dict:
+        """Optimize Huffman tables on a representative frame (host
+        two-pass, Annex K.2) for use as a stream's fixed ``htables`` --
+        smaller output than the MJPEG defaults at zero per-frame cost.
+        The sample's dense encode runs on ``device``."""
+        from ..entropy.encode import histogram, symbolize_scan
+        from ..models.pipeline import encode_frame
+        from ..utils.pnm import read_pnm
+
+        probe = read_pnm(sample_pnm)
+        geom = geometry_for_image(probe, params)
+        img = read_pnm(sample_pnm, pad_to=(8 * geom.max_v, 8 * geom.max_h))
+        qtables = np.ones((4, 64), dtype=np.int32)
+        qtables[0] = scale_qtable(STD_LUMINANCE_QUANT, params.quality)
+        qtables[1] = scale_qtable(STD_CHROMINANCE_QUANT, params.quality)
+        planes = encode_frame(torch.from_numpy(img.data).to(resolve(device)),
+                              geom, qtables, exact=False)
+        planes = {cid: p.cpu().numpy() for cid, p in planes.items()}
+        comps = sorted(geom.components, key=lambda c: c.cid)
+        info = ScanInfo(
+            component_ids=tuple(c.cid for c in comps),
+            td=tuple(c.td for c in comps),
+            ta=tuple(c.ta for c in comps),
+        )
+        symbols = symbolize_scan(planes, geom, info, params.restart_interval)
+        # Seed every symbol later frames could legally need (the sample
+        # frame may not exercise them): DC categories up to 11 (8-bit) /
+        # 15 (12-bit), AC EOB/ZRL and (run, size) up to size 10/14 --
+        # the baseline symbol sets per T.81.  Negligible code-length
+        # cost, total robustness for the fixed-table stream.
+        dc_cats = 12 if probe.precision <= 8 else 16
+        ac_size = 10 if probe.precision <= 8 else 14
+        out = {}
+        for k, counts in histogram(symbols).items():
+            counts = counts.copy()
+            if k[0] == 0:
+                counts[:dc_cats] += 1
+            else:
+                counts[0x00] += 1
+                counts[0xF0] += 1
+                for r in range(16):
+                    for s in range(1, ac_size + 1):
+                        counts[(r << 4) | s] += 1
+            out[k] = optimize_table(counts)
+        return out
 
     @property
     def blocks_per_frame(self) -> int:

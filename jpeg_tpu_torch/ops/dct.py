@@ -1,14 +1,25 @@
-"""8x8 DCTs over raster-flattened ``[..., 64]`` blocks (fast path).
+"""8x8 DCT-II/DCT-III, batched over ``[..., 8, 8]`` or flattened blocks.
+
+Three forms, as in the JAX package's ``ops/dct.py``:
+
+* ``idct8x8_exact`` / ``fdct8x8_exact`` -- separable 1-D passes with the
+  summation unrolled in ascending-tap order, all in float32, one eager
+  op per multiply and add, so each rounds like the reference's ``s +=
+  in[u] * lut[x][u]`` loop (imgproc.c:84-170, strict IEEE, no FMA):
+  bit-identical to it.  The plain versions of the exact kernels
+  (``models/dense_exact.py``).
+* ``idct8x8_matmul`` / ``fdct8x8_matmul`` -- ``A @ X @ A^T`` (and
+  ``A^T X A``) as two batched 8x8 products, the single-image fast path.
+* ``idct8x8_kron`` / ``fdct8x8_kron`` -- one ``[N, 64] @ [64, 64]``
+  product with a Kronecker operator, the batched fast path.
+
+The fast forms run in float32 with TF32 off (``device.py``), the
+counterpart of the JAX package's ``precision="highest"``; they sum in
+another order than the reference, within ~1e-4.
 
 The cosine LUT reproduces the reference's float path exactly
 (imgproc.c:84-102): the angle is computed in double, rounded to float32,
-and the correctly-rounded cosine of that float32 is taken.  The IDCT
-(the separable ``A X A^T``) and the FDCT (``A^T X A``) are each one
-``[N, 64] @ [64, 64]`` product with a Kronecker operator, in float32
-with TF32 off (``device.py``) --
-the counterpart of the JAX package's ``precision="highest"`` matmul.
-Not bit-identical to the reference's LUT loop (different summation
-order) but within ~1e-4.
+and the correctly-rounded cosine of that float32 is taken.
 """
 
 from __future__ import annotations
@@ -36,6 +47,56 @@ def dct_lut_f32() -> np.ndarray:
             scale = np.float32(half * (c0 if u == 0 else np.float32(1.0)))
             lut[x, u] = np.float32(scale * cos)
     return lut
+
+
+def _contract_last_exact(x: torch.Tensor, mat: np.ndarray) -> torch.Tensor:
+    """out[..., i] = sum_k x[..., k] * mat[i, k], ascending k, float32,
+    every product and sum its own eager op (no FMA contraction)."""
+    cols = []
+    for i in range(8):
+        s = x[..., 0] * float(mat[i, 0])
+        for k in range(1, 8):
+            s = s + x[..., k] * float(mat[i, k])
+        cols.append(s)
+    return torch.stack(cols, dim=-1)
+
+
+def idct8x8_exact(blocks: torch.Tensor) -> torch.Tensor:
+    """Inverse DCT, rows then columns (imgproc.c:130-149), float32
+    bit-exact."""
+    a = dct_lut_f32()
+    blocks = blocks.to(torch.float32)
+    rows = _contract_last_exact(blocks, a)
+    cols = _contract_last_exact(rows.transpose(-1, -2), a)
+    return cols.transpose(-1, -2)
+
+
+def fdct8x8_exact(blocks: torch.Tensor) -> torch.Tensor:
+    """Forward DCT, rows then columns (imgproc.c:151-170), float32
+    bit-exact."""
+    at = np.ascontiguousarray(dct_lut_f32().T)
+    blocks = blocks.to(torch.float32)
+    rows = _contract_last_exact(blocks, at)
+    cols = _contract_last_exact(rows.transpose(-1, -2), at)
+    return cols.transpose(-1, -2)
+
+
+@lru_cache(maxsize=8)
+def lut_on(device: torch.device) -> torch.Tensor:
+    """``dct_lut_f32()`` as a float32 [8, 8] tensor on ``device``."""
+    return torch.from_numpy(dct_lut_f32().copy()).to(device)
+
+
+def idct8x8_matmul(blocks: torch.Tensor) -> torch.Tensor:
+    """Fast form on [..., 8, 8] blocks: IDCT2(X) = A @ X @ A^T."""
+    a = lut_on(blocks.device)
+    return a @ blocks.to(torch.float32) @ a.T
+
+
+def fdct8x8_matmul(blocks: torch.Tensor) -> torch.Tensor:
+    """Fast form on [..., 8, 8] blocks: FDCT2(X) = A^T @ X @ A."""
+    a = lut_on(blocks.device)
+    return a.T @ blocks.to(torch.float32) @ a
 
 
 @lru_cache(maxsize=None)

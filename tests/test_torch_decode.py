@@ -75,12 +75,21 @@ def test_decode_coeffs_batch_matches_jpeg_tpu(frames):
 
 
 def test_mixed_tables_raise(frames):
+    """The coefficient path raises on frames the stream's plan does not
+    take; the pixel path decodes a mixed-table chunk frame by frame
+    instead, and raises only when the sizes differ."""
     other = encode_jpeg(make_ppm(64, 48, seed=99),
                         EncodeParams(h=2, v=2, quality=80, restart_interval=2,
                                      optimize=True, exact=False))
     dec = jt.DeviceDecoder.for_stream(frames[0], device="cpu")
     with pytest.raises(jt.UnsupportedError, match="Huffman"):
-        dec.decode_batch([frames[0], other])
+        dec.decode_coeffs_batch([frames[0], other])
+    px = dec.decode_batch([frames[0], other]).numpy().astype(int)
+    for got, f in zip(px, (frames[0], other)):
+        want = jpeg_tpu.decode_jpeg(f, exact=False).pixels()
+        assert np.abs(got - want).max() <= 1
     other_geom = encode_jpeg(make_ppm(64, 32, seed=1), PARAMS)
     with pytest.raises(jt.UnsupportedError, match="geometry"):
+        dec.decode_coeffs_batch([frames[0], other_geom])
+    with pytest.raises(jt.UnsupportedError, match="size"):
         dec.decode_batch([frames[0], other_geom])

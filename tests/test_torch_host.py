@@ -41,6 +41,9 @@ REPO = Path(__file__).resolve().parent.parent
 CORPUS = REPO / "tests" / "data" / "torch_port"
 DIGESTS = json.loads((CORPUS / "digests.json").read_text())
 ELIGIBLE = ["bench", "yuv420_ri2", "yuv444_ri3", "gray_ri4", "p12_422_ri2"]
+GENERAL = ["ineligible_420_ri3", "short_422_ri5", "short_p12_420_ri5",
+           "row_420_ri3", "short_gray_ri4", "rstless_420"]
+OTHER = ["multiscan_ri4", "multiscan_ri0", "mixed_420_ri2"]
 
 
 def frames_of(name):
@@ -70,7 +73,8 @@ def assert_same(a, b, path="root"):
 
 
 @pytest.mark.parametrize("path", ["utils/pnm.py", "format/emit.py",
-                                  "entropy/encode.py"])
+                                  "entropy/encode.py", "entropy/lockstep.py",
+                                  "entropy/serial.py"])
 def test_encode_host_copies_are_verbatim(path):
     """Numpy-only host modules whose imports are all package-relative are
     carried over byte for byte."""
@@ -99,7 +103,10 @@ def test_encoder_params_and_geometry_match_jax(pnm):
 def test_corpus_size():
     total = sum(p.stat().st_size for p in CORPUS.iterdir())
     assert total < 1 << 20
-    assert set(DIGESTS) == set(ELIGIBLE) | {"ineligible_420_ri3"}
+    assert set(DIGESTS) == set(ELIGIBLE + GENERAL + OTHER)
+    exact = json.loads((CORPUS / "exact.json").read_text())
+    assert set(exact["pnm"]) == set(DIGESTS)
+    assert len(exact["pnm"]["bench"]) == 1
 
 
 @pytest.mark.parametrize("name", sorted(DIGESTS))
@@ -196,12 +203,16 @@ def test_kernel_tables_pack_the_plan():
 
 
 def test_ineligible_stream_raises():
+    """A stream whose segments do not tile MCU rows now decodes (the
+    general-shape path) to jpeg_tpu's coefficients; only the region
+    path's plain version still refuses the shape."""
     frame = frames_of("ineligible_420_ri3")[0]
-    with pytest.raises(jt.UnsupportedError, match="tile"):
-        DeviceDecoder.for_stream(frame, "cpu")
-    with pytest.raises(jt.UnsupportedError):
-        jt.mjpeg.decode_stream_device(frame, "cpu")
-    # the wrapper itself refuses the shape too
+    dec = DeviceDecoder.for_stream(frame, "cpu")
+    coeffs = dec.decode_coeffs_batch([frame])
+    assert hashlib.sha256(coeffs[0].numpy().tobytes()).hexdigest() == \
+        DIGESTS["ineligible_420_ri3"][0]
+    px = jt.mjpeg.decode_stream_device(frame, "cpu")
+    np.testing.assert_array_equal(px.numpy(), dec.decode_batch([frame]))
     cs = parse_codestream(frame)
     scan = cs.scans[0]
     plan = _cached_plan(cs.geometry, scan.info,
@@ -209,19 +220,29 @@ def test_ineligible_stream_raises():
     seg, offs = unstuff_ranges(frame, scan.ecs_ranges)
     words, nbits = pack_words(seg, np.diff(offs))
     tb = sum(c.n_blocks for c in cs.geometry.components)
-    with pytest.raises(jt.UnsupportedError):
-        place_cuda.decode_segments(
-            plan, torch.from_numpy(words.view(np.int32)),
+    args = (plan, torch.from_numpy(words.view(np.int32)),
             torch.from_numpy(nbits.astype(np.int32)), 1,
             len(scan.ecs_ranges), scan.ri, tb)
+    with pytest.raises(jt.UnsupportedError, match="tile"):
+        place_cuda.decode_segments_ref(*args)
+    assert torch.equal(place_cuda.decode_segments(*args)[0], coeffs[0])
 
 
 def test_rstless_stream_raises():
+    """An RST-less stream now decodes, one lane per frame; what still
+    raises is the speculative entropy engine, which is not ported."""
     params = EncodeParams(h=2, v=2, quality=75, restart_interval=0,
                           optimize=False, exact=False)
     jpeg = encode_jpeg(make_ppm(64, 32, seed=3), params)
-    with pytest.raises(jt.UnsupportedError, match="restart"):
-        jt.mjpeg.decode_stream_device(jpeg + jpeg, "cpu")
+    px = jt.mjpeg.decode_stream_device(jpeg + jpeg, "cpu")
+    cs, planes = jpeg_tpu.decode_coefficients(jpeg)
+    want = np.concatenate([planes[c.cid] for c in cs.geometry.components])
+    dec = DeviceDecoder.for_stream(jpeg, "cpu")
+    assert dec.segs_per_frame == 1 and dec.ri == 0
+    np.testing.assert_array_equal(dec.decode_coeffs_batch([jpeg])[0], want)
+    np.testing.assert_array_equal(px[1].numpy(), px[0].numpy())
+    with pytest.raises(jt.UnsupportedError, match="speculative"):
+        jt.decode_jpeg(jpeg, "cpu", entropy="speculative")
 
 
 def test_no_frames_raises():
