@@ -19,14 +19,17 @@ process exits non-zero without printing the result line:
    grayscale, no restart markers), each intact, with seeded damage to its
    segment words, and with the damaged words under hostile Huffman
    tables, so that every way a lane can die runs through the kernels;
+   each kernel call runs on both word routes (segment words staged in
+   shared memory, and with a zero staging budget the register
+   lookahead), and both routes must have run;
 4. against JAX: every single-scan corpus frame's coefficients against the
    sha256 digests jpeg_tpu produced (``digests.json``);
 5. the slice: ``mjpeg.decode_stream_device`` on a 16-frame 1080p stream,
    with the kernel's launch count, checked against the CPU decode;
 6. times: end-to-end stream rate, device-resident rate, host prep, per
    8-frame chunk the kernel against its plain version and the dense
-   tail, and the card's busy share of one stream decode under
-   ``torch.profiler``;
+   tail, the kernel's bound and roofline share, and the card's busy
+   share of one stream decode under ``torch.profiler``;
 7. encode kernels vs plain, on the card: ``pixels_to_zz`` against
    ``pixels_to_zz_ref`` within +-1 and with at most ``DENSE_DIFF_SHARE``
    of the coefficients differing, on an 8-frame 1080p chunk of
@@ -58,9 +61,12 @@ process exits non-zero without printing the result line:
     one short) decode through ``mjpeg.decode_stream_device`` on the
     general kernel alone, to exactly the encoder's blocks and within +-1
     of the CPU decode; the kernel equals its plain version on an 8-frame
-    chunk of it, intact, damaged and under hostile tables; times of the
-    general kernel, its plain version, the one-pass kernel on the ri=4
-    bench chunk, and the stream's end-to-end rate;
+    chunk of it, intact, damaged and under hostile tables; the intact and
+    damaged chunk's contested MCUs (from the plain scan), with the
+    ``boundary_layout`` kernel equal to its plain version on both; times,
+    bounds and roofline shares of the general kernel and the layout
+    kernel against their plain versions, the one-pass kernel's time on
+    the ri=4 bench chunk, and the stream's end-to-end rate;
 12. single image: ``decode_jpeg(..., exact=True)`` of the 1080p bench frame
     and of every small corpus frame on the card, hashed against
     jpeg_tpu's exact ``to_pnm()`` digests (``exact.json``);
@@ -71,8 +77,24 @@ process exits non-zero without printing the result line:
     ``fdct_exact``, ``color_exact``) bitwise equal to its plain version
     on 1080p planes and on seeded random inputs, with times.
 
-The line before the last is a JSON object describing the kernels; the
-last line is ``{"ok": true, "device": {...}}``.
+Every kernel's time is printed beside its bound (``bound``: the bytes it
+must move at 3.35 TB/s or its operations at the peak rate of their type
+(``PEAK_OPS_PER_S``), whichever is larger) and its roofline share.  The
+line before the last is a JSON object describing the kernels; the last
+line is ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --compare PARENT . . PARENT
+
+times the two restart-segment decode kernels of each checkout given (a
+directory holding its ``jpeg_tpu_torch``, e.g. ``git archive <commit>``
+unpacked under ``build/``), in that order, each in a process of its own,
+so that a parent and a change measured in turns on one card compare
+fairly: ``decode_segments`` on the 8-frame ri=4 bench chunk and
+``decode_segments_general`` on an 8-frame ri=7 chunk, intact and damaged
+(20 back-to-back calls, CUDA events, three times; on the register
+lookahead too where the checkout has that route), with a per-kernel
+device profile.  Every checkout's outputs must be equal.  It prints one
+JSON line per checkout and no result line.
 """
 
 from __future__ import annotations
@@ -81,8 +103,13 @@ import hashlib
 import json
 import os
 import subprocess
+import sys
 import time
 from pathlib import Path
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--time-tree"]:
+    # A worker of --compare: import the package of the checkout it times.
+    sys.path.insert(0, os.path.abspath(sys.argv[2]))
 
 import numpy as np
 import torch
@@ -104,7 +131,9 @@ from jpeg_tpu_torch.entropy.encode_torch import (
     encode_scan_ref,
     hist_from_blocks_ref,
 )
+from jpeg_tpu_torch.entropy import place_cuda
 from jpeg_tpu_torch.entropy.lockstep import ScanPlan, build_scan_plan
+from jpeg_tpu_torch.entropy.lockstep_torch import scan_lanes
 from jpeg_tpu_torch.entropy.place_cuda import (
     decode_segments,
     decode_segments_general,
@@ -182,6 +211,15 @@ HOSTILE = {
 }
 
 
+# Peak rates of one H100 SXM at its full 700 W: device memory, and
+# operations outside the tensor cores by type.  float32 and float64 are
+# NVIDIA's data-sheet rates; the sheet lists no int32 rate, and an SM
+# issues half as many 32-bit integer operations per clock as float32 ones
+# (64 against 128, the CUDA programming guide's throughput table for
+# compute capability 9.0), so int32 is half the float32 rate.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12, "int32": 33.5e12}
+
 T0 = [time.perf_counter()]  # the run's start, reset by main()
 
 
@@ -207,6 +245,39 @@ def frames_of(name: str):
     return jpeg_tpu_torch.mjpeg.split_stream(
         (CORPUS / f"{name}.mjpeg").read_bytes()
     )
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved: int, ops: float, kind: str) -> dict:
+    """The least time the card could take for a kernel's work: the larger
+    of ``moved`` bytes (each input read once, each output written once)
+    at the memory rate and ``ops`` operations of type ``kind`` at its peak
+    rate.  -> the kernels line's bound keys; no single PyTorch call
+    computes any of these kernels' functions, so ``library_ms`` is null."""
+    b_ms = moved / HBM_BYTES_PER_S * 1e3
+    o_ms = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return {"bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "library_ms": None}
+
+
+def segment_bound(plan: ScanPlan, nbits: torch.Tensor, coeffs: torch.Tensor,
+                  counts: torch.Tensor) -> dict:
+    """``bound`` of a segment decode: each lane's coded bits (``nbits``,
+    in whole bytes: the zero padding of its words row is not needed), the
+    bit counts and the staged tables in, coefficients and MCU counts out;
+    one int32 operation per coded bit (every bit is looked at once)."""
+    nb = nbits.to(torch.int64)
+    return bound(int(((nb + 7) // 8).sum()) + nbytes(nbits, coeffs, counts)
+                 + 4 * place_cuda._staged_ints(plan), int(nb.sum()), "int32")
+
+
+def log_bound(name: str, ms: float, b: dict, card: str) -> None:
+    log(f"bound {name}: {b['bound_ms']} ms by {b['bound_by']}, roofline "
+        f"share {b['bound_ms'] / ms} ({ms} ms) [{card}]")
 
 
 def busy_us(intervals) -> float:
@@ -347,20 +418,28 @@ def compare_kernel(label: str, plan: ScanPlan, words: torch.Tensor,
     -> (kernel name, max |coeff diff|, mcu_counts - intact lane counts).
     """
     kern, ref, args = segment_kernel(dec, plan, words, nbits, frames)
-    got_c, got_n = kern(*args)
     ref_c, ref_n = ref(*args)
-    torch.cuda.synchronize()
-    err = int((got_c.to(torch.int64) - ref_c).abs().max().item())
-    if not (torch.equal(got_c, ref_c) and torch.equal(got_n, ref_n)):
-        raise AssertionError(
-            f"{label}: {kern.__name__} differs from {ref.__name__} "
-            f"(max |coeff diff| {err}, mcu_counts equal: "
-            f"{torch.equal(got_n, ref_n)})"
-        )
+    err = 0
+    # Once on the route the wrapper picks, once with a zero shared-memory
+    # budget: every row then exceeds it and takes the register lookahead.
+    for budget in (place_cuda.STAGE_BYTES, 0):
+        saved, place_cuda.STAGE_BYTES = place_cuda.STAGE_BYTES, budget
+        try:
+            got_c, got_n = kern(*args)
+        finally:
+            place_cuda.STAGE_BYTES = saved
+        torch.cuda.synchronize()
+        err = max(err, int((got_c.to(torch.int64) - ref_c).abs().max()))
+        if not (torch.equal(got_c, ref_c) and torch.equal(got_n, ref_n)):
+            raise AssertionError(
+                f"{label}: {kern.__name__} (stage budget {budget} bytes) "
+                f"differs from {ref.__name__} (max |coeff diff| {err}, "
+                f"mcu_counts equal: {torch.equal(got_n, ref_n)})"
+            )
     short = got_n.cpu() - lane_mcus(dec, frames)
     log(f"kernel-vs-plain {kern.__name__} {label}: {words.shape[0]} lanes "
         f"({int((short < 0).sum())} died short of their MCUs), coeffs "
-        f"{tuple(got_c.shape)} and mcu_counts equal "
+        f"{tuple(got_c.shape)} and mcu_counts equal on both word routes "
         f"(sum {int(got_n.sum())})")
     return kern.__name__, err, short
 
@@ -368,7 +447,8 @@ def compare_kernel(label: str, plan: ScanPlan, words: torch.Tensor,
 def compare_all(cases) -> dict:
     """``compare_kernel`` on each (label, decoder, frames, seed) case
     intact, with damage from ``seed``, and damaged under hostile tables;
-    -> max |diff| per kernel name."""
+    -> max |diff| per kernel name.  Both word routes must have run."""
+    routes = dict(place_cuda.ROUTE_LAUNCHES)
     errs = {}
     for label, dec, fr, seed in cases:
         words, nbits, _ = dec.prepare(fr)
@@ -385,6 +465,10 @@ def compare_all(cases) -> dict:
             errs[name] = max(errs[name], err)
             if not bool((short < 0).any()):
                 raise AssertionError(f"{label} {tag}: no lane died")
+    ran = {k: v - routes[k] for k, v in place_cuda.ROUTE_LAUNCHES.items()}
+    if min(ran.values()) <= 0:
+        raise AssertionError(f"a word route never ran: {ran}")
+    log(f"kernel-vs-plain launches by word route: {ran}")
     return errs
 
 
@@ -629,9 +713,23 @@ def encode_phases(card: str, streams: dict, decs: dict,
             cuda_ms(lambda: block_histogram(zz, dc_tab, ac_tab, T), 20),
             cuda_ms(lambda: hist_from_blocks_ref(zz, dc_tab, ac_tab, T), 2)),
     }
+    scan_out = encode_scan(*sargs)
+    hist = block_histogram(zz, dc_tab, ac_tab, T)
+    bounds = {
+        # The separable 8x8 FDCT: 2 passes of 64 eight-term sums per block,
+        # a multiply and an add each
+        "pixels_to_zz": bound(nbytes(chunk, qt, prev, zz),
+                              zz.shape[0] * 2 * 64 * 8 * 2, "float32"),
+        # one operation per coefficient examined
+        "encode_scan": bound(nbytes(*sargs[:7], *scan_out[:3]), zz.numel(),
+                             "int32"),
+        "block_histogram": bound(nbytes(zz, dc_tab, ac_tab, hist),
+                                 zz.numel(), "int32"),
+    }
     for name, (k_ms, p_ms) in times.items():
         log(f"time {name}_ms={k_ms} plain_ms={p_ms} per {CHUNK}-frame 1080p "
             f"chunk [{card}]")
+        log_bound(name, k_ms, bounds[name], card)
     profile_window(
         lambda: enc.encode_batch(px, optimize=False, chunk=CHUNK),
         "device_encode.", card, f"{STREAM_FRAMES}-frame encode")
@@ -649,7 +747,7 @@ def encode_phases(card: str, streams: dict, decs: dict,
     return [{"name": name, "route": "cuda",
              "source": f"jpeg_tpu_torch/csrc/{src}", "replaces": replaces,
              "launches": n, "max_abs_err": err, "ms": times[name][0],
-             "plain_ms": times[name][1]}
+             "plain_ms": times[name][1], **bounds[name]}
             for name, src, replaces, n, err in rows]
 
 def bench_pixels(dev: torch.device) -> torch.Tensor:
@@ -659,9 +757,9 @@ def bench_pixels(dev: torch.device) -> torch.Tensor:
 
 
 def general_phase(card: str, dev: torch.device, corpus_err: int,
-                  region_ms: float) -> dict:
-    """Phase 11 (general shape at full width); -> the general kernel's
-    JSON entry.  ``corpus_err`` is its max |diff| on the corpus (phase 3),
+                  region_ms: float) -> list:
+    """Phase 11 (general shape at full width); -> the JSON entries of the
+    general kernel and its layout kernel.  ``corpus_err`` is its max |diff| on the corpus (phase 3),
     ``region_ms`` the one-pass kernel's time on the ri=4 bench chunk."""
     mark("11")
     enc = DeviceEncoder.for_config(synth.HEIGHT, synth.WIDTH, 3,
@@ -674,14 +772,17 @@ def general_phase(card: str, dev: torch.device, corpus_err: int,
     frames = enc.encode_batch(px, optimize=False, chunk=CHUNK)
     stream = b"".join(frames)
     decode_segments.launches = decode_segments_general.launches = 0
+    place_cuda.boundary_layout.launches = 0
     out = jpeg_tpu_torch.mjpeg.decode_stream_device(stream, dev,
                                                     chunk=CHUNK)
     torch.cuda.synchronize()
     launches = decode_segments_general.launches
-    if launches <= 0 or decode_segments.launches:
+    layout_launches = place_cuda.boundary_layout.launches
+    if launches <= 0 or layout_launches <= 0 or decode_segments.launches:
         raise AssertionError(
             f"ri=7 stream: decode_segments_general launched {launches} "
-            f"times, decode_segments {decode_segments.launches} times")
+            f"times, boundary_layout {layout_launches}, decode_segments "
+            f"{decode_segments.launches}")
     want = (STREAM_FRAMES, synth.HEIGHT, synth.WIDTH, 3)
     if tuple(out.shape) != want or out.dtype != torch.uint8 or \
             out.device.type != dev.type:
@@ -708,25 +809,64 @@ def general_phase(card: str, dev: torch.device, corpus_err: int,
     chunk = frames[:CHUNK]
     errs = compare_all([(f"ri=7 1080p chunk x{CHUNK}", dec, chunk, 0)])
     words, nbits, _ = dec.prepare(chunk)
-    args = (dec.plan, words, nbits, CHUNK, dec.segs_per_frame,
-            dec.total_blocks)
+    spf = dec.segs_per_frame
+    args = (dec.plan, words, nbits, CHUNK, spf, dec.total_blocks)
+    # Contested MCUs (two lanes write them; only these take owner keys),
+    # from the plain scan: none on the intact chunk.  The layout kernel
+    # against its plain version on the same counts and partial flags.
+    layout_err = 0
+    for tag, (w, n) in (("intact", (words, nbits)),
+                        ("damaged", damage(words, nbits, 0))):
+        counts, key, _, _ = scan_lanes(dec.plan, w, n)
+        partial = place_cuda.partial_lanes(counts, key)
+        largs = (counts, partial, CHUNK, spf, dec.plan.n_mcus)
+        got = place_cuda.boundary_layout(*largs)
+        want = (*place_cuda.lane_layout(counts, CHUNK, spf),
+                place_cuda.contested_rows(*largs))
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            layout_err = max(layout_err, int((a.to(torch.int64) - b)
+                                             .abs().max()))
+        if layout_err:
+            raise AssertionError(f"boundary_layout differs from its plain "
+                                 f"version on the {tag} chunk")
+        n_rows = int(want[2].sum())
+        log(f"general: {tag} ri=7 chunk x{CHUNK}: {int(partial.sum())} "
+            f"lanes died mid-MCU, {n_rows} contested MCUs; boundary_layout "
+            f"equal to lane_layout + contested_rows")
+        if tag == "intact" and n_rows:
+            raise AssertionError("intact ri=7 chunk has contested MCUs")
+    l_ms = cuda_ms(lambda: place_cuda.boundary_layout(*largs), 20)
+    lp_ms = cuda_ms(lambda: (place_cuda.lane_layout(counts, CHUNK, spf),
+                             place_cuda.contested_rows(*largs)), 20)
+    lb = bound(nbytes(counts, partial, *got), counts.numel(), "int32")
+    log(f"time boundary_layout_ms={l_ms} plain_ms={lp_ms} per {CHUNK}-frame "
+        f"ri=7 chunk [{card}]")
+    log_bound("boundary_layout", l_ms, lb, card)
     k_ms = cuda_ms(lambda: decode_segments_general(*args), 20)
     p_ms = cuda_ms(lambda: decode_segments_general_ref(*args), 2)
     log(f"time decode_segments_general_ms={k_ms} plain_ms={p_ms} per "
         f"{CHUNK}-frame ri=7 1080p chunk ({words.shape[0]} lanes); "
         f"decode_segments_ms={region_ms} on the ri=4 bench chunk [{card}]")
+    b = segment_bound(dec.plan, nbits, *decode_segments_general(*args))
+    log_bound("decode_segments_general", k_ms, b, card)
     mpix = STREAM_FRAMES * synth.WIDTH * synth.HEIGHT / 1e6
     med, runs = median_s(lambda: jpeg_tpu_torch.mjpeg.decode_stream_device(
         stream, dev, chunk=CHUNK), E2E_RUNS)
     log(f"time general_e2e_stream_Mpix_s={mpix / med} (median of {len(runs)} "
         f"runs of {STREAM_FRAMES} ri=7 frames from bytes; run ms "
         f"{[round(r * 1e3, 3) for r in runs]}) [{card}]")
-    return {"name": "decode_segments_general", "route": "cuda",
-            "source": "jpeg_tpu_torch/csrc/decode_segments.cu",
-            "replaces": "jpeg_tpu/entropy/lockstep_jax.py:568",
-            "launches": launches,
-            "max_abs_err": max(corpus_err, errs["decode_segments_general"]),
-            "ms": k_ms, "plain_ms": p_ms}
+    return [{"name": "decode_segments_general", "route": "cuda",
+             "source": "jpeg_tpu_torch/csrc/decode_segments.cu",
+             "replaces": "jpeg_tpu/entropy/lockstep_jax.py:568",
+             "launches": launches,
+             "max_abs_err": max(corpus_err, errs["decode_segments_general"]),
+             "ms": k_ms, "plain_ms": p_ms, **b},
+            {"name": "boundary_layout", "route": "cuda",
+             "source": "jpeg_tpu_torch/csrc/decode_segments.cu",
+             "replaces": "jpeg_tpu/entropy/lockstep_jax.py:595",
+             "launches": layout_launches, "max_abs_err": layout_err,
+             "ms": l_ms, "plain_ms": lp_ms, **lb}]
 
 
 def bitwise(name: str, label: str, got: torch.Tensor,
@@ -907,21 +1047,129 @@ def single_image_phase(card: str, dev: torch.device, streams: dict) -> list:
     what = {"idct_exact": f"1080p Y plane, {c_y.shape[0]} blocks",
             "fdct_exact": f"1080p Y plane, {y_in.shape[0]} blocks",
             "color_exact": "1080p frame, YCbCr -> RGB"}
+    # Separable 8x8 transforms: 2 passes of 64 eight-term sums (a multiply
+    # and an add per term) per block; colour: ~10 operations per pixel.
+    bounds = {
+        "idct_exact": bound(nbytes(c_y, qt[0], idct_exact(c_y, qt[0], 8)),
+                            c_y.shape[0] * 2 * 64 * 8 * 2, "float32"),
+        "fdct_exact": bound(nbytes(y_in, qt[0], fdct_exact(y_in, qt[0], 8)),
+                            y_in.shape[0] * 2 * 64 * 8 * 2, "float32"),
+        "color_exact": bound(nbytes(ycc, color_exact(ycc, 8, "to_rgb")),
+                             ycc.shape[0] * ycc.shape[1] * 10, "float64"),
+    }
     for name, (k_ms, p_ms) in times.items():
         log(f"time {name}_ms={k_ms} plain_ms={p_ms} per {what[name]} "
             f"[{card}]")
+        log_bound(name, k_ms, bounds[name], card)
     return [{"name": name, "route": "cuda",
              "source": "jpeg_tpu_torch/csrc/dense_exact.cu",
              "replaces": replaces, "launches": launches[name],
              "max_abs_err": errs[name], "ms": times[name][0],
-             "plain_ms": times[name][1]}
+             "plain_ms": times[name][1], **bounds[name]}
             for name, replaces in (
                 ("idct_exact", "jpeg_tpu/ops/dct.py:70"),
                 ("fdct_exact", "jpeg_tpu/ops/dct.py:81"),
                 ("color_exact", "jpeg_tpu/ops/color.py:53"))]
 
 
+def time_tree(tree: str) -> dict:
+    """``--time-tree`` (a worker of ``--compare``): the segment kernels of
+    the checkout at ``tree``, whose package this process imported, on this
+    card -> the JSON record of their times and output digests."""
+    here = Path(jpeg_tpu_torch.__file__).resolve()
+    if not here.is_relative_to(Path(tree).resolve()):
+        raise RuntimeError(f"imported {here}, not the package of {tree}")
+    card = card_label()
+    set_precision()
+    dev = torch.device("cuda")
+    bench = frames_of("bench")
+    chunk4 = [bench[i % len(bench)] for i in range(CHUNK)]
+    dec4 = DeviceDecoder.for_stream(chunk4[0], dev)
+    w4, n4, _ = dec4.prepare(chunk4)
+    enc = DeviceEncoder.for_config(synth.HEIGHT, synth.WIDTH, 3,
+                                   GENERAL_PARAMS, device=dev)
+    chunk7 = enc.encode_batch(bench_pixels(dev)[:CHUNK], optimize=False,
+                              chunk=CHUNK)
+    dec7 = DeviceDecoder.for_stream(chunk7[0], dev)
+    w7, n7, _ = dec7.prepare(chunk7)
+    g7 = (CHUNK, dec7.segs_per_frame, dec7.total_blocks)
+    cases = {
+        "decode_segments ri=4": (decode_segments, (
+            dec4.plan, w4, n4, CHUNK, dec4.segs_per_frame, dec4.ri,
+            dec4.total_blocks)),
+        "decode_segments_general ri=7": (decode_segments_general,
+                                         (dec7.plan, w7, n7, *g7)),
+        "decode_segments_general ri=7 damaged": (
+            decode_segments_general, (dec7.plan, *damage(w7, n7, 0), *g7)),
+    }
+    # (label, shared-memory budget of the staged words; None: as it is)
+    routes = [("default", None)]
+    if hasattr(place_cuda, "STAGE_BYTES"):
+        routes.append(("lookahead", 0))
+    out = {"tree": tree, "card": card, "torch": torch.__version__,
+           "cases": {}}
+    for name, (fn, args) in cases.items():
+        coeffs, counts = fn(*args)
+        rec = {"lanes": args[1].shape[0], "sha256": hashlib.sha256(
+            coeffs.cpu().numpy().tobytes()
+            + counts.cpu().numpy().tobytes()).hexdigest(), "ms": {}}
+        for label, budget in routes:
+            saved = getattr(place_cuda, "STAGE_BYTES", None)
+            if budget is not None:
+                place_cuda.STAGE_BYTES = budget
+            try:
+                got = fn(*args)
+                torch.cuda.synchronize()
+                if not (torch.equal(got[0], coeffs)
+                        and torch.equal(got[1], counts)):
+                    raise AssertionError(f"{tree} {name}: the {label} "
+                                         "route's output differs")
+                rec["ms"][label] = [cuda_ms(lambda: fn(*args), 20)
+                                    for _ in range(3)]
+            finally:
+                if budget is not None:
+                    place_cuda.STAGE_BYTES = saved
+        log(f"compare {tree} {name}: ms {rec['ms']} [{card}]")
+        profile_window(lambda: fn(*args), "device_decode.", card,
+                       f"one {name} call of {tree}")
+        out["cases"][name] = rec
+    return out
+
+
+def compare_trees(trees: list) -> None:
+    """``--compare``: ``time_tree`` for each checkout in turn, each in a
+    process of its own; every checkout's outputs must be equal."""
+    if not torch.cuda.is_available() or not trees:
+        raise SystemExit("chip_smoke --compare: needs a CUDA card and "
+                         "at least one checkout")
+    digests = {}
+    for tree in trees:
+        res = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--time-tree",
+             tree], capture_output=True, text=True, timeout=900)
+        sys.stdout.write(res.stdout)
+        if res.returncode != 0:
+            sys.stderr.write(res.stderr)
+            raise SystemExit(f"chip_smoke --time-tree {tree} failed "
+                             f"({res.returncode})")
+        rec = json.loads(res.stdout.strip().splitlines()[-1])
+        for name, case in rec["cases"].items():
+            if digests.setdefault(name, case["sha256"]) != case["sha256"]:
+                raise AssertionError(f"{name}: the output of {tree} "
+                                     f"differs from that of {trees[0]}")
+    log(f"compare: the outputs of {len(trees)} runs are equal")
+
+
 def main() -> None:
+    argv = sys.argv[1:]
+    if argv[:1] == ["--compare"]:
+        compare_trees(argv[1:])
+        return
+    if argv[:1] == ["--time-tree"] and len(argv) == 2:
+        print(json.dumps(time_tree(argv[1])), flush=True)
+        return
+    if argv:
+        raise SystemExit(f"chip_smoke: unknown arguments {argv}")
     t_start = T0[0] = time.perf_counter()
     # ---- 1. environment ------------------------------------------------
     if not torch.cuda.is_available():
@@ -1043,6 +1291,8 @@ def main() -> None:
     p_ms = cuda_ms(lambda: decode_segments_ref(*args), 2)
     log(f"time decode_segments_ms={k_ms} decode_segments_ref_ms={p_ms} "
         f"per {CHUNK}-frame 1080p chunk ({words.shape[0]} lanes) [{card}]")
+    region_bound = segment_bound(dec.plan, nbits, *decode_segments(*args))
+    log_bound("decode_segments", k_ms, region_bound, card)
     coeffs, _ = dec.decode_prepared(words, nbits, CHUNK)
     d_ms = cuda_ms(lambda: _dense_from_coeffs(coeffs, dec.geom, qt), 10)
     log(f"time dense_tail_ms={d_ms} per {CHUNK}-frame 1080p chunk "
@@ -1064,12 +1314,13 @@ def main() -> None:
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,
+        **region_bound,
     }]
     dev = torch.device("cuda")
     encode_streams = {name: streams[name] for name in STREAMS}
     entries += encode_phases(card, encode_streams, decs, dev)
-    entries.append(general_phase(card, dev, errs["decode_segments_general"],
-                                 k_ms))
+    entries += general_phase(card, dev, errs["decode_segments_general"],
+                             k_ms)
     entries += single_image_phase(card, dev, streams)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 

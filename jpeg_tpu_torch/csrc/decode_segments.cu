@@ -15,31 +15,39 @@
 // step bound, streams (key, value) emissions through device memory and
 // places them with masked selects or a scatter.  Here one thread owns one
 // restart segment and decodes it to its end, so there is no step bound
-// and no emission stream: every coefficient is stored straight into its
-// block.
+// and no emission stream: every coefficient goes straight to its block.
 //
 // Four walks share one decode loop (template MODE):
 //   MODE_REGION   eligible shapes, one pass: lane k of a frame owns MCUs
-//                 k*ri .. k*ri+ri-1, so a block's index is arithmetic;
-//                 writes of lane-local MCUs >= ri are dropped.
-//   MODE_COUNT    general pass 1: decode to the end, store only the MCU
-//                 count.  The wrapper's per-frame exclusive cumsum gives
-//                 each lane its first MCU (lane_off).
+//                 k*ri .. k*ri+ri-1 outright (they tile the frame), so it
+//                 assembles each block in a per-thread shared-memory tile
+//                 and stores it whole when it completes; a lane that dies
+//                 stores the block it died in (its ACs, DC 0, as the scan
+//                 leaves it) and zero blocks for the rest of its region.
+//                 The output needs no zero fill.  Lane-local MCUs >= ri
+//                 are dropped.
+//   MODE_COUNT    general pass 1: decode to the end, store the MCU count
+//                 and whether the lane wrote into the MCU it died in
+//                 ("partial").  boundary_layout_kernel (one CTA per frame)
+//                 then gives each lane its first MCU (lane_off, the
+//                 per-frame exclusive sum of the counts) and marks the
+//                 lane-boundary MCUs that two lanes write ("contested";
+//                 plain version place_cuda.lane_layout + contested_rows).
 //   MODE_PLACE    general pass 2: a write of lane-local MCU m goes to
 //                 block(lane_off + m, slot), dropped unless m < n_mcus and
 //                 the block lies inside its component (slot_nblocks).
 //   MODE_RESOLVE  general pass 3, see below.
-// Two lanes can write the same coefficient only in an MCU at a lane
-// boundary: the partial MCU a lane was decoding when it died starts where
-// the next lane starts.  The JAX scatter is a scatter-SET over emissions in
-// (step, lane) order, and on the CPU the last update wins (XLA applies
-// updates in order).  So MODE_PLACE writes MCUs strictly inside a lane's
-// range directly and, for the lane's first MCU and its partial last one,
-// only raises a per-coefficient owner key ((step + 1) << 32 | lane) with
-// atomicMax in a small table of boundary MCUs; MODE_RESOLVE walks again
-// and writes those coefficients whose owner key is its own.  An intact
-// stream has no partial MCUs, so pass 3 then rewrites each lane's first
-// MCU and nothing else.
+// Only a contested MCU has two writers: the partial MCU a damaged lane
+// died in is the next lane's first MCU.  The JAX scatter is a scatter-SET
+// over emissions in (step, lane) order, and on the CPU the last update
+// wins (XLA applies updates in order).  So MODE_PLACE writes every MCU
+// directly except contested ones, where it only raises a per-coefficient
+// owner key ((step + 1) << 32 | lane) with atomicMax (zeroed beforehand
+// by zero_contested_rows, contested rows only); MODE_RESOLVE walks again,
+// only in lanes that touch a contested MCU and only as far as it, and
+// writes the coefficients whose owner key is its own.  On an intact
+// stream nothing is contested and passes 3 and the key zeroing return at
+// once.
 //
 // Semantics are integer-exact with the JAX paths, corrupt input included
 // (see entropy/lockstep_torch.py and entropy/place_cuda.py, the plain
@@ -50,18 +58,46 @@
 // when the block completes, one step after it (the JAX scan's pending
 // emission), and only for lane-local MCUs below n_mcus.
 //
-// What bounds it on the H100: one thread per lane is ~16k threads for an
-// 8-frame 1080p chunk (2,040 segments per frame), about one 128-thread
-// block per SM, and every thread walks a dependent chain of bit-window,
-// table and store operations.  It is latency-bound, not bandwidth-bound
-// (a chunk reads ~4 MB of padded segment words and scatters a few MB of
-// coefficients into its 100 MB zero-filled output).  The general shapes
-// pay three walks for that.  The tables sit in shared memory
-// (canonical-code compare over 16 lengths instead of a 64K-entry LUT,
-// which would not fit); the bit window is a per-thread 64-bit buffer
-// refilled one word at a time.
+// What bounds it on the H100.  The least time is set by bytes: an 8-frame
+// 1080p chunk reads ~1.6 MB of segment bits (in ~4 MB of padded words)
+// and writes 100 MB of int32 coefficients, ~0.031 ms at 3.35 TB/s.  The
+// kernel sits 3x (one pass) to 10x (general) above that: each lane is one
+// dependent chain per symbol (window, table load, length, bit position),
+// a chunk holds only 9k-16k lanes, about one warp per scheduler, so
+// nothing hides that chain's latency, and a warp steps at the pace of its
+// slowest lane and of the rarest path any lane takes (a block completing,
+// a long code).  The design shortens the chain and the divergent paths:
+//   * table lookup: a first-level table of 2^LUT_BITS entries per Huffman
+//     table (code length and symbol, packed in 16 bits; 0 = a longer
+//     code) decodes every code of up to LUT_BITS bits with one
+//     shared-memory load; longer codes continue the canonical compare at
+//     length LUT_BITS + 1 with independent compares.  12 bits (8 KB a
+//     table; only the scan's tables are staged) leave so few long codes
+//     that a warp rarely waits on one.  place_cuda.lookup_table builds it
+//     with the compare's own formula, vidx clip included, so hostile
+//     tables decode the same.  Folding the magnitude bits into the entry
+//     (libjpeg-turbo's fast path) is not done: a path most but not all
+//     lanes of a warp take saves a warp nothing;
+//   * per-block state: tables, component, destination and owner-key row
+//     are set once when a block starts; the DC predictors live in
+//     registers;
+//   * staged words: when a CTA's [lanes, wn] slab of segment words fits
+//     the wrapper's budget, it arrives in shared memory by cp.async 16-byte
+//     copies together with the tables (STAGED); otherwise each thread
+//     keeps a register lookahead that issues the load of word widx + 2
+//     while widx is consumed;
+//   * CTA_LANES = 64 lanes per CTA so both chunk shapes cover all 132 SMs,
+//     decoded by warps of WARP_LANES = 8 active threads (256 threads a
+//     CTA): a chunk then fills each scheduler with a few warps instead of
+//     ~one, and a warp waits on 8 lanes' divergent paths instead of 32;
+//   * whole-block stores in the one-pass walk: two tiles per thread, a
+//     finished tile leaves by one cp.async.bulk copy while the thread
+//     fills the other, and the output needs no memset; the place walk
+//     stores each coefficient into a zeroed output, which measured faster
+//     than tiles there; owner keys only in contested MCUs.
 
 #include <cstdint>
+#include <cub/block/block_scan.cuh>
 #include <cuda_runtime.h>
 
 namespace {
@@ -69,7 +105,9 @@ namespace {
 // Packed table layout (int32); entropy/place_cuda.py builds it.
 constexpr int T_MAX = 8;
 constexpr int SLOTS = 16;
-constexpr int C_MAX = 4;
+constexpr int C_MAX = 4;  // the walk keeps one DC predictor register each
+constexpr int LUT_BITS = 12;
+constexpr int LUT_SIZE = 1 << LUT_BITS;
 constexpr int OFF_MAXCODE = 0;
 constexpr int OFF_MINCODE = OFF_MAXCODE + T_MAX * 17;
 constexpr int OFF_VALPTR = OFF_MINCODE + T_MAX * 17;
@@ -82,9 +120,21 @@ constexpr int OFF_C1 = OFF_C0 + SLOTS;
 constexpr int OFF_C2 = OFF_C1 + SLOTS;
 constexpr int OFF_BLK_END = OFF_C2 + SLOTS;
 constexpr int OFF_ZIGZAG = OFF_BLK_END + SLOTS;
-constexpr int TABLE_INTS = OFF_ZIGZAG + 64;
+constexpr int OFF_LUT = OFF_ZIGZAG + 64;  // uint16 [T_MAX, LUT_SIZE]
+constexpr int TABLE_INTS = OFF_LUT + T_MAX * LUT_SIZE / 2;
+static_assert(OFF_LUT % 4 == 0 && TABLE_INTS % 4 == 0,
+              "tables are staged in 16-byte copies");
 
-constexpr int THREADS = 128;
+// Launch shape: CTA_LANES lanes per CTA, WARP_LANES of them per warp
+// (threads 0..WARP_LANES-1 of each warp decode, the rest only help stage).
+constexpr int CTA_LANES = 64;  // place_cuda.CTA_LANES sizes the staged slab
+constexpr int WARP_LANES = 8;
+constexpr int THREADS = CTA_LANES / WARP_LANES * 32;
+constexpr int LAYOUT_THREADS = 1024;
+constexpr int TILE_STRIDE = 68;  // ints per block tile: 16-byte rows that
+                                 // start 4 banks apart
+constexpr int TILES_PER_THREAD = 2;  // one filling, one being copied out
+constexpr int ROW_PAD = 4;       // staged rows start 4 banks apart
 
 constexpr int MODE_REGION = 0;
 constexpr int MODE_COUNT = 1;
@@ -102,35 +152,37 @@ struct Params {
   int interleaved;   // Ns > 1
   int m_x;           // MCU-row width used by the block affinities
   int vpad;          // huffval index clip: vidx <= vpad - 1
+  int tab_ints;      // ints of `tables` to stage (the used LUTs only)
 };
 
-// Per-lane inputs of the general passes (null in the other modes).
+// Per-lane inputs and outputs of the general passes (null in region mode).
 struct General {
   const int32_t* counts;     // [S] lane MCU counts (pass 1)
   const int32_t* lane_off;   // [S] frame-local first MCU of each lane
   const int32_t* lane_first; // [S] first lane of the frame with that offset
+  int32_t* partial;          // [S] 1: the lane wrote into MCU `count`
+  const int32_t* contested;  // [frames * (spf + 1)] boundary rows, 1 = two
+                             // lanes write that MCU
   unsigned long long* bkey;  // [frames, spf + 1, bpm, 64] owner keys
 };
 
-__device__ __forceinline__ uint32_t load_word(const uint32_t* row, int i,
-                                              int wn) {
-  return i < wn ? row[i] : 0u;
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
 }
 
-// Frame-relative block of frame-local MCU `gm`, slot `slot`.
-__device__ __forceinline__ int64_t block_of(const int32_t* tab,
-                                            const Params& p, int64_t gm,
-                                            int slot) {
-  int64_t my = 0, mx = gm;
-  if (p.interleaved) {
-    my = gm / p.m_x;
-    mx = gm - my * p.m_x;
-  }
-  return tab[OFF_C0 + slot] + my * tab[OFF_C1 + slot] +
-         mx * tab[OFF_C2 + slot];
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
 }
 
-template <int MODE>
+__device__ __forceinline__ void zero_block(int32_t* dst) {
+  int4* d = reinterpret_cast<int4*>(dst);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) d[i] = make_int4(0, 0, 0, 0);
+}
+
+template <int MODE, bool STAGED>
 __global__ void __launch_bounds__(THREADS)
 decode_segments_kernel(const int32_t* __restrict__ tables,
                        const uint32_t* __restrict__ words,
@@ -138,52 +190,182 @@ decode_segments_kernel(const int32_t* __restrict__ tables,
                        int32_t* __restrict__ coeffs,
                        int32_t* __restrict__ mcu_counts, Params p,
                        General g) {
-  __shared__ int32_t tab[TABLE_INTS];
-  for (int i = threadIdx.x; i < TABLE_INTS; i += blockDim.x) tab[i] = tables[i];
-  __syncthreads();
+  // The region walk assembles blocks in shared-memory tiles and stores
+  // them whole.
+  constexpr bool TILES = MODE == MODE_REGION;
+  extern __shared__ int4 smem[];
+  int32_t* tab = reinterpret_cast<int32_t*>(smem);
+  int32_t* tiles = tab + p.tab_ints;
+  uint32_t* slab = reinterpret_cast<uint32_t*>(
+      tiles + (TILES ? CTA_LANES * TILE_STRIDE * TILES_PER_THREAD : 0));
 
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= p.S) return;
-
-  const uint32_t* row = words + static_cast<int64_t>(lane) * p.wn;
-  const int nb = nbits[lane];
+  // A warp decodes WARP_LANES lanes: fewer lanes per warp put more warps
+  // on each scheduler to hide the decode chain's latency, and a warp then
+  // waits on fewer lanes' divergent paths.
+  const int li = threadIdx.x & 31;
+  const int idx = (threadIdx.x >> 5) * WARP_LANES + li;  // lane in the CTA
+  const int base = blockIdx.x * CTA_LANES;
+  const int lane = base + idx;
+  const bool mine = li < WARP_LANES && lane < p.S;
   const int frame = lane / p.spf;
   const int k = lane - frame * p.spf;
-  const int64_t frame_base = static_cast<int64_t>(frame) * p.total_blocks;
   int count = 0, off = 0, first = 0;
-  if (MODE == MODE_PLACE || MODE == MODE_RESOLVE) {
+  bool c_first = false, c_end = false;  // contested first / partial MCU
+  if ((MODE == MODE_PLACE || MODE == MODE_RESOLVE) && mine) {
     count = g.counts[lane];
     off = g.lane_off[lane];
     first = g.lane_first[lane];
+    const int64_t frow = static_cast<int64_t>(frame) * (p.spf + 1);
+    c_first = g.contested[frow + first] != 0;
+    c_end = g.partial[lane] != 0 &&
+            g.contested[frow + (count == 0 ? first : k + 1)] != 0;
+  }
+  if (MODE == MODE_RESOLVE) {
+    // Only lanes that touch a contested MCU walk again.
+    if (!__syncthreads_or(mine && (c_first || c_end))) return;
   }
 
+  // Stage the tables and, on the staged route, the CTA's word slab.
+  for (int c = threadIdx.x; c < p.tab_ints / 4; c += blockDim.x)
+    cp_async16(smem + c, tables + 4 * c);
+  const int stride = p.wn + ROW_PAD;
+  if (STAGED) {
+    const int rows = min(CTA_LANES, p.S - base);
+    const int cpr = p.wn >> 2;  // 16-byte chunks per row
+    const uint32_t* src = words + static_cast<int64_t>(base) * p.wn;
+    for (int c = threadIdx.x; c < rows * cpr; c += blockDim.x) {
+      const int i = c / cpr, j = c - i * cpr;
+      cp_async16(slab + i * stride + 4 * j,
+                 src + static_cast<int64_t>(i) * p.wn + 4 * j);
+    }
+  }
+  int32_t* tile = tiles + idx * TILE_STRIDE * TILES_PER_THREAD;
+  int32_t* spare = tile + TILE_STRIDE;  // the thread's second tile
+  if (TILES && mine) {
+    int4* t = reinterpret_cast<int4*>(tile);
+    for (int i = 0; i < 16 * TILES_PER_THREAD; ++i)
+      t[i + (i >> 4)] = make_int4(0, 0, 0, 0);  // 17 int4 per tile
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  // A resolve lane without a contested MCU writes nothing: it only helped
+  // stage.
+  if (!mine || (MODE == MODE_RESOLVE && !c_first && !c_end)) return;
+  const uint16_t* lut = reinterpret_cast<const uint16_t*>(tab + OFF_LUT);
+
+  const uint32_t* grow = words + static_cast<int64_t>(lane) * p.wn;
+  const uint32_t* srow = slab + idx * stride;
+  auto word = [&](int i) -> uint32_t {
+    if (i >= p.wn) return 0u;
+    return STAGED ? srow[i] : __ldg(grow + i);
+  };
+
+  const int nb = nbits[lane];
+  const int64_t frame_base = static_cast<int64_t>(frame) * p.total_blocks;
+  // Position of the current frame-local MCU in its MCU row (Ns=1 scans:
+  // one row holds every MCU, so mx never wraps), advanced per MCU.
+  int64_t my = 0, mx = MODE == MODE_REGION ? k * p.ri : off;
+  if (p.interleaved) {
+    my = mx / p.m_x;
+    mx -= my * p.m_x;
+  }
+  auto next_mcu = [&]() {
+    if (++mx == p.m_x && p.interleaved) {
+      mx = 0;
+      ++my;
+    }
+  };
+  // Store the current tile whole at `d` by one bulk asynchronous copy
+  // (cp.async.bulk, 256 bytes) and start the next block on the other,
+  // cleared tile.
+  auto flush = [&](int32_t* d) {
+    // The tile's generic-proxy stores must be visible to the bulk copy.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    const unsigned src =
+        static_cast<unsigned>(__cvta_generic_to_shared(tile));
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], 256;\n"
+        ::"l"(d), "r"(src) : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    int32_t* t = tile;
+    tile = spare;
+    spare = t;
+    // The copy that last read the tile we switch to is done with it.
+    asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+    int4* z = reinterpret_cast<int4*>(tile);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) z[i] = make_int4(0, 0, 0, 0);
+  };
+  auto block_dst = [&](int s) -> int64_t {  // -1: outside the frame
+    const int64_t rel = tab[OFF_C0 + s] + my * tab[OFF_C1 + s] +
+                        mx * tab[OFF_C2 + s];
+    // region_path: the lanes' regions tile the frame's blocks exactly.
+    if (MODE == MODE_REGION) return (frame_base + rel) * 64;
+    return rel < tab[OFF_BLK_END + s] ? (frame_base + rel) * 64 : -1;
+  };
+
   int bitpos = 0, mcu = 0, slot = 0, coeff = 0, cur_diff = 0, step = 0;
-  int dc_pred[C_MAX] = {0, 0, 0, 0};
+  int pred0 = 0, pred1 = 0, pred2 = 0, pred3 = 0;  // DC predictors
   int widx = 0;  // buf holds words widx and widx + 1
-  uint64_t buf = (static_cast<uint64_t>(load_word(row, 0, p.wn)) << 32) |
-                 load_word(row, 1, p.wn);
+  uint64_t buf = (static_cast<uint64_t>(word(0)) << 32) | word(1);
+  uint32_t ahead = STAGED ? 0u : word(2);  // lookahead: word widx + 2
+  bool wrote = false;  // count walk: a write landed in MCU `mcu`
   bool alive = nb > 0;
 
-  for (; alive; ++step) {
-    const uint32_t win = static_cast<uint32_t>((buf << (bitpos & 31)) >> 32);
-    const int code16 = static_cast<int>(win >> 16);
-    const bool is_dc = coeff == 0;
-    const int t = is_dc ? tab[OFF_SLOT_DC + slot] : tab[OFF_SLOT_AC + slot];
-
-    // Canonical decode: the first length l with prefix <= maxcode[t][l].
-    int length = 0, base = 0, minc = 0;
-    for (int l = 1; l <= 16; ++l) {
-      if ((code16 >> (16 - l)) <= tab[OFF_MAXCODE + t * 17 + l]) {
-        length = l;
-        base = tab[OFF_VALPTR + t * 17 + l];
-        minc = tab[OFF_MINCODE + t * 17 + l];
-        break;
+  // State of the block (mcu, slot), set when it starts: its tables and
+  // component, whether the scan emits its writes (block_ok), its first
+  // coefficient (dst, -1: writes are dropped) and, for a contested MCU of
+  // the general walks, its owner keys at bkey[kbase + pos].
+  int t_dc = 0, t_ac = 0, comp = 0;
+  bool block_ok = false;
+  int64_t dst = -1, kbase = -1;
+  auto begin_block = [&]() {
+    t_dc = tab[OFF_SLOT_DC + slot];
+    t_ac = tab[OFF_SLOT_AC + slot];
+    comp = tab[OFF_SLOT_COMP + slot];
+    block_ok = mcu < p.n_mcus;
+    dst = -1;
+    kbase = -1;
+    if (MODE == MODE_REGION) {
+      if (mcu < p.ri) dst = block_dst(slot);  // inside the lane's region
+    } else if (MODE != MODE_COUNT && block_ok) {
+      dst = block_dst(slot);
+      if (dst >= 0 && ((mcu == 0 && c_first) || (mcu == count && c_end))) {
+        const int brow = mcu == 0 ? first : k + 1;
+        kbase = ((static_cast<int64_t>(frame) * (p.spf + 1) + brow) *
+                 p.bpm + slot) * 64;
       }
     }
-    if (length == 0) break;  // no code matches: the lane dies
-    int vidx = base + (code16 >> (16 - length)) - minc;
-    vidx = min(max(vidx, 0), p.vpad - 1);
-    const int value = tab[OFF_HUFFVAL + t * 256 + vidx];
+  };
+  begin_block();
+
+  for (; alive; ++step) {
+    if (MODE == MODE_RESOLVE && !c_end && mcu > 0) break;  // past MCU 0
+    const uint32_t win = static_cast<uint32_t>((buf << (bitpos & 31)) >> 32);
+    const bool is_dc = coeff == 0;
+    const int t = is_dc ? t_dc : t_ac;
+
+    // Codes of up to LUT_BITS bits: one lookup.  Longer ones: the
+    // canonical compare from LUT_BITS + 1 on (the first length l with
+    // prefix <= maxcode[t][l]), its compares independent of each other.
+    const int e = lut[t * LUT_SIZE + (win >> (32 - LUT_BITS))];
+    int length, value;
+    if (e != 0) {
+      length = e >> 8;
+      value = e & 0xFF;
+    } else {
+      const int code16 = static_cast<int>(win >> 16);
+      const int* maxcode = tab + OFF_MAXCODE + t * 17;
+      length = 0;
+#pragma unroll
+      for (int l = 16; l > LUT_BITS; --l)
+        if ((code16 >> (16 - l)) <= maxcode[l]) length = l;
+      if (length == 0) break;  // no code matches: the lane dies
+      const int vidx = tab[OFF_VALPTR + t * 17 + length] +
+                       (code16 >> (16 - length)) -
+                       tab[OFF_MINCODE + t * 17 + length];
+      value = tab[OFF_HUFFVAL + t * 256 + min(max(vidx, 0), p.vpad - 1)];
+    }
     if (is_dc && value > 16) break;  // DC category past 16
     const int cat = is_dc ? value : (value & 15);
     const int need = length + cat;  // 1..32 bits
@@ -195,71 +377,57 @@ decode_segments_kernel(const int32_t* __restrict__ tables,
         cat == 0 ? 0
                  : ((extra >> (cat - 1)) ? extra : extra - (1 << cat) + 1);
 
-    const bool block_ok = mcu < p.n_mcus;
     if (is_dc && !block_ok && p.interleaved) break;  // NULL-block DC
     const bool is_eob = !is_dc && value == 0;
     const int new_coeff = is_dc ? 1 : coeff + (value >> 4);
     if (!is_dc && !is_eob && new_coeff > 63) break;  // AC run past 63
 
-    // The symbol is live.  Its block, computed once per symbol as in the
-    // one-pass kernel: dst is the block's first coefficient (-1: writes
-    // are dropped); a general-shape write into an MCU at a lane boundary
-    // goes through the owner keys at bkey[kbase + pos].
-    int64_t dst = -1, kbase = -1;
-    if (MODE == MODE_REGION) {
-      if (mcu < p.ri) {  // inside the lane's region
-        // gm < n_mcus here, so 32-bit arithmetic (and, for Ns=1 scans,
-        // m_x = n_mcus gives my = 0).
-        const int gm = k * p.ri + mcu;
-        const int my = gm / p.m_x;
-        const int mx = gm - my * p.m_x;
-        dst = (frame_base + tab[OFF_C0 + slot] + my * tab[OFF_C1 + slot] +
-               mx * tab[OFF_C2 + slot]) * 64;
-      }
-    } else if (MODE != MODE_COUNT && mcu < p.n_mcus) {  // lane-local bound
-      const int64_t rel =
-          block_of(tab, p, static_cast<int64_t>(off) + mcu, slot);
-      if (rel < tab[OFF_BLK_END + slot]) {  // seq < slot_nblocks
-        dst = (frame_base + rel) * 64;
-        if (mcu == 0 || mcu == count) {  // other lanes may write this MCU
-          const int brow = mcu == 0 ? first : k + 1;
-          kbase = ((static_cast<int64_t>(frame) * (p.spf + 1) + brow) *
-                   p.bpm + slot) * 64;
+    // The symbol is live.  Store `v` at position `pos` of the block,
+    // emitted at lockstep step `at`.
+    auto put = [&](int pos, int v, int at) {
+      if (MODE == MODE_COUNT) {
+        wrote = wrote || block_ok;
+      } else if (dst >= 0) {
+        if (TILES) {
+          tile[pos] = v;
+        } else if (kbase < 0) {
+          if (MODE != MODE_RESOLVE) coeffs[dst + pos] = v;
+        } else {
+          const unsigned long long key =
+              (static_cast<unsigned long long>(at + 1) << 32) |
+              static_cast<unsigned int>(lane);
+          if (MODE == MODE_PLACE) {
+            atomicMax(g.bkey + kbase + pos, key);
+          } else if (g.bkey[kbase + pos] == key) {
+            coeffs[dst + pos] = v;
+          }
         }
-      }
-    }
-    // Store `value` at position `pos` of the block, emitted at lockstep
-    // step `at`.
-    auto put = [&](int pos, int value, int at) {
-      if (dst < 0) return;
-      if (kbase < 0) {
-        if (MODE != MODE_RESOLVE) coeffs[dst + pos] = value;
-        return;
-      }
-      const unsigned long long key =
-          (static_cast<unsigned long long>(at + 1) << 32) |
-          static_cast<unsigned int>(lane);
-      if (MODE == MODE_PLACE) {
-        atomicMax(g.bkey + kbase + pos, key);
-      } else if (g.bkey[kbase + pos] == key) {
-        coeffs[dst + pos] = value;
       }
     };
     if (!is_dc && !is_eob) put(tab[OFF_ZIGZAG + new_coeff], coef_val, step);
     if (is_dc) cur_diff = coef_val;
     const int after = is_dc ? 1 : new_coeff + 1;
     if (is_eob || after >= 64) {
-      const int comp = tab[OFF_SLOT_COMP + slot];
       // int32 wrap-around, as the JAX engine's int32 arithmetic
-      const int dc = static_cast<int>(static_cast<uint32_t>(dc_pred[comp]) +
+      const int pred = comp == 0 ? pred0
+                     : comp == 1 ? pred1
+                     : comp == 2 ? pred2 : pred3;
+      const int dc = static_cast<int>(static_cast<uint32_t>(pred) +
                                       static_cast<uint32_t>(cur_diff));
       put(0, dc, step + 1);  // the scan emits it a step later
-      dc_pred[comp] = dc;
+      if (TILES && dst >= 0) flush(coeffs + dst);
+      pred0 = comp == 0 ? dc : pred0;
+      pred1 = comp == 1 ? dc : pred1;
+      pred2 = comp == 2 ? dc : pred2;
+      pred3 = comp == 3 ? dc : pred3;
       coeff = 0;
       if (++slot >= p.bpm) {
         slot = 0;
         ++mcu;
+        next_mcu();
+        wrote = false;
       }
+      begin_block();
     } else {
       coeff = after;
     }
@@ -267,20 +435,119 @@ decode_segments_kernel(const int32_t* __restrict__ tables,
     const int nw = bitpos >> 5;  // a symbol crosses at most one word
     if (nw != widx) {
       widx = nw;
-      buf = (buf << 32) | load_word(row, widx + 1, p.wn);
+      if (STAGED) {
+        buf = (buf << 32) | word(widx + 1);
+      } else {
+        buf = (buf << 32) | ahead;
+        ahead = word(widx + 2);
+      }
     }
   }
+  if (TILES && mcu < p.ri) {
+    // The block the lane died in keeps what it decoded (ACs, DC 0); the
+    // rest of its region is zero.
+    flush(coeffs + dst);
+    for (int s = slot + 1; s < p.bpm; ++s) zero_block(coeffs + block_dst(s));
+    next_mcu();
+    for (int m = mcu + 1; m < p.ri; ++m, next_mcu())
+      for (int s = 0; s < p.bpm; ++s) zero_block(coeffs + block_dst(s));
+  }
+  if (TILES)  // the tiles stay allocated until copied out
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   if (MODE == MODE_REGION || MODE == MODE_COUNT) mcu_counts[lane] = mcu;
+  if (MODE == MODE_COUNT) g.partial[lane] = wrote ? 1 : 0;
 }
 
-template <int MODE>
-int launch(const void* tables, const void* words, const void* nbits,
-           void* coeffs, void* mcu_counts, const Params& p, const General& g,
-           void* stream) {
-  if (p.S <= 0) return 0;
-  const int blocks = (p.S + THREADS - 1) / THREADS;
-  decode_segments_kernel<MODE><<<blocks, THREADS, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
+struct MaxOp {
+  __device__ int operator()(int a, int b) const { return a > b ? a : b; }
+};
+
+// The general walks' lane layout, one CTA per frame (the plain version is
+// place_cuda.lane_layout + contested_rows): each lane's first MCU (the
+// exclusive sum of the counts before it), the first lane of the frame
+// with that first MCU, and the contested boundary rows.  Row r (the MCU
+// where lane r starts; row spf: where the last lane ends) is contested
+// when it lies in the frame and has two writers: the first lane from r
+// on with a nonzero count, and each partial lane ending there (row k + 1,
+// or its own first row when its count is 0).
+__global__ void __launch_bounds__(LAYOUT_THREADS)
+boundary_layout_kernel(const int32_t* __restrict__ counts,
+                       const int32_t* __restrict__ partial, int spf,
+                       int n_mcus, int32_t* __restrict__ lane_off,
+                       int32_t* __restrict__ lane_first,
+                       int32_t* __restrict__ contested) {
+  using SumScan = cub::BlockScan<long long, LAYOUT_THREADS>;
+  using MaxScan = cub::BlockScan<int, LAYOUT_THREADS>;
+  __shared__ union {
+    typename SumScan::TempStorage sum;
+    typename MaxScan::TempStorage max;
+  } tmp;
+  __shared__ int last_whole;  // the frame's last lane with a nonzero count
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * spf;
+  int32_t* row = contested + static_cast<int64_t>(blockIdx.x) * (spf + 1);
+  if (threadIdx.x == 0) last_whole = -1;
+  for (int r = threadIdx.x; r <= spf; r += blockDim.x) row[r] = 0;
+  long long carry = 0;  // MCUs of the chunks of lanes before
+  int carry_first = 0;
+  for (int c0 = 0; c0 < spf; c0 += LAYOUT_THREADS) {
+    const int k = c0 + threadIdx.x;
+    const bool in = k < spf;
+    const long long per = in ? counts[base + k] : 0;
+    const bool starts = in && (k == 0 || counts[base + k - 1] > 0);
+    long long off, total;
+    SumScan(tmp.sum).ExclusiveSum(per, off, total);
+    __syncthreads();
+    int first, top;
+    MaxScan(tmp.max).InclusiveScan(starts ? k : -1, first, MaxOp(), top);
+    __syncthreads();
+    if (in) {
+      lane_off[base + k] = static_cast<int32_t>(carry + off);
+      lane_first[base + k] = max(first, carry_first);
+      if (per > 0) atomicMax(&last_whole, k);
+    }
+    carry += total;
+    carry_first = max(carry_first, top);
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < spf; k += blockDim.x)
+    if (partial[base + k])
+      atomicAdd(row + (counts[base + k] == 0 ? lane_first[base + k] : k + 1),
+                1);
+  __syncthreads();
+  for (int r = threadIdx.x; r <= spf; r += blockDim.x) {
+    const long long start = r < spf ? lane_off[base + r] : carry;
+    const int writers = row[r] + (r <= last_whole ? 1 : 0);
+    row[r] = start < n_mcus && writers >= 2 ? 1 : 0;
+  }
+}
+
+// Zero the owner keys of contested boundary rows (one warp per row).
+__global__ void zero_contested_rows(const int32_t* __restrict__ contested,
+                                    int rows, int row_len,
+                                    unsigned long long* __restrict__ bkey) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (row >= rows || !contested[row]) return;
+  unsigned long long* r = bkey + static_cast<int64_t>(row) * row_len;
+  for (int i = threadIdx.x & 31; i < row_len; i += 32) r[i] = 0ull;
+}
+
+template <int MODE, bool STAGED>
+int launch_route(const void* tables, const void* words, const void* nbits,
+                 void* coeffs, void* mcu_counts, const Params& p,
+                 const General& g, void* stream) {
+  auto kern = decode_segments_kernel<MODE, STAGED>;
+  const size_t smem =
+      sizeof(int32_t) * (p.tab_ints +
+                         (MODE == MODE_REGION
+                              ? CTA_LANES * TILE_STRIDE * TILES_PER_THREAD
+                              : 0) +
+                         (STAGED ? CTA_LANES * (p.wn + ROW_PAD) : 0));
+  cudaError_t rc = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int blocks = (p.S + CTA_LANES - 1) / CTA_LANES;
+  kern<<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(tables),
       static_cast<const uint32_t*>(words),
       static_cast<const int32_t*>(nbits), static_cast<int32_t*>(coeffs),
@@ -288,51 +555,103 @@ int launch(const void* tables, const void* words, const void* nbits,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int MODE>
+int launch(const void* tables, const void* words, const void* nbits,
+           void* coeffs, void* mcu_counts, const Params& p, const General& g,
+           int staged, void* stream) {
+  if (p.S <= 0) return 0;
+  if (p.tab_ints % 4 || p.tab_ints > TABLE_INTS || (staged && p.wn % 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return staged ? launch_route<MODE, true>(tables, words, nbits, coeffs,
+                                           mcu_counts, p, g, stream)
+                : launch_route<MODE, false>(tables, words, nbits, coeffs,
+                                            mcu_counts, p, g, stream);
+}
+
 }  // namespace
 
 extern "C" int jt_decode_segments_table_ints() { return TABLE_INTS; }
+extern "C" int jt_decode_segments_lut_bits() { return LUT_BITS; }
+extern "C" int jt_decode_segments_cta_lanes() { return CTA_LANES; }
 
 // Eligible shapes, one pass.  Launches on `stream`; returns
-// cudaGetLastError() after the launch.
+// cudaGetLastError() after the launch.  `staged` picks the route that
+// copies each CTA's word slab into shared memory (needs wn % 4 == 0 and
+// 16-byte-aligned words).
 extern "C" int jt_decode_segments(const void* tables, const void* words,
                                   const void* nbits, void* coeffs,
                                   void* mcu_counts, int S, int wn, int spf,
                                   int ri, int total_blocks, int bpm,
                                   int n_mcus, int interleaved, int m_x,
-                                  int vpad, void* stream) {
-  const Params p{S, wn, spf, ri, total_blocks, bpm, n_mcus, interleaved, m_x,
-                 vpad};
+                                  int vpad, int tab_ints, int staged,
+                                  void* stream) {
+  const Params p{S,      wn,          spf, ri,   total_blocks, bpm,
+                 n_mcus, interleaved, m_x, vpad, tab_ints};
   return launch<MODE_REGION>(tables, words, nbits, coeffs, mcu_counts, p,
-                             General{}, stream);
+                             General{}, staged, stream);
 }
 
-// General shapes, pass 1: per-lane MCU counts only.
+// General shapes, pass 1: per-lane MCU counts and partial flags.
 extern "C" int jt_decode_segments_count(const void* tables, const void* words,
                                         const void* nbits, void* mcu_counts,
-                                        int S, int wn, int spf, int bpm,
-                                        int n_mcus, int interleaved, int m_x,
-                                        int vpad, void* stream) {
-  const Params p{S, wn, spf, 0, 0, bpm, n_mcus, interleaved, m_x, vpad};
-  return launch<MODE_COUNT>(tables, words, nbits, nullptr, mcu_counts, p,
-                            General{}, stream);
+                                        void* partial, int S, int wn,
+                                        int spf, int bpm, int n_mcus,
+                                        int interleaved, int m_x, int vpad,
+                                        int tab_ints, int staged,
+                                        void* stream) {
+  const Params p{S,      wn,          spf, 0,    0,       bpm,
+                 n_mcus, interleaved, m_x, vpad, tab_ints};
+  General g{};
+  g.partial = static_cast<int32_t*>(partial);
+  return launch<MODE_COUNT>(tables, words, nbits, nullptr, mcu_counts, p, g,
+                            staged, stream);
 }
 
-// General shapes, passes 2 and 3, one launch each on `stream`: the place
-// walk, then the resolve walk over the boundary MCUs' owner keys.
+// General shapes, between passes 1 and 2: the lane layout and contested
+// rows of `frames` frames of `spf` lanes, on `stream`.
+extern "C" int jt_boundary_layout(const void* counts, const void* partial,
+                                  void* lane_off, void* lane_first,
+                                  void* contested, int frames, int spf,
+                                  int n_mcus, void* stream) {
+  if (frames <= 0 || spf <= 0) return 0;
+  boundary_layout_kernel<<<frames, LAYOUT_THREADS, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(counts),
+      static_cast<const int32_t*>(partial), spf, n_mcus,
+      static_cast<int32_t*>(lane_off), static_cast<int32_t*>(lane_first),
+      static_cast<int32_t*>(contested));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// General shapes, passes 2 and 3 on `stream`: zero the contested rows'
+// owner keys, the place walk, then the resolve walk (its CTAs without a
+// contested lane return at once; it always reads words from device
+// memory).
 extern "C" int jt_decode_segments_place(
     const void* tables, const void* words, const void* nbits,
     const void* counts, const void* lane_off, const void* lane_first,
-    void* bkey, void* coeffs, int S, int wn, int spf, int total_blocks,
-    int bpm, int n_mcus, int interleaved, int m_x, int vpad, void* stream) {
-  const Params p{S, wn, spf, 0, total_blocks, bpm, n_mcus, interleaved, m_x,
-                 vpad};
+    const void* partial, const void* contested, void* bkey, void* coeffs,
+    int S, int wn, int spf, int frames, int total_blocks, int bpm,
+    int n_mcus, int interleaved, int m_x, int vpad, int tab_ints,
+    int staged, void* stream) {
+  if (S <= 0) return 0;
+  const Params p{S,      wn,          spf, 0,    total_blocks, bpm,
+                 n_mcus, interleaved, m_x, vpad, tab_ints};
   const General g{static_cast<const int32_t*>(counts),
                   static_cast<const int32_t*>(lane_off),
                   static_cast<const int32_t*>(lane_first),
+                  const_cast<int32_t*>(static_cast<const int32_t*>(partial)),
+                  static_cast<const int32_t*>(contested),
                   static_cast<unsigned long long*>(bkey)};
-  int rc = launch<MODE_PLACE>(tables, words, nbits, coeffs, nullptr, p, g,
-                              stream);
+  const int rows = frames * (spf + 1);
+  zero_contested_rows<<<(rows + 7) / 8, 256, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      g.contested, rows, bpm * 64, g.bkey);
+  int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  rc = launch<MODE_PLACE>(tables, words, nbits, coeffs, nullptr, p, g,
+                          staged, stream);
   if (rc != 0) return rc;
   return launch<MODE_RESOLVE>(tables, words, nbits, coeffs, nullptr, p, g,
-                              stream);
+                              0, stream);
 }

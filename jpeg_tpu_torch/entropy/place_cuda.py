@@ -17,11 +17,16 @@ chunk of restart segments.  It takes the shape the JAX package takes:
   does not tile the MCU rows, a short last segment, an RST-less frame as
   one lane) ports the scan followed by the prefix-sum scatter
   ``lockstep_jax._place_emissions``.  On a CUDA tensor the kernel walks
-  each segment three times (count its MCUs; a per-frame ``torch.cumsum``
-  gives each lane its first MCU; place; resolve the coefficients two
-  lanes write at a lane boundary); on a CPU tensor the plain version
+  each segment twice (count its MCUs and whether it died mid-MCU; the
+  ``boundary_layout`` kernel gives each lane its first MCU and marks the
+  MCUs two lanes write, ``contested_rows``; place), and a third walk
+  resolves the contested MCUs only; on a CPU tensor the plain version
   ``decode_segments_general_ref`` runs the eager scan and
   ``place_emissions``.
+
+The kernels decode codes of up to ``LUT_BITS`` bits with one lookup in
+``lookup_table`` and stage each CTA's segment words in shared memory when
+they fit ``STAGE_BYTES`` (else a register lookahead reads them).
 
 The two semantics differ only on damaged lanes (a region drops a lane's
 writes past ``ri`` MCUs; the prefix sum moves the next lanes along), so
@@ -63,7 +68,18 @@ OFF_C1 = OFF_C0 + SLOTS
 OFF_C2 = OFF_C1 + SLOTS
 OFF_BLK_END = OFF_C2 + SLOTS
 OFF_ZIGZAG = OFF_BLK_END + SLOTS
-TABLE_INTS = OFF_ZIGZAG + 64
+OFF_LUT = OFF_ZIGZAG + 64  # uint16 [T_MAX, 2**LUT_BITS], see lookup_table
+LUT_BITS = 12
+TABLE_INTS = OFF_LUT + T_MAX * (1 << LUT_BITS) // 2
+
+# Lanes (segments) per CTA of the CUDA walks (csrc/decode_segments.cu's
+# CTA_LANES, checked when the library loads), and the shared-memory budget
+# of a CTA's staged segment words (rows that do not fit take the
+# register-lookahead route).  Calls per route are counted in
+# ROUTE_LAUNCHES.
+CTA_LANES = 64
+STAGE_BYTES = 64 * 1024
+ROUTE_LAUNCHES = {"staged": 0, "lookahead": 0}
 
 
 def placement_eligible(plan: ScanPlan, ri: int, segs_per_frame: int) -> bool:
@@ -269,13 +285,51 @@ def decode_segments_general_ref(plan: ScanPlan, words: torch.Tensor,
                             total_blocks), counts)
 
 
+def huffval_pad(plan: ScanPlan) -> int:
+    """The huffval index clip of the scans: ``vidx <= huffval_pad - 1``."""
+    return ((plan.max_codes + 3) // 4) * 4
+
+
+def lookup_table(plan: ScanPlan, bits: int = LUT_BITS) -> np.ndarray:
+    """First-level decode table: [T_MAX, 2**bits] uint16.
+
+    Entry ``p`` of table ``t`` is what the canonical compare (the first
+    length ``l`` with ``prefix_l <= maxcode[t][l]``, then ``huffval[t]
+    [clip(valptr + prefix_l - mincode, 0, vpad - 1)]``) gives for a code
+    whose first ``bits`` bits are ``p``, when that length is at most
+    ``bits``: ``length << 8 | value``.  0 marks a prefix that no code of
+    up to ``bits`` bits matches; the kernel then continues the compare at
+    length ``bits + 1``.  Unused tables are all 0 (maxcode -1 matches
+    nothing), so hostile and incomplete tables decode as the compare does.
+    """
+    T = plan.maxcode.shape[0]
+    vpad = huffval_pad(plan)
+    pref = np.arange(1 << bits, dtype=np.int64)
+    out = np.zeros((T_MAX, 1 << bits), dtype=np.uint16)
+    for t in range(T):
+        length = np.zeros_like(pref)
+        vidx = np.zeros_like(pref)
+        for l in range(bits, 0, -1):  # the shortest match is applied last
+            p = pref >> (bits - l)
+            hit = p <= plan.maxcode[t, l]
+            length = np.where(hit, l, length)
+            vidx = np.where(hit, plan.valptr[t, l] + p - plan.mincode[t, l],
+                            vidx)
+        value = plan.huffval[t, np.clip(vidx, 0, vpad - 1)]
+        if value.min() < 0 or value.max() > 255:
+            raise UnsupportedError("Huffman symbol values must be bytes")
+        out[t] = np.where(length > 0, (length << 8) | value, 0)
+    return out
+
+
 def kernel_tables(plan: ScanPlan) -> np.ndarray:
     """The plan's decode tables and block affinities, packed for the kernel.
 
     A frame-local MCU ``gm`` has, for ``slot``, the frame-relative block
     ``c0 + (gm // m_x)*c1 + (gm % m_x)*c2`` (``kernel_m_x`` gives the
     divisor; Ns=1 scans never divide); the block lies inside its component
-    when it is below ``blk_end = plane offset + slot_nblocks``.
+    when it is below ``blk_end = plane offset + slot_nblocks``.  The
+    first-level ``lookup_table`` follows at ``OFF_LUT``.
     """
     check_plan(plan)
     T = plan.maxcode.shape[0]
@@ -296,7 +350,13 @@ def kernel_tables(plan: ScanPlan) -> np.ndarray:
     t[OFF_C2 : OFF_C2 + bpm] = c2
     t[OFF_BLK_END : OFF_BLK_END + bpm] = po + nb
     t[OFF_ZIGZAG : OFF_ZIGZAG + 64] = ZIGZAG
+    t[OFF_LUT:] = lookup_table(plan).reshape(-1).view(np.int32)
     return t.astype(np.int32)
+
+
+def _staged_ints(plan: ScanPlan) -> int:
+    """Ints of the packed tables a CTA stages: all but the unused LUTs."""
+    return OFF_LUT + plan.maxcode.shape[0] * (1 << LUT_BITS) // 2
 
 
 def kernel_m_x(plan: ScanPlan) -> int:
@@ -342,6 +402,20 @@ def _check_launch(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
     return dev
 
 
+def _route(words: torch.Tensor) -> int:
+    """1 when each CTA's [CTA_LANES, wn] slab of words is staged in shared
+    memory (it fits ``STAGE_BYTES`` and 16-byte copies can move it), 0 for
+    the register-lookahead route; counted in ``ROUTE_LAUNCHES``, once per
+    call.  The route is that of the walks that decode whole lanes (the one
+    pass; count and place); the general path's resolve walk always reads
+    words from device memory and is not counted."""
+    wn = words.shape[1]
+    staged = (wn % 4 == 0 and words.data_ptr() % 16 == 0
+              and CTA_LANES * (wn + 4) * 4 <= STAGE_BYTES)
+    ROUTE_LAUNCHES["staged" if staged else "lookahead"] += 1
+    return int(staged)
+
+
 def decode_segments(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
                     frames: int, spf: int, ri: int, total_blocks: int):
     """Decode ``frames * spf`` restart segments into plane-major blocks.
@@ -367,16 +441,19 @@ def decode_segments(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
 
     lib = load_library().lib
     tables = _device_tables(plan, dev)
-    coeffs = torch.zeros(frames * total_blocks, 64, dtype=torch.int32,
+    # Every block belongs to exactly one lane's region, and the kernel
+    # stores each of them whole: no zero fill.
+    coeffs = torch.empty(frames * total_blocks, 64, dtype=torch.int32,
                          device=dev)
     counts = torch.empty(S, dtype=torch.int32, device=dev)
-    vpad = ((plan.max_codes + 3) // 4) * 4
     with torch.cuda.device(dev):
         rc = lib.jt_decode_segments(
             tables.data_ptr(), words.data_ptr(), nbits.data_ptr(),
             coeffs.data_ptr(), counts.data_ptr(),
             S, wn, spf, ri, total_blocks, plan.blocks_per_mcu, plan.n_mcus,
-            int(plan.interleaved), kernel_m_x(plan), vpad, cuda_stream(dev),
+            int(plan.interleaved), kernel_m_x(plan), huffval_pad(plan),
+            _staged_ints(plan), _route(words),
+            cuda_stream(dev),
         )
     if rc != 0:
         raise RuntimeError(f"decode_segments launch failed: CUDA error {rc}")
@@ -387,15 +464,98 @@ def decode_segments(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
 decode_segments.launches = 0
 
 
+def _layout(per: torch.Tensor):
+    """[frames, spf] int64 lane MCU counts -> (first MCU of each lane,
+    first lane of the frame with that first MCU), both [frames, spf]."""
+    off = per.cumsum(1) - per
+    return off, torch.searchsorted(off, off)  # offsets never decrease
+
+
 def lane_layout(counts: torch.Tensor, frames: int, spf: int):
     """Per-lane (first MCU, first lane of the frame with that first MCU),
     both [S] int32, from the lane MCU counts: the general kernel's
     placement inputs."""
-    per = counts.to(torch.int64).reshape(frames, spf)
-    off = per.cumsum(1) - per
-    first = torch.searchsorted(off, off)  # offsets never decrease
+    off, first = _layout(counts.to(torch.int64).reshape(frames, spf))
     return (off.reshape(-1).to(torch.int32).contiguous(),
             first.reshape(-1).to(torch.int32).contiguous())
+
+
+def contested_rows(counts: torch.Tensor, partial: torch.Tensor, frames: int,
+                   spf: int, n_mcus: int) -> torch.Tensor:
+    """Lane-boundary MCUs that two lanes write: [frames * (spf + 1)] int32.
+
+    Row ``r`` of a frame is the MCU where lane ``r`` starts (row ``spf``:
+    where the last lane ends); lanes that start at one MCU share the row of
+    the first of them, as the owner keys do.  Its writers are the lane that
+    decodes it whole (the first lane from ``r`` on with a nonzero count)
+    and every ``partial`` lane (one that wrote into the MCU it died in,
+    ``counts[k]``) ending there: row ``k + 1``, or its own first row when it
+    decoded no whole MCU.  A row is contested when it has two writers and
+    its MCU lies in the frame.  Torch ops only, no host sync.
+    """
+    per = counts.to(torch.int64).reshape(frames, spf)
+    off, first = _layout(per)
+    start = torch.cat([off, off[:, -1:] + per[:, -1:]], 1)
+    k1 = torch.arange(1, spf + 1, device=per.device).expand(frames, spf)
+    row = torch.where(per == 0, first, k1)
+    writers = torch.zeros(frames, spf + 1, dtype=torch.int64,
+                          device=per.device).scatter_add_(
+        1, row, partial.to(torch.int64).reshape(frames, spf))
+    whole = (per > 0).to(torch.int64).flip(1).cummax(1).values.flip(1)
+    writers[:, :spf] += whole
+    return ((start < n_mcus) & (writers >= 2)).to(torch.int32).reshape(-1)
+
+
+def partial_lanes(counts: torch.Tensor, em_key: torch.Tensor) -> torch.Tensor:
+    """[S] int32, 1 where a lane of the plain scan (``scan_lanes``) emitted
+    a write into its MCU ``counts[lane]``, the one it died in."""
+    mcu = (em_key.to(torch.int64) - 1) >> 10
+    hit = (em_key > 0) & (mcu == counts.to(torch.int64)[None, :])
+    return hit.any(0).to(torch.int32)
+
+
+def boundary_layout(counts: torch.Tensor, partial: torch.Tensor,
+                    frames: int, spf: int, n_mcus: int):
+    """The general walks' placement inputs from pass 1's outputs.
+
+    ``counts``, ``partial`` [frames * spf] int32 -> (lane_off, lane_first
+    [S] int32 as ``lane_layout``, contested [frames * (spf + 1)] int32 as
+    ``contested_rows``).  A CUDA tensor launches one CTA per frame of
+    ``csrc/decode_segments.cu`` (counted in ``boundary_layout.launches``);
+    a CPU tensor runs ``lane_layout`` and ``contested_rows``.
+    """
+    if counts.device.type == "cpu":
+        off, first = lane_layout(counts, frames, spf)
+        return off, first, contested_rows(counts, partial, frames, spf,
+                                          n_mcus)
+    dev = counts.device
+    if dev.type != "cuda":
+        raise ValueError(f"boundary_layout: unsupported device {dev}")
+    for name, t in (("counts", counts), ("partial", partial)):
+        _check_tensor(name, t, 1, dev)
+        if t.shape[0] != frames * spf:
+            raise ValueError(f"{name} has {t.shape[0]} lanes, expected "
+                             f"{frames}x{spf}")
+
+    from ..kernels import load_library
+
+    lib = load_library().lib
+    off = torch.empty(frames * spf, dtype=torch.int32, device=dev)
+    first = torch.empty_like(off)
+    contested = torch.empty(frames * (spf + 1), dtype=torch.int32,
+                            device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.jt_boundary_layout(
+            counts.data_ptr(), partial.data_ptr(), off.data_ptr(),
+            first.data_ptr(), contested.data_ptr(), frames, spf, n_mcus,
+            cuda_stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"boundary_layout launch failed: CUDA error {rc}")
+    boundary_layout.launches += 1
+    return off, first, contested
+
+
+boundary_layout.launches = 0
 
 
 def decode_segments_general(plan: ScanPlan, words: torch.Tensor,
@@ -405,9 +565,11 @@ def decode_segments_general(plan: ScanPlan, words: torch.Tensor,
     tables hold (prefix-sum placement).  Arguments and result as
     ``decode_segments``; the restart interval plays no part.
 
-    A CUDA tensor launches the three walks of ``csrc/decode_segments.cu``
-    (counted once per call in ``decode_segments_general.launches``); a CPU
-    tensor runs ``decode_segments_general_ref``.  Anything else raises.
+    A CUDA tensor launches the walks of ``csrc/decode_segments.cu`` (count
+    with partial flags; ``boundary_layout``; place; resolve the contested
+    MCUs), counted once per call in ``decode_segments_general.launches``;
+    a CPU tensor runs ``decode_segments_general_ref``.  Anything else
+    raises.
     """
     if words.device.type == "cpu":
         return decode_segments_general_ref(plan, words, nbits, frames, spf,
@@ -420,27 +582,34 @@ def decode_segments_general(plan: ScanPlan, words: torch.Tensor,
     lib = load_library().lib
     tables = _device_tables(plan, dev)
     bpm = plan.blocks_per_mcu
-    args = (int(plan.interleaved), kernel_m_x(plan),
-            ((plan.max_codes + 3) // 4) * 4)
+    args = (int(plan.interleaved), kernel_m_x(plan), huffval_pad(plan),
+            _staged_ints(plan))
+    staged = _route(words)
     counts = torch.empty(S, dtype=torch.int32, device=dev)
+    partial = torch.empty(S, dtype=torch.int32, device=dev)
     coeffs = torch.zeros(frames * total_blocks, 64, dtype=torch.int32,
                          device=dev)
-    bkey = torch.zeros(frames * (spf + 1) * bpm * 64, dtype=torch.int64,
+    # Owner keys; the place launch zeroes the contested rows it uses.
+    bkey = torch.empty(frames * (spf + 1) * bpm * 64, dtype=torch.int64,
                        device=dev)
+    stream = cuda_stream(dev)
     with torch.cuda.device(dev):
-        stream = cuda_stream(dev)
         rc = lib.jt_decode_segments_count(
             tables.data_ptr(), words.data_ptr(), nbits.data_ptr(),
-            counts.data_ptr(), S, wn, spf, bpm, plan.n_mcus, *args, stream)
-        if rc != 0:
-            raise RuntimeError(
-                f"decode_segments_general pass 1 failed: CUDA error {rc}")
-        off, first = lane_layout(counts, frames, spf)
+            counts.data_ptr(), partial.data_ptr(), S, wn, spf, bpm,
+            plan.n_mcus, *args, staged, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"decode_segments_general pass 1 failed: CUDA error {rc}")
+    off, first, contested = boundary_layout(counts, partial, frames, spf,
+                                            plan.n_mcus)
+    with torch.cuda.device(dev):
         rc = lib.jt_decode_segments_place(
             tables.data_ptr(), words.data_ptr(), nbits.data_ptr(),
             counts.data_ptr(), off.data_ptr(), first.data_ptr(),
-            bkey.data_ptr(), coeffs.data_ptr(), S, wn, spf, total_blocks,
-            bpm, plan.n_mcus, *args, stream)
+            partial.data_ptr(), contested.data_ptr(), bkey.data_ptr(),
+            coeffs.data_ptr(), S, wn, spf, frames, total_blocks, bpm,
+            plan.n_mcus, *args, staged, stream)
     if rc != 0:
         raise RuntimeError(
             f"decode_segments_general passes 2-3 failed: CUDA error {rc}")

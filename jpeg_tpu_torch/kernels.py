@@ -59,10 +59,13 @@ def _nvcc() -> str:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     signatures = {
-        "jt_decode_segments": [p, p, p, p, p] + [i] * 10 + [p],
-        "jt_decode_segments_count": [p] * 4 + [i] * 8 + [p],
-        "jt_decode_segments_place": [p] * 8 + [i] * 9 + [p],
+        "jt_decode_segments": [p] * 5 + [i] * 12 + [p],
+        "jt_decode_segments_count": [p] * 5 + [i] * 10 + [p],
+        "jt_decode_segments_place": [p] * 10 + [i] * 12 + [p],
+        "jt_boundary_layout": [p] * 5 + [i] * 3 + [p],
         "jt_decode_segments_table_ints": [],
+        "jt_decode_segments_lut_bits": [],
+        "jt_decode_segments_cta_lanes": [],
         "jt_pixels_to_zz": [p, i, p, p, p, p, p, p, p] + [i] * 6 + [p],
         "jt_encode_bits": [p] * 6 + [i, i, p, p, p],
         "jt_encode_pack": [p] * 6 + [i, i, p, p, p],
@@ -82,11 +85,15 @@ def _check_layouts(lib: ctypes.CDLL) -> None:
     """Raise if a source's compiled-in layout constants differ from the
     Python side that packs its inputs."""
     from .entropy.encode_cuda import T_MAX
-    from .entropy.place_cuda import TABLE_INTS
+    from .entropy.place_cuda import CTA_LANES, LUT_BITS, TABLE_INTS
 
     for name, got, want in (
         ("decode_segments.cu table ints", lib.jt_decode_segments_table_ints(),
          TABLE_INTS),
+        ("decode_segments.cu LUT_BITS", lib.jt_decode_segments_lut_bits(),
+         LUT_BITS),
+        ("decode_segments.cu CTA_LANES", lib.jt_decode_segments_cta_lanes(),
+         CTA_LANES),
         ("encode_scan.cu T_MAX", lib.jt_encode_scan_t_max(), T_MAX),
     ):
         if got != want:

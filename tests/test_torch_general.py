@@ -163,6 +163,99 @@ def test_damage_exercises_the_write_order():
     assert changed >= 2
 
 
+def _two_writer_mcus(plan, counts, key, frames, spf, tb):
+    """(frame, frame-local MCU) pairs that two lanes write in
+    ``place_emissions``: its key decode, block index and in-plane filter."""
+    S = counts.shape[0]
+    per = counts.to(torch.int64).reshape(frames, spf)
+    seg_offset = (per.cumsum(1) - per).reshape(S)
+    keys = key.reshape(-1).to(torch.int64)
+    upd = torch.nonzero(keys > 0).squeeze(1)
+    lane = upd % S
+    kk = keys[upd] - 1
+    slot = (kk >> 6) & 15
+    gmcu = (kk >> 10) + seg_offset[lane]
+    c0, c1, c2, po, nb = (torch.from_numpy(a)
+                          for a in place_cuda._slot_affinities(plan))
+    if plan.interleaved:
+        my = gmcu // plan.m_x
+        blk = c0[slot] + my * c1[slot] + (gmcu - my * plan.m_x) * c2[slot]
+    else:
+        blk = c0[slot] + gmcu * c2[slot]
+    good = blk - po[slot] < nb[slot]
+    lanes = {}
+    for f, m, ln in zip((lane // spf)[good].tolist(), gmcu[good].tolist(),
+                        lane[good].tolist()):
+        lanes.setdefault((f, m), set()).add(ln)
+    return {fm for fm, ls in lanes.items() if len(ls) >= 2}
+
+
+@pytest.mark.parametrize("damaged", [False, True], ids=["intact", "damaged"])
+@pytest.mark.parametrize("name", list(GENERAL))
+def test_contested_rows_mark_the_two_writer_mcus(name, damaged):
+    """``contested_rows``, from the lane MCU counts and the partial flags
+    of the plain scan, marks exactly the lane-boundary MCUs that two lanes
+    write in ``place_emissions``: none on intact chunks.  The general
+    kernel sends only those MCUs through owner keys and resolves them."""
+    _, pplan, words, nbits, frames, spf, tb, _ = _chunk(name)
+    if damaged:
+        words, nbits = damage(words, nbits, seed=len(name))
+    counts, key, _, _ = lockstep_torch.scan_lanes(
+        pplan, torch.from_numpy(words.view(np.int32)),
+        torch.from_numpy(nbits.astype(np.int32)))
+    partial = place_cuda.partial_lanes(counts, key)
+    rows = place_cuda.contested_rows(counts, partial, frames, spf,
+                                     pplan.n_mcus)
+    assert rows.dtype == torch.int32 and rows.shape == (frames * (spf + 1),)
+    per = counts.to(torch.int64).reshape(frames, spf)
+    off = per.cumsum(1) - per
+    start = torch.cat([off, off[:, -1:] + per[:, -1:]], 1)
+    marked = {(f, int(start[f, r])) for f, r in
+              torch.nonzero(rows.reshape(frames, spf + 1)).tolist()}
+    want = _two_writer_mcus(pplan, counts, key, frames, spf, tb)
+    assert marked == want
+    assert len(marked) == int(rows.sum())  # one row per contested MCU
+    if not damaged:
+        assert not want and not bool(partial.any())
+
+
+def test_boundary_layout_routes_by_device():
+    """On CPU tensors the layout kernel's wrapper runs its plain version
+    (``lane_layout`` and ``contested_rows``) and counts no launch; other
+    devices it cannot launch on raise."""
+    _, pplan, words, nbits, frames, spf, _, _ = _chunk("short_422_ri5")
+    words, nbits = damage(words, nbits, seed=3)
+    counts, key, _, _ = lockstep_torch.scan_lanes(
+        pplan, torch.from_numpy(words.view(np.int32)),
+        torch.from_numpy(nbits.astype(np.int32)))
+    partial = place_cuda.partial_lanes(counts, key)
+    before = place_cuda.boundary_layout.launches
+    off, first, rows = place_cuda.boundary_layout(counts, partial, frames,
+                                                  spf, pplan.n_mcus)
+    assert place_cuda.boundary_layout.launches == before
+    want_off, want_first = place_cuda.lane_layout(counts, frames, spf)
+    assert torch.equal(off, want_off) and torch.equal(first, want_first)
+    assert torch.equal(rows, place_cuda.contested_rows(
+        counts, partial, frames, spf, pplan.n_mcus))
+    with pytest.raises(ValueError, match="device"):
+        place_cuda.boundary_layout(counts.to("meta"), partial.to("meta"),
+                                   frames, spf, pplan.n_mcus)
+
+
+def test_damage_contests_boundary_mcus():
+    """The damaged corpus chunks do contest MCUs, so the test above holds
+    the marking on real cases, not only on empty sets."""
+    total = 0
+    for name in GENERAL:
+        _, pplan, words, nbits, frames, spf, tb, _ = _chunk(name)
+        words, nbits = damage(words, nbits, seed=len(name))
+        counts, key, _, _ = lockstep_torch.scan_lanes(
+            pplan, torch.from_numpy(words.view(np.int32)),
+            torch.from_numpy(nbits.astype(np.int32)))
+        total += len(_two_writer_mcus(pplan, counts, key, frames, spf, tb))
+    assert total >= 5
+
+
 @pytest.mark.parametrize("name", ["ineligible_420_ri3", "short_422_ri5",
                                   "short_gray_ri4"])
 def test_general_ref_matches_numpy_lockstep(name):
