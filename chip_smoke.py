@@ -28,8 +28,9 @@ process exits non-zero without printing the result line:
    with the kernel's launch count, checked against the CPU decode;
 6. times: end-to-end stream rate, device-resident rate, host prep, per
    8-frame chunk the kernel against its plain version and the dense
-   tail, the kernel's bound and roofline share, and the card's busy
-   share of one stream decode under ``torch.profiler``;
+   tail, the kernel's and the dense tail's bounds and roofline shares,
+   and the card's busy share of one stream decode under
+   ``torch.profiler``;
 7. encode kernels vs plain, on the card: ``pixels_to_zz`` against
    ``pixels_to_zz_ref`` within +-1 and with at most ``DENSE_DIFF_SHARE``
    of the coefficients differing, on an 8-frame 1080p chunk of
@@ -38,9 +39,16 @@ process exits non-zero without printing the result line:
    a grayscale frame of exact rounding ties (``synth.tie_frame``: half
    away from zero, as ``roundf``); ``encode_scan`` and ``block_histogram`` against
    ``encode_scan_ref`` and ``hist_from_blocks_ref``, integer for
-   integer, on that chunk's blocks and on a hand-made 12-bit chunk that
-   holds every symbol kind, once with tables that code every symbol and
-   once with one symbol left without a code (``missing``);
+   integer, on that chunk's blocks, on the same pixels encoded with
+   restart interval 7 (1,166 segments per frame, the last short), 67
+   (segments of two pieces) and with one segment per frame, on a
+   hand-made 12-bit chunk that holds
+   every symbol kind, once with tables that code every symbol and once
+   with one symbol left without a code (``missing``), and on a frame of
+   worst-case blocks under 16-bit codes (every block at or near
+   ``word_capacity``); a warm call of ``encode_scan`` and of
+   ``pixels_to_zz`` runs under ``torch.cuda.set_sync_debug_mode("error")``,
+   so neither may sync with the host;
 8. encode against JAX: the coefficients of every corpus stream the port
    decodes, re-encoded by ``encode_scan`` and the host tail, must be
    byte-identical to the committed frames jpeg_tpu encoded;
@@ -85,16 +93,23 @@ line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --compare PARENT . . PARENT
 
-times the two restart-segment decode kernels of each checkout given (a
-directory holding its ``jpeg_tpu_torch``, e.g. ``git archive <commit>``
-unpacked under ``build/``), in that order, each in a process of its own,
-so that a parent and a change measured in turns on one card compare
-fairly: ``decode_segments`` on the 8-frame ri=4 bench chunk and
-``decode_segments_general`` on an 8-frame ri=7 chunk, intact and damaged
-(20 back-to-back calls, CUDA events, three times; on the register
-lookahead too where the checkout has that route), with a per-kernel
-device profile.  Every checkout's outputs must be equal.  It prints one
-JSON line per checkout and no result line.
+times the restart-segment decode kernels and the encode kernels of each
+checkout given (a directory holding its ``jpeg_tpu_torch``, e.g. ``git
+archive <commit>`` unpacked under ``build/``), in that order, each in a
+process of its own, so that a parent and a change measured in turns on
+one card compare fairly: ``decode_segments`` on the 8-frame ri=4 bench
+chunk, ``decode_segments_general`` on an 8-frame ri=7 chunk, intact and
+damaged (on the register lookahead too where the checkout has that
+route), ``pixels_to_zz`` on the 8-frame bench pixels, and
+``encode_scan`` on their blocks at restart intervals 4 and 7 and with
+one segment per frame (20 back-to-back calls, CUDA events, three
+times), and the end-to-end ``encode_batch`` of the 16 bench frames,
+default and optimized (host clock, median of 5, three times), each with
+the peak of device memory allocated during one call and a per-kernel
+device profile of one call.  Every checkout's outputs must be equal (the
+encode stream hashed up to its word count, whichever return form the
+checkout has).  It prints one JSON line per checkout and no result
+line.
 """
 
 from __future__ import annotations
@@ -191,7 +206,8 @@ GENERAL_PARAMS = EncodeParams(h=2, v=2, quality=75, optimize=False,
 CORPUS_QUALITY = {"bench": 75}
 # Small dense-stage shapes: (components, h, v, height, width, bits).
 DENSE_SHAPES = ((1, 1, 1, 37, 45, 8), (3, 2, 1, 32, 48, 12),
-                (3, 1, 1, 24, 40, 8), (3, 2, 2, 38, 54, 8))
+                (3, 1, 1, 24, 40, 8), (3, 2, 2, 38, 54, 8),
+                (3, 1, 2, 38, 54, 8))
 # The dense kernel differs from its plain version only in the FDCT's
 # summation order, so a quantized value moves by 1 only where c / q sits
 # on a rounding boundary: rare on smooth content, less rare on noise.  A
@@ -303,7 +319,8 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profile_window(run, span_prefix: str, card: str, what: str) -> None:
+def profile_window(run, span_prefix: str, card: str, what: str,
+                   top: int = 8) -> None:
     """Card busy share of one ``run()`` under torch.profiler: the union of
     the device events' intervals over the host-clock window, with the
     package's host spans (``span_prefix``*) and the top device kernels."""
@@ -333,8 +350,8 @@ def profile_window(run, span_prefix: str, card: str, what: str) -> None:
     for e in on_card:
         n, us = by_kernel.get(e.name, (0, 0.0))
         by_kernel[e.name] = (n + 1, us + e.time_range.end - e.time_range.start)
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:8]
-    for name, (n, us) in top:
+    for name, (n, us) in sorted(by_kernel.items(),
+                                key=lambda kv: -kv[1][1])[:top]:
         log(f"profile: device {us / 1e3} ms x{n} {name[:100]}")
 
 
@@ -521,16 +538,24 @@ def compare_scan(label: str, enc: DeviceEncoder, zz: torch.Tensor,
 
     -> (max |diff| of encode_scan's outputs, of the histogram): (0, 0).
     """
+    from jpeg_tpu_torch.entropy.encode_cuda import word_capacity
+
     frames = zz.shape[0] // enc.blocks_per_frame
     order, seg_of, dc_tab, ac_tab = enc.chunk_tables(frames)
     args = (zz, order, seg_of, dc_tab, ac_tab, ehufco, ehufsi,
             frames * enc.n_segments)
-    got = encode_scan(*args)
+    out = encode_scan(*args)
     ref = encode_scan_ref(*args)
     T = ehufco.shape[0]
     got_h = block_histogram(zz, dc_tab, ac_tab, T)
     ref_h = hist_from_blocks_ref(zz, dc_tab, ac_tab, T)
     torch.cuda.synchronize()
+    n_words, cap = int(out[4]), word_capacity(zz.shape[0])
+    if n_words > min(cap, out[0].numel()) or \
+            (zz.is_cuda and out[0].numel() != cap):
+        raise AssertionError(f"{label}: {n_words} words in a buffer of "
+                             f"{out[0].numel()}, capacity {cap}")
+    got = (out[0][:n_words], *out[1:4])
     names = ("words", "seg_wbase", "seg_bits", "missing")
     err = 0
     for name, a, b in zip(names, got, ref):
@@ -545,10 +570,36 @@ def compare_scan(label: str, enc: DeviceEncoder, zz: torch.Tensor,
         raise AssertionError(f"{label}: kernels differ from their plain "
                              f"versions (max |diff| {err} and {hist_err}, "
                              f"missing {bool(got[3])}, want {want_missing})")
-    log(f"kernel-vs-plain {label}: encode_scan {zz.shape[0]} blocks -> "
-        f"{got[0].numel()} words, {int(got[2].sum())} bits, missing "
+    log(f"kernel-vs-plain {label}: encode_scan {zz.shape[0]} blocks, "
+        f"{args[-1]} segments -> {n_words} words ({n_words / cap} of "
+        f"word_capacity), {int(got[2].sum())} bits, missing "
         f"{bool(got[3])}; block_histogram {int(got_h.sum())} symbols; equal")
     return err, hist_err
+
+
+def check_no_sync(label: str, run) -> None:
+    """A warm ``run()`` (its constants and chunk tables already on the
+    card, whose first upload from pageable memory syncs by design) under
+    ``torch.cuda.set_sync_debug_mode("error")``: any host sync raises."""
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"sync-free: a warm {label} call ran under "
+        f"set_sync_debug_mode('error') without a host sync")
+
+
+def long_codes(T: int, dev: torch.device):
+    """[T, 256] code tables of 16-bit codes for every symbol (not
+    prefix-free: the segment encode and the histogram only count and pack
+    them), so that worst-case blocks take the most bits."""
+    sym = torch.arange(T * 256, dtype=torch.int64).reshape(T, 256)
+    return (((sym * 40503) & 0xFFFF).to(torch.int32).to(dev),
+            torch.full((T, 256), 16, dtype=torch.int32, device=dev))
 
 
 def encode_phases(card: str, streams: dict, decs: dict,
@@ -573,7 +624,8 @@ def encode_phases(card: str, streams: dict, decs: dict,
     dense_err = check_dense(f"{tuple(chunk.shape)} bench chunk",
                             zz - zz_ref, DENSE_DIFF_SHARE["chunk"])
     # The kernel's other branches: grayscale, 12-bit (uint16) samples,
-    # 4:2:2 and 4:4:4, and MCU padding on both edges, on seeded noise.
+    # 4:2:2, 4:4:4 and luma h=1 v=2 (box cells 2x1, 1x1 and 1x2 beside
+    # the chunk's 2x2), and MCU padding on both edges, on seeded noise.
     rng = np.random.default_rng(5)
     for comps, h, v, height, width, bits in DENSE_SHAPES:
         e = DeviceEncoder.for_config(
@@ -613,8 +665,41 @@ def encode_phases(card: str, streams: dict, decs: dict,
     errs.append(compare_scan(
         "hand-made 12-bit symbols, DC category 15 uncoded", small, blocks,
         co, si, True))
+    # The same pixels at restart interval 7 (the last segment of a frame
+    # short), 67 (402-block segments, cut in two pieces) and with one
+    # segment per frame (48,960 blocks, cut in pieces of 256).
+    for ri in (7, 67, geom.n_mcus):
+        e = DeviceEncoder.for_config(
+            1080, 1920, 3, EncodeParams(h=2, v=2, quality=75, optimize=False,
+                                        restart_interval=ri, exact=False),
+            device=dev)
+        z = e.dense(chunk)
+        errs.append(compare_scan(
+            f"bench chunk x{CHUNK} ri={ri} ({e.n_segments} segments per "
+            f"frame)", e, z, torch.from_numpy(e.ehufco).to(dev),
+            torch.from_numpy(e.ehufsi).to(dev), False))
+        if ri == geom.n_mcus:
+            largs = (z, *e.chunk_tables(CHUNK),
+                     torch.from_numpy(e.ehufco).to(dev),
+                     torch.from_numpy(e.ehufsi).to(dev),
+                     CHUNK * e.n_segments)
+            log(f"time encode_scan_ms={cuda_ms(lambda: encode_scan(*largs), 3)}"
+                f" per {CHUNK}-frame 1080p chunk of one segment per frame "
+                f"[{card}]")
+    # Worst-case blocks: every block takes 1.5-2 KB of bits.
+    worst = torch.from_numpy(
+        synth.worst_blocks(enc.blocks_per_frame, 16, 16)).to(dev)
+    errs.append(compare_scan(
+        "worst-case blocks (1 frame, category 16, 16-bit codes)", enc, worst,
+        *long_codes(T, dev), False))
     scan_err = max(e[0] for e in errs)
     hist_err = max(e[1] for e in errs)
+    order, seg_of, dc_tab, ac_tab = enc.chunk_tables(CHUNK)
+    sargs = (zz, order, seg_of, dc_tab, ac_tab,
+             torch.from_numpy(enc.ehufco).to(dev),
+             torch.from_numpy(enc.ehufsi).to(dev), CHUNK * enc.n_segments)
+    check_no_sync("encode_scan", lambda: encode_scan(*sargs))
+    check_no_sync("pixels_to_zz", lambda: pixels_to_zz(chunk, qt, prev, geom))
 
     # ---- 8. encode against JAX (the committed frames) -------------------
     mark("8")
@@ -699,10 +784,6 @@ def encode_phases(card: str, streams: dict, decs: dict,
         f"per {STREAM_FRAMES} frames, dense stage + segment encode, words "
         f"left on the card, mean of {reps}) [{card}]")
 
-    order, seg_of, dc_tab, ac_tab = enc.chunk_tables(CHUNK)
-    sargs = (zz, order, seg_of, dc_tab, ac_tab,
-             torch.from_numpy(enc.ehufco).to(dev),
-             torch.from_numpy(enc.ehufsi).to(dev), CHUNK * enc.n_segments)
     times = {
         "pixels_to_zz": (
             cuda_ms(lambda: pixels_to_zz(chunk, qt, prev, geom), 20),
@@ -721,8 +802,8 @@ def encode_phases(card: str, streams: dict, decs: dict,
         "pixels_to_zz": bound(nbytes(chunk, qt, prev, zz),
                               zz.shape[0] * 2 * 64 * 8 * 2, "float32"),
         # one operation per coefficient examined
-        "encode_scan": bound(nbytes(*sargs[:7], *scan_out[:3]), zz.numel(),
-                             "int32"),
+        "encode_scan": bound(nbytes(*sargs[:7], *scan_out[1:3])
+                             + 4 * int(scan_out[4]), zz.numel(), "int32"),
         "block_histogram": bound(nbytes(zz, dc_tab, ac_tab, hist),
                                  zz.numel(), "int32"),
     }
@@ -1072,10 +1153,31 @@ def single_image_phase(card: str, dev: torch.device, streams: dict) -> list:
                 ("color_exact", "jpeg_tpu/ops/color.py:53"))]
 
 
+def digest(out) -> str:
+    """sha256 of a tensor or a tuple of tensors, on the host."""
+    h = hashlib.sha256()
+    for t in (out if isinstance(out, tuple) else (out,)):
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def scan_digest(out) -> str:
+    """``digest`` of encode_scan's stream (its words up to the word count,
+    where the checkout returns one), segment bases, bits and missing."""
+    words = out[0][:int(out[4])] if len(out) > 4 else out[0]
+    return digest((words, *out[1:4]))
+
+
+def jpegs_digest(frames) -> str:
+    """sha256 of a list of JPEG byte strings."""
+    return hashlib.sha256(b"".join(frames)).hexdigest()
+
+
 def time_tree(tree: str) -> dict:
-    """``--time-tree`` (a worker of ``--compare``): the segment kernels of
-    the checkout at ``tree``, whose package this process imported, on this
-    card -> the JSON record of their times and output digests."""
+    """``--time-tree`` (a worker of ``--compare``): the segment decode
+    kernels, the encode kernels and the end-to-end encode of the checkout
+    at ``tree``, whose package this process imported, on this card -> the
+    JSON record of their times, peak device memory and output digests."""
     here = Path(jpeg_tpu_torch.__file__).resolve()
     if not here.is_relative_to(Path(tree).resolve()):
         raise RuntimeError(f"imported {here}, not the package of {tree}")
@@ -1088,19 +1190,59 @@ def time_tree(tree: str) -> dict:
     w4, n4, _ = dec4.prepare(chunk4)
     enc = DeviceEncoder.for_config(synth.HEIGHT, synth.WIDTH, 3,
                                    GENERAL_PARAMS, device=dev)
-    chunk7 = enc.encode_batch(bench_pixels(dev)[:CHUNK], optimize=False,
-                              chunk=CHUNK)
+    px = bench_pixels(dev)[:CHUNK]
+    chunk7 = enc.encode_batch(px, optimize=False, chunk=CHUNK)
     dec7 = DeviceDecoder.for_stream(chunk7[0], dev)
     w7, n7, _ = dec7.prepare(chunk7)
     g7 = (CHUNK, dec7.segs_per_frame, dec7.total_blocks)
+    bad7 = damage(w7, n7, 0)
+    a4 = (dec4.plan, w4, n4, CHUNK, dec4.segs_per_frame, dec4.ri,
+          dec4.total_blocks)
+    # The encode kernels on the bench pixels; encode_scan on the plain
+    # dense stage's blocks, the same input in every checkout.
+    enc4 = DeviceEncoder.for_config(synth.HEIGHT, synth.WIDTH, 3,
+                                    BENCH_PARAMS, device=dev)
+    # One segment per frame: one warp per frame in the redesigned kernel.
+    enc1 = DeviceEncoder.for_config(
+        synth.HEIGHT, synth.WIDTH, 3,
+        EncodeParams(h=2, v=2, quality=75, optimize=False,
+                     restart_interval=enc4.geom.n_mcus, exact=False),
+        device=dev)
+    dense = {}
+    for e in (enc4, enc, enc1):
+        qt = torch.from_numpy(e.qtables).to(dev)
+        prev = torch.from_numpy(e.prev_idx).to(dev)
+        dense[e.ri] = (px, qt, prev, e.geom)
+    sargs = {e.ri: (pixels_to_zz_ref(*dense[e.ri]), *e.chunk_tables(CHUNK),
+                    torch.from_numpy(e.ehufco).to(dev),
+                    torch.from_numpy(e.ehufsi).to(dev),
+                    CHUNK * e.n_segments) for e in (enc4, enc, enc1)}
+    px16 = bench_pixels(dev)
+    # name -> (one call, its digest, timing: "routed" (each word route,
+    # CUDA events), "device" (CUDA events) or "host" (host clock))
     cases = {
-        "decode_segments ri=4": (decode_segments, (
-            dec4.plan, w4, n4, CHUNK, dec4.segs_per_frame, dec4.ri,
-            dec4.total_blocks)),
-        "decode_segments_general ri=7": (decode_segments_general,
-                                         (dec7.plan, w7, n7, *g7)),
+        "decode_segments ri=4": (lambda: decode_segments(*a4), digest,
+                                 "routed"),
+        "decode_segments_general ri=7": (
+            lambda: decode_segments_general(dec7.plan, w7, n7, *g7), digest,
+            "routed"),
         "decode_segments_general ri=7 damaged": (
-            decode_segments_general, (dec7.plan, *damage(w7, n7, 0), *g7)),
+            lambda: decode_segments_general(dec7.plan, *bad7, *g7), digest,
+            "routed"),
+        "pixels_to_zz ri=4": (lambda: pixels_to_zz(*dense[4]), digest,
+                              "device"),
+        "encode_scan ri=4": (lambda: encode_scan(*sargs[4]), scan_digest,
+                             "device"),
+        "encode_scan ri=7": (lambda: encode_scan(*sargs[7]), scan_digest,
+                             "device"),
+        f"encode_scan ri={enc1.ri}": (lambda: encode_scan(*sargs[enc1.ri]),
+                                      scan_digest, "device"),
+        "encode_batch ri=4 x16": (
+            lambda: enc4.encode_batch(px16, optimize=False, chunk=CHUNK),
+            jpegs_digest, "host"),
+        "encode_batch ri=4 x16 optimize": (
+            lambda: enc4.encode_batch(px16, optimize=True, chunk=CHUNK),
+            jpegs_digest, "host"),
     }
     # (label, shared-memory budget of the staged words; None: as it is)
     routes = [("default", None)]
@@ -1108,30 +1250,34 @@ def time_tree(tree: str) -> dict:
         routes.append(("lookahead", 0))
     out = {"tree": tree, "card": card, "torch": torch.__version__,
            "cases": {}}
-    for name, (fn, args) in cases.items():
-        coeffs, counts = fn(*args)
-        rec = {"lanes": args[1].shape[0], "sha256": hashlib.sha256(
-            coeffs.cpu().numpy().tobytes()
-            + counts.cpu().numpy().tobytes()).hexdigest(), "ms": {}}
-        for label, budget in routes:
+    for name, (call, dig, timing) in cases.items():
+        rec = {"sha256": dig(call()), "ms": {}}
+        # Device memory allocated at the peak of one call, in MiB, and
+        # what was held when it started (inputs, cached buffers).
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec["held_MiB"] = torch.cuda.memory_allocated() / 2**20
+        call()
+        torch.cuda.synchronize()
+        rec["peak_MiB"] = torch.cuda.max_memory_allocated() / 2**20
+        for label, budget in routes if timing == "routed" else routes[:1]:
             saved = getattr(place_cuda, "STAGE_BYTES", None)
             if budget is not None:
                 place_cuda.STAGE_BYTES = budget
             try:
-                got = fn(*args)
-                torch.cuda.synchronize()
-                if not (torch.equal(got[0], coeffs)
-                        and torch.equal(got[1], counts)):
+                if dig(call()) != rec["sha256"]:
                     raise AssertionError(f"{tree} {name}: the {label} "
                                          "route's output differs")
-                rec["ms"][label] = [cuda_ms(lambda: fn(*args), 20)
-                                    for _ in range(3)]
+                rec["ms"][label] = [
+                    median_s(call, 5)[0] * 1e3 if timing == "host"
+                    else cuda_ms(call, 20) for _ in range(3)]
             finally:
                 if budget is not None:
                     place_cuda.STAGE_BYTES = saved
-        log(f"compare {tree} {name}: ms {rec['ms']} [{card}]")
-        profile_window(lambda: fn(*args), "device_decode.", card,
-                       f"one {name} call of {tree}")
+        log(f"compare {tree} {name}: ms {rec['ms']}, peak "
+            f"{rec['peak_MiB']} MiB (held {rec['held_MiB']}) [{card}]")
+        profile_window(call, "device_", card, f"one {name} call of {tree}",
+                       top=16)
         out["cases"][name] = rec
     return out
 
@@ -1146,7 +1292,8 @@ def compare_trees(trees: list) -> None:
     for tree in trees:
         res = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--time-tree",
-             tree], capture_output=True, text=True, timeout=900)
+             tree], capture_output=True, text=True,
+            timeout=900)
         sys.stdout.write(res.stdout)
         if res.returncode != 0:
             sys.stderr.write(res.stderr)
@@ -1297,6 +1444,13 @@ def main() -> None:
     d_ms = cuda_ms(lambda: _dense_from_coeffs(coeffs, dec.geom, qt), 10)
     log(f"time dense_tail_ms={d_ms} per {CHUNK}-frame 1080p chunk "
         f"(plain torch) [{card}]")
+    # K3, the dense decode tail (still plain torch): coefficients and
+    # quantizers in, pixels out; a separable IDCT per block, as K4 counts.
+    tail_px = _dense_from_coeffs(coeffs, dec.geom, qt)
+    log_bound("dense_tail", d_ms,
+              bound(nbytes(coeffs, qt, tail_px),
+                    coeffs.shape[0] * coeffs.shape[1] * 2 * 64 * 8 * 2,
+                    "float32"), card)
 
     # Card busy share of one stream decode.  The decoder's spans (prepare
     # / dispatch) are recorded as host events.

@@ -3,17 +3,21 @@
 ``encode_scan`` is the port of the JAX package's device entropy encode
 ``entropy/encode_jax.encode_scan_device3`` (plus the transfer compaction
 ``device_encode._compact_segment_words``): on a CUDA tensor it launches
-the hand-written kernels of ``csrc/encode_scan.cu`` (count bits, then
-pack), with the segmented prefix sums between them taken by
-``encode_torch.segment_layout``; on a CPU tensor it runs
-``encode_torch.encode_scan_ref``.  It writes one tight word stream at
-exact offsets, so none of the JAX engine's static capacities (item
-slots, nonzero cap, words per segment or per block) exist here.
+the hand-written kernels of ``csrc/encode_scan.cu`` -- an encode walk
+(one warp per restart segment, or per piece of up to 256 blocks of a
+long one, each into its own region of a scratch buffer), a layout of the
+pieces, one ``torch.cumsum`` of the segments' word counts and a
+compaction into the tight stream -- with no host sync in between; on a
+CPU tensor it runs ``encode_torch.encode_scan_ref``.  It writes one
+tight word stream at exact offsets into a buffer of ``word_capacity``
+words, so none of the JAX engine's static capacities (item slots,
+nonzero cap, words per segment or per block) exist here, and the
+stream's length stays on the device until the caller pulls it.
 
 ``block_histogram`` is the port of ``encode_jax.hist_from_blocks`` (the
 optimize=True dry pass): the histogram kernel of ``csrc/encode_scan.cu``
-(the same symbol walk) on a CUDA tensor, ``encode_torch.hist_from_blocks_ref``
-on a CPU tensor.
+(one thread per block) on a CUDA tensor,
+``encode_torch.hist_from_blocks_ref`` on a CPU tensor.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches`` and
 raises on anything the kernel does not take, and on any CUDA error.
@@ -25,10 +29,21 @@ import numpy as np
 import torch
 
 from ..device import check_tensor, cuda_stream
-from .encode_torch import encode_scan_ref, hist_from_blocks_ref, segment_layout
+from .encode_torch import encode_scan_ref, hist_from_blocks_ref
 
 T_MAX = 8  # stacked code tables; csrc/encode_scan.cu
+# The most words one block takes: a DC item and 63 AC items of at most
+# 16 code bits and 16 extra bits each (no EOB after a nonzero position
+# 63), 2048 bits; csrc/encode_scan.cu BLOCK_WORDS.
+BLOCK_WORDS = 64
 I32 = (torch.int32,)
+
+
+def word_capacity(n_blocks: int) -> int:
+    """Words that hold the stream of any ``n_blocks`` blocks, known on the
+    host without the card: every segment starts on a fresh word, and a
+    segment's blocks take at most ``BLOCK_WORDS`` words each."""
+    return BLOCK_WORDS * n_blocks
 
 
 def _check_blocks(zz: torch.Tensor, T: int) -> torch.device:
@@ -50,12 +65,22 @@ def encode_scan(zz: torch.Tensor, order: torch.Tensor, seg_of: torch.Tensor,
 
     -> (words [W] int32 (u32 bits, MSB first; segment s starts at word
     ``seg_wbase[s]``), seg_wbase [n_segments] int64, seg_bits
-    [n_segments] int64, missing 0-d bool: some symbol had no code).
-    See ``encode_torch.encode_scan_ref`` for the arguments.
+    [n_segments] int64, missing 0-d bool: some symbol had no code,
+    n_words 0-d int64): the stream is ``words[:n_words]``.  On the card
+    ``words`` is a capacity buffer of ``word_capacity(B)`` words (256
+    bytes a block, as large as ``zz``) and ``missing`` and ``n_words``
+    stay there (nothing syncs with the host): trim it to ``n_words``, or
+    copy the stream out and drop it, before keeping it.  The encode walk
+    writes into a scratch buffer of the same size, kept per device and
+    stream (``_scratch``).  On the CPU ``words`` is the stream itself.
+    See ``encode_torch.encode_scan_ref`` for the arguments; code lengths
+    are at most 16 bits, as a JPEG table's are.
     """
     if zz.device.type == "cpu":
-        return encode_scan_ref(zz, order, seg_of, dc_tab, ac_tab, ehufco,
-                               ehufsi, n_segments)
+        words, seg_wbase, seg_bits, missing = encode_scan_ref(
+            zz, order, seg_of, dc_tab, ac_tab, ehufco, ehufsi, n_segments)
+        return (words, seg_wbase, seg_bits, missing,
+                torch.tensor(words.numel(), dtype=torch.int64))
     T = int(ehufco.shape[0])
     dev = _check_blocks(zz, T)
     b = int(zz.shape[0])
@@ -70,29 +95,61 @@ def encode_scan(zz: torch.Tensor, order: torch.Tensor, seg_of: torch.Tensor,
     from ..kernels import load_library
 
     lib = load_library().lib
-    blk_bits = torch.empty(b, dtype=torch.int32, device=dev)
-    missing = torch.zeros(1, dtype=torch.int32, device=dev)
+    n = int(n_segments)
+    i64 = dict(dtype=torch.int64, device=dev)
+    seg_first = torch.empty(n, dtype=torch.int32, device=dev)
+    seg_bits = torch.empty(n, **i64)
+    seg_rec = torch.empty(n, **i64)  # words | missing << 40 per segment
+    n_pieces = lib.jt_encode_scan_pieces(b, n)
+    piece_rec = torch.empty(n_pieces, **i64)  # bits | missing << 40
+    piece_off = torch.empty(n_pieces - n, **i64)
+    seg_wbase = torch.empty(n, **i64)
+    words = torch.empty(word_capacity(b), dtype=torch.int32, device=dev)
+    if n == 0:
+        return (words, seg_wbase, seg_bits,
+                torch.zeros((), dtype=torch.bool, device=dev),
+                torch.zeros((), **i64))
+    scratch = _scratch(dev, word_capacity(b))  # BLOCK_WORDS words per block
+    n_words = torch.empty((), **i64)
+    missing = torch.empty((), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
-        rc = lib.jt_encode_bits(
-            zz.data_ptr(), order.data_ptr(), dc_tab.data_ptr(),
-            ac_tab.data_ptr(), ehufco.data_ptr(), ehufsi.data_ptr(), T, b,
-            blk_bits.data_ptr(), missing.data_ptr(), cuda_stream(dev))
+        stream = cuda_stream(dev)
+        rc = lib.jt_encode_segments(
+            zz.data_ptr(), order.data_ptr(), seg_of.data_ptr(),
+            dc_tab.data_ptr(), ac_tab.data_ptr(), ehufco.data_ptr(),
+            ehufsi.data_ptr(), T, b, n, scratch.data_ptr(),
+            seg_first.data_ptr(), piece_rec.data_ptr(), piece_off.data_ptr(),
+            seg_bits.data_ptr(), seg_rec.data_ptr(), stream)
         if rc != 0:
-            raise RuntimeError(f"encode_scan pass 1 failed: CUDA error {rc}")
-        dst, seg_wbase, seg_bits, total = segment_layout(blk_bits, seg_of,
-                                                         n_segments)
-        words = torch.zeros(max(total, 1), dtype=torch.int32, device=dev)
-        rc = lib.jt_encode_pack(
-            zz.data_ptr(), order.data_ptr(), dc_tab.data_ptr(),
-            ac_tab.data_ptr(), ehufco.data_ptr(), ehufsi.data_ptr(), T, b,
-            dst.data_ptr(), words.data_ptr(), cuda_stream(dev))
+            raise RuntimeError(f"encode_scan encode walk failed: CUDA error "
+                               f"{rc}")
+        cum = torch.cumsum(seg_rec, 0)
+        rc = lib.jt_compact_segments(
+            scratch.data_ptr(), seg_of.data_ptr(), seg_first.data_ptr(),
+            piece_rec.data_ptr(), piece_off.data_ptr(), seg_rec.data_ptr(),
+            cum.data_ptr(), b, n, words.data_ptr(), seg_wbase.data_ptr(),
+            n_words.data_ptr(), missing.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"encode_scan pass 2 failed: CUDA error {rc}")
+        raise RuntimeError(f"encode_scan compaction failed: CUDA error {rc}")
     encode_scan.launches += 1
-    return words[:total], seg_wbase, seg_bits, missing[0] != 0
+    return words, seg_wbase, seg_bits, missing, n_words
 
 
 encode_scan.launches = 0
+# (device, stream) -> the encode walk's scratch words; calls on one stream
+# run in order, so they can share it.
+_SCRATCH: dict = {}
+
+
+def _scratch(dev: torch.device, n: int) -> torch.Tensor:
+    """``n`` scratch words on ``dev`` for the current stream, grown as
+    needed and kept between calls."""
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < n:
+        _SCRATCH[key] = buf = None  # free the old buffer first
+        buf = _SCRATCH[key] = torch.empty(n, dtype=torch.int32, device=dev)
+    return buf[:n]
 
 
 def block_histogram(zz: torch.Tensor, dc_tab: torch.Tensor,
@@ -192,7 +249,7 @@ def pack_scan_device(planes, geom, info, tables, ri: int, device):
     )
     n_segments = int(seg_of.max()) + 1
     dev = torch.device(device)
-    words, seg_wbase, seg_bits, missing = encode_scan(
+    words, seg_wbase, seg_bits, missing, n_words = encode_scan(
         *(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
           for a in (zz, np.arange(zz.shape[0], dtype=np.int32), seg_of, dct,
                     act, ehufco, ehufsi)),
@@ -204,7 +261,7 @@ def pack_scan_device(planes, geom, info, tables, ri: int, device):
             "a symbol has no code in the selected Huffman table "
             "(content exceeds table range; use optimized tables)"
         )
-    words = words.cpu().numpy().view(np.uint32)
+    words = words[:int(n_words)].cpu().numpy().view(np.uint32)
     base = seg_wbase.cpu().numpy()
     bits = seg_bits.cpu().numpy()
     return [finalize_segment(words[base[s]:base[s] + (bits[s] + 31) // 32],

@@ -1,9 +1,9 @@
 """Plain PyTorch versions of the encode-side entropy kernels.
 
-``encode_scan_ref`` and ``hist_from_blocks_ref`` are what the pack and
-histogram kernels of ``csrc/encode_scan.cu`` compute; the CPU path runs
-them, and the chip check holds each kernel against them on the
-card.  Their semantics are those of the JAX package's
+``encode_scan_ref`` and ``hist_from_blocks_ref`` are what the segment
+encode and histogram kernels of ``csrc/encode_scan.cu`` compute; the CPU
+path runs them, and the chip check holds each kernel against them on
+the card.  Their semantics are those of the JAX package's
 ``entropy/encode_jax.encode_scan_device3`` and ``hist_from_blocks``,
 symbol for symbol (missing codes included), so the CPU tests hold them
 against those directly.
@@ -104,7 +104,9 @@ def segment_layout(blk_bits_v: torch.Tensor, seg_of: torch.Tensor,
     word of each segment, seg_bits [n_segments] int64, total words).
 
     Each segment starts on a fresh word; blocks follow each other bit by
-    bit inside it.  Shared by the plain version and the CUDA wrapper.
+    bit inside it.  The encode walk and compaction of
+    ``csrc/encode_scan.cu`` lay the stream out the same way without the
+    per-block offsets.
     """
     bits = blk_bits_v.to(_I64)
     seg = seg_of.to(_I64)

@@ -66,10 +66,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         "jt_decode_segments_table_ints": [],
         "jt_decode_segments_lut_bits": [],
         "jt_decode_segments_cta_lanes": [],
-        "jt_pixels_to_zz": [p, i, p, p, p, p, p, p, p] + [i] * 6 + [p],
-        "jt_encode_bits": [p] * 6 + [i, i, p, p, p],
-        "jt_encode_pack": [p] * 6 + [i, i, p, p, p],
+        "jt_pixels_to_zz": [p, i, p, p, p, p, p, p, p] + [i] * 13 + [p],
+        "jt_encode_dense_tile_blocks": [],
+        "jt_encode_scan_pieces": [i, i],
+        "jt_encode_segments": [p] * 7 + [i] * 3 + [p] * 7,
+        "jt_compact_segments": [p] * 7 + [i] * 2 + [p] * 5,
         "jt_encode_scan_t_max": [],
+        "jt_encode_scan_block_words": [],
         "jt_hist_blocks": [p, p, p, i, ll, p, p],
         "jt_idct_exact": [p, p, p, p, ll, i, p],
         "jt_fdct_exact": [p, p, p, p, ll, i, p],
@@ -84,8 +87,9 @@ def _declare(lib: ctypes.CDLL) -> None:
 def _check_layouts(lib: ctypes.CDLL) -> None:
     """Raise if a source's compiled-in layout constants differ from the
     Python side that packs its inputs."""
-    from .entropy.encode_cuda import T_MAX
+    from .entropy.encode_cuda import BLOCK_WORDS, T_MAX
     from .entropy.place_cuda import CTA_LANES, LUT_BITS, TABLE_INTS
+    from .models.encode_dense import TILE_BLOCKS
 
     for name, got, want in (
         ("decode_segments.cu table ints", lib.jt_decode_segments_table_ints(),
@@ -95,6 +99,10 @@ def _check_layouts(lib: ctypes.CDLL) -> None:
         ("decode_segments.cu CTA_LANES", lib.jt_decode_segments_cta_lanes(),
          CTA_LANES),
         ("encode_scan.cu T_MAX", lib.jt_encode_scan_t_max(), T_MAX),
+        ("encode_scan.cu BLOCK_WORDS", lib.jt_encode_scan_block_words(),
+         BLOCK_WORDS),
+        ("encode_dense.cu TILE_BLOCKS", lib.jt_encode_dense_tile_blocks(),
+         TILE_BLOCKS),
     ):
         if got != want:
             raise RuntimeError(f"csrc/{name} is {got}, the Python side "

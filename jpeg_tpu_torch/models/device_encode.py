@@ -7,9 +7,10 @@ in device memory compress on the card --
                     box downsample -> FDCT -> quantize -> zig-zag ->
                     differential DC)
   -> [F * Bf, 64] natural-order zig-zag blocks in device memory
-  entropy stage    (entropy.encode_cuda.encode_scan: per-block Huffman
-                    bits, segmented prefix sums, pack)
-  -> one tight u32 word stream + per-segment bit counts
+  entropy stage    (entropy.encode_cuda.encode_scan: per-segment Huffman
+                    bits, prefix sums of the segments' words, pack)
+  -> one tight u32 word stream + per-segment bit counts, its length
+     still on the device
 
 -- and only the words (~the compressed size) come back to the host, which
 finishes with the byte-serial work: 1-padding, 0xFF byte stuffing and
@@ -32,7 +33,7 @@ decoder.c:371-373), RST0..7 cycling (encoder.c write_ecs path).
 Left out on purpose, against the JAX module: the sticky capacities and
 their retry loop, the learned slot phases, the device word compaction and
 the 17-bit chunk cap all work around XLA's static shapes, which a
-per-thread kernel writing at exact offsets does not have.
+per-segment kernel writing at exact offsets does not have.
 """
 
 from __future__ import annotations
@@ -343,8 +344,10 @@ class DeviceEncoder:
 
     def scan(self, zz: torch.Tensor, ehufco=None, ehufsi=None):
         """Entropy-code a chunk's blocks with the given (default: the
-        encoder's) code tables -> (words, seg_wbase, seg_bits, missing)
-        on the device."""
+        encoder's) code tables -> (words, seg_wbase, seg_bits, missing,
+        n_words) on the device, the stream being ``words[:n_words]``
+        (``encode_cuda.encode_scan``; on the card ``words`` is a capacity
+        buffer as large as ``zz``, to trim or drop before keeping)."""
         frames = zz.shape[0] // self.blocks_per_frame
         order, seg_of, dc_tab, ac_tab = self.chunk_tables(frames)
         if ehufco is None:
@@ -358,14 +361,18 @@ class DeviceEncoder:
         """A chunk's blocks -> one JPEG byte string per frame."""
         frames = zz.shape[0] // self.blocks_per_frame
         with trace("device_encode.scan"):
-            words, _, seg_bits, missing = self.scan(zz, ehufco, ehufsi)
+            words, _, seg_bits, missing, n_words = self.scan(zz, ehufco,
+                                                             ehufsi)
         with trace("device_encode.pull"):
-            if bool(missing):
+            # One sync for both flags; the capacity buffer is dropped here.
+            missing, n_words = torch.stack(
+                (missing.to(torch.int64), n_words)).tolist()
+            if missing:
                 raise UnsupportedError(
                     "a symbol has no code in the selected Huffman tables "
                     "(content exceeds table range; use optimize=True)"
                 )
-            words_h = words.cpu().numpy().view(np.uint32)
+            words_h = words[:n_words].cpu().numpy().view(np.uint32)
             seg_bits_h = seg_bits.cpu().numpy()
         with trace("device_encode.finalize"):
             return self._finalize_flat(words_h, seg_bits_h, frames,

@@ -3,8 +3,9 @@
 ``pixels_to_zz`` is the port of the JAX package's device program
 ``device_encode._pixels_to_zz`` (colour convert -> box downsample -> level
 shift -> FDCT -> quantize -> zig-zag -> differential DC).  On a CUDA
-tensor it launches the hand-written kernel ``csrc/encode_dense.cu``; on a
-CPU tensor it runs the plain version ``pixels_to_zz_ref``, built from the
+tensor it launches the hand-written kernel ``csrc/encode_dense.cu``,
+which encodes one tile of MCUs per CTA step (``tile_plan``); on a CPU
+tensor it runs the plain version ``pixels_to_zz_ref``, built from the
 port's plain ops the same way the JAX program is built from its own.
 
 Output contract (both versions, as in JAX): ``[F * Bf, 64]`` int32 blocks
@@ -17,6 +18,7 @@ difference to the previous same-component block of its restart interval
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from functools import lru_cache
 
 import numpy as np
@@ -30,9 +32,13 @@ from ..ops.color import rgb_to_ycc
 from ..ops.dct import _kron_mats
 from ..ops.resample import downsample_box
 
-# Per-component int32 record shared with csrc/encode_dense.cu.
-COMP_INTS = 8  # b_y, b_x, step_y, step_x, block offset, n_blocks, qtable, pad
+# Per-component int32 record shared with csrc/encode_dense.cu: sampling
+# factors h, v; box steps step_y, step_x; first natural row; blocks per
+# component row b_x; quantization table; first block of the component in
+# an MCU.
+COMP_INTS = 8
 C_MAX = 3
+TILE_BLOCKS = 64  # blocks of one tile; csrc/encode_dense.cu
 
 
 def raster_to_zz(allz: torch.Tensor, prev_idx: torch.Tensor) -> torch.Tensor:
@@ -92,24 +98,53 @@ def pixels_to_zz_ref(pixels: torch.Tensor, qtables: torch.Tensor,
     return raster_to_zz(torch.cat(parts, dim=1), prev_idx)
 
 
-def comp_table(geom: FrameGeometry) -> np.ndarray:
-    """Per-component records for the kernel, components sorted by id."""
+@dataclass(frozen=True)
+class TilePlan:
+    """How ``csrc/encode_dense.cu`` cuts a frame into tiles: a tile is up
+    to ``mcus`` MCUs of one MCU row (the row's last tile may hold fewer),
+    so its pixels are ``mcu_h`` rows of ``mcus * mcu_w`` columns of the
+    MCU-padded frame and its blocks at most ``TILE_BLOCKS``."""
+
+    mcus: int  # MCUs of a full tile
+    tiles_x: int  # tiles per MCU row
+    mcu_w: int  # pixel columns of one MCU
+    mcu_h: int  # pixel rows of one MCU (and of a tile)
+    bpm: int  # blocks per MCU
+    comps: np.ndarray  # [C_MAX, COMP_INTS] int32, components sorted by id
+
+
+def tile_plan(geom: FrameGeometry) -> TilePlan:
+    """The kernel's tiles of ``geom``.  Raises ``ValueError`` unless every
+    component's box (its downsampling steps) is 1 x 1 or the frame's
+    largest, with steps of 1 or 2: what every encoder geometry has, and
+    what the kernel's sample phase takes."""
     comps = sorted(geom.components, key=lambda c: c.cid)
+    bpm = sum(c.h * c.v for c in comps)
+    mcus = max(1, min(TILE_BLOCKS // bpm, geom.m_x))
     t = np.zeros((C_MAX, COMP_INTS), np.int32)
-    off = 0
+    off = first = 0
     for j, c in enumerate(comps):
-        t[j, :7] = (c.b_y, c.b_x, geom.size_y // (c.b_y * 8),
-                    geom.size_x // (c.b_x * 8), off, c.n_blocks,
-                    0 if c.tq == 0 else 1)
+        t[j] = (c.h, c.v, geom.size_y // (c.b_y * 8),
+                geom.size_x // (c.b_x * 8), off, c.b_x,
+                0 if c.tq == 0 else 1, first)
         off += c.n_blocks
-    return t
+        first += c.h * c.v
+    steps = {(int(y), int(x)) for y, x in t[:len(comps), 2:4]}
+    cell = (max(y for y, _ in steps), max(x for _, x in steps))
+    if not steps <= {(1, 1), cell} or max(cell) > 2:
+        raise ValueError(f"pixels_to_zz: component boxes {sorted(steps)} "
+                         "are not 1 x 1 or one common box of steps 1..2")
+    return TilePlan(mcus=mcus, tiles_x=-(-geom.m_x // mcus),
+                    mcu_w=8 * geom.max_h, mcu_h=8 * geom.max_v, bpm=bpm,
+                    comps=t)
 
 
 @lru_cache(maxsize=16)
 def _device_consts(geom: FrameGeometry, device: torch.device):
     fdct = torch.from_numpy(_kron_mats()[1]).to(device)
     inv = torch.from_numpy(INV_ZIGZAG.astype(np.int32)).to(device)
-    return fdct, inv, torch.from_numpy(comp_table(geom)).to(device)
+    plan = tile_plan(geom)
+    return fdct, inv, torch.from_numpy(plan.comps).to(device), plan
 
 
 def pixels_to_zz(pixels: torch.Tensor, qtables: torch.Tensor,
@@ -140,7 +175,7 @@ def pixels_to_zz(pixels: torch.Tensor, qtables: torch.Tensor,
     from ..kernels import load_library
 
     lib = load_library().lib
-    fdct, inv, ctab = _device_consts(geom, dev)
+    fdct, inv, ctab, plan = _device_consts(geom, dev)
     zz = torch.empty(f * bf, 64, dtype=torch.int32, device=dev)
     dc_raw = torch.empty(f * bf, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -150,7 +185,8 @@ def pixels_to_zz(pixels: torch.Tensor, qtables: torch.Tensor,
             fdct.data_ptr(), inv.data_ptr(), ctab.data_ptr(),
             qtables.data_ptr(), prev_idx.data_ptr(), zz.data_ptr(),
             dc_raw.data_ptr(), f, geom.height, geom.width, nc,
-            geom.precision, bf, ctypes.c_void_p(stream),
+            geom.precision, bf, geom.m_x, geom.m_y, plan.mcus, plan.tiles_x,
+            plan.mcu_w, plan.mcu_h, plan.bpm, ctypes.c_void_p(stream),
         )
     if rc != 0:
         raise RuntimeError(f"pixels_to_zz launch failed: CUDA error {rc}")

@@ -68,6 +68,31 @@ def symbol_blocks(n_blocks: int, seed: int = 11) -> np.ndarray:
     return zz
 
 
+def worst_blocks(n_blocks: int, dc_cat: int, ac_cat: int,
+                 seed: int = 13) -> np.ndarray:
+    """[n_blocks, 64] int32 zig-zag blocks that take the most bits: every
+    nonzero of DC category ``dc_cat`` or AC category ``ac_cat`` (16 is the
+    cap of the category function), position 63 always nonzero (no EOB).
+    Block i % 3 == 0 has all 64 coefficients nonzero; the others hold one
+    run of 16-47 zeros (one or two ZRLs), at position 1 (i % 3 == 1) or
+    further in (i % 3 == 2).
+    """
+    rng = np.random.default_rng(seed)
+
+    def values(shape, cat):
+        mag = rng.integers(1 << (cat - 1), 1 << cat, shape)
+        return mag * rng.choice([-1, 1], shape)
+
+    zz = values((n_blocks, 64), ac_cat)
+    zz[:, 0] = values(n_blocks, dc_cat)
+    for i in range(n_blocks):
+        if i % 3:
+            run = int(rng.integers(16, 48))
+            start = 1 if i % 3 == 1 else int(rng.integers(2, 63 - run))
+            zz[i, start:start + run] = 0
+    return zz.astype(np.int32)
+
+
 def tie_frame(fdct: np.ndarray, qtable: np.ndarray, shift: int = 128):
     """A grayscale frame whose quantized AC coefficients meet exact ties.
 
