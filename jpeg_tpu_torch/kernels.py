@@ -77,6 +77,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         "jt_idct_exact": [p, p, p, p, ll, i, p],
         "jt_fdct_exact": [p, p, p, p, ll, i, p],
         "jt_color_exact": [p, p, ll, i, i, p],
+        "jt_coeffs_to_pixels": [p] * 5 + [i] * 16 + [p],
+        "jt_decode_dense_tile_blocks": [],
+        "jt_decode_dense_comp_ints": [],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -89,6 +92,7 @@ def _check_layouts(lib: ctypes.CDLL) -> None:
     Python side that packs its inputs."""
     from .entropy.encode_cuda import BLOCK_WORDS, T_MAX
     from .entropy.place_cuda import CTA_LANES, LUT_BITS, TABLE_INTS
+    from .models import decode_dense
     from .models.encode_dense import TILE_BLOCKS
 
     for name, got, want in (
@@ -103,6 +107,10 @@ def _check_layouts(lib: ctypes.CDLL) -> None:
          BLOCK_WORDS),
         ("encode_dense.cu TILE_BLOCKS", lib.jt_encode_dense_tile_blocks(),
          TILE_BLOCKS),
+        ("decode_dense.cu TILE_BLOCKS", lib.jt_decode_dense_tile_blocks(),
+         decode_dense.TILE_BLOCKS),
+        ("decode_dense.cu COMP_INTS", lib.jt_decode_dense_comp_ints(),
+         decode_dense.COMP_INTS),
     ):
         if got != want:
             raise RuntimeError(f"csrc/{name} is {got}, the Python side "

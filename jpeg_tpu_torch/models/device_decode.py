@@ -5,16 +5,19 @@ segment words go to the device; both stages run there --
 
   restart-segment decode   (entropy.place_cuda.decode_segments)
   -> [F * total_blocks, 64] plane-major coefficients in device memory
-  dense decode             (dequant -> IDCT -> upsample -> color -> u8)
+  dense decode             (models.decode_dense.coeffs_to_pixels:
+                            dequant -> IDCT -> upsample -> color -> u8)
   -> uint8 frames [F, H, W, C] that stay on the device.
 
 Frames of a Motion-JPEG stream share geometry and Huffman tables, so a
 chunk of frames decodes in one kernel launch with lanes = frames x
 restart segments (one lane per frame when the stream has no restart
-markers).  The segment kernel decodes each lane to its end, so there is
-no step bound to learn and no starvation retry.  A chunk whose frames
-do not share the stream's geometry or tables decodes frame by frame on
-the host path instead (``_fallback_chunk``).
+markers).  Their quantization tables may differ (a camera's rate
+control): each frame dequantizes with its own.  The segment kernel
+decodes each lane to its end, so there is no step bound to learn and no
+starvation retry.  A chunk whose frames do not share the stream's
+geometry or Huffman tables decodes frame by frame on the host path
+instead (``_fallback_chunk``).
 
 ``decode_frame_device`` is the single-frame entry: every scan of a
 multi-scan (e.g. non-interleaved) frame decodes on the device into its
@@ -37,54 +40,22 @@ from ..entropy.place_cuda import check_shape, decode_segments
 from ..errors import UnsupportedError
 from ..format.parse import parse_codestream, unstuff, unstuff_ranges
 from ..geometry import FrameGeometry
-from ..models.batch import decode_blocks_batch
-from ..ops.color import to_rgb, ycc_to_rgb_planar
-from ..ops.resample import upsample_nn
-from ..utils.floatops import roundf
+from ..models.decode_dense import coeffs_to_pixels
 from ..utils.metrics import default_metrics, trace
 
 
 def _dense_from_coeffs(coeffs: torch.Tensor, geom: FrameGeometry,
                        qtables: torch.Tensor) -> torch.Tensor:
-    """[F, total_blocks, 64] plane-ordered coefficients -> device pixels
-    [F, H, W, C] (uint8, or uint16 above 8 bits)."""
-    size_y, size_x = geom.size_y, geom.size_x
-    chans = []
-    off = 0
-    for comp in geom.components:
-        n = comp.n_blocks
-        plane = decode_blocks_batch(
-            coeffs[:, off : off + n], qtables[comp.tq], comp.b_y, comp.b_x,
-            geom.precision,
-        )
-        off += n
-        chans.append(
-            upsample_nn(plane, size_y // (comp.b_y * 8), size_x // (comp.b_x * 8))
-        )
-    maxval = (1 << geom.precision) - 1
-    out_dt = torch.uint8 if geom.precision <= 8 else torch.uint16
-    h, w = geom.height, geom.width
-
-    def quantize(p):
-        return roundf(p).clamp(0, maxval).to(out_dt)
-
-    if geom.nf == 3:
-        # Planar color math; crop before the one interleave.
-        r, g, b = ycc_to_rgb_planar(chans[0], chans[1], chans[2],
-                                    geom.precision)
-        return torch.stack(
-            [quantize(c[:, :h, :w]) for c in (r, g, b)], dim=-1
-        )
-    rgb = to_rgb(torch.stack(chans, dim=-1), geom.precision)
-    # Drop the dummy K channel of YCCK frames (write_frame semantics,
-    # frame.c:548-567): deliverable is RGB (or one gray channel).
-    nch = 3 if geom.nf >= 3 else 1
-    return quantize(rgb[:, :h, :w, :nch]).contiguous()
+    """[F, total_blocks, 64] plane-ordered coefficients and [F, 4, 64]
+    per-frame tables -> device pixels [F, H, W, C] (uint8, or uint16
+    above 8 bits): the dense tail kernel, or its plain version on CPU."""
+    return coeffs_to_pixels(coeffs, qtables, geom)
 
 
 @dataclass
 class DeviceDecoder:
-    """Whole-chunk decoder for streams sharing one geometry and tables.
+    """Whole-chunk decoder for streams sharing one geometry and Huffman
+    tables (each frame keeps its own quantization tables).
 
     Build once from a representative frame with ``for_stream``, then
     ``decode_batch`` lists of JPEG byte strings (e.g. the frames of a
@@ -98,7 +69,7 @@ class DeviceDecoder:
     htable_key: tuple
     device: torch.device
     qtables_host: np.ndarray  # [4, 64] int32 of the sample frame
-    qtables: torch.Tensor  # the same on ``device``
+    qtables: torch.Tensor  # the same on ``device``, [1, 4, 64]
 
     @staticmethod
     def for_stream(sample_jpeg: bytes, device) -> "DeviceDecoder":
@@ -124,7 +95,7 @@ class DeviceDecoder:
             htable_key=htable_key,
             device=dev,
             qtables_host=qt,
-            qtables=torch.from_numpy(qt).to(dev),
+            qtables=torch.from_numpy(qt[None]).to(dev),
         )
 
     @property
@@ -134,14 +105,16 @@ class DeviceDecoder:
     def prepare(self, jpegs: Sequence[bytes]):
         """Host prep: parse + batch-unstuff + word packing, then upload.
 
-        -> (words [S, Wn] int32, nbits [S] int32, qtables [4, 64] int32),
-        all on ``device``; the quantization tables are the chunk's first
-        frame's.
+        -> (words [S, Wn] int32, nbits [S] int32, qtables [F, 4, 64]
+        int32), all on ``device``; ``qtables`` holds each frame's own
+        tables.  When every frame's tables equal the sample frame's,
+        nothing is uploaded for them: ``qtables`` is the cached set
+        expanded over the frames (frame stride 0).
         """
         spf = self.segs_per_frame
         parts: List[np.ndarray] = []
         lens_parts: List[np.ndarray] = []
-        qts = None
+        qts: List[np.ndarray] = []
         for data in jpegs:
             cs = parse_codestream(data)
             if cs.geometry != self.geom or len(cs.scans) != 1:
@@ -164,8 +137,7 @@ class DeviceDecoder:
             lens[: seg_offsets.size - 1] = np.diff(seg_offsets)
             parts.append(seg_bytes[: seg_offsets[-1]])
             lens_parts.append(lens)
-            if qts is None:
-                qts = cs.qtables.astype(np.int32)
+            qts.append(cs.qtables.astype(np.int32))
         words, nbits = pack_words(
             np.concatenate(parts) if parts else np.zeros(0, np.uint8),
             np.concatenate(lens_parts) if lens_parts else np.zeros(0, np.int64),
@@ -173,10 +145,10 @@ class DeviceDecoder:
         dev = self.device
         words_t = torch.from_numpy(words.view(np.int32)).to(dev)
         nbits_t = torch.from_numpy(nbits.astype(np.int32)).to(dev)
-        if qts is None or np.array_equal(qts, self.qtables_host):
-            qt = self.qtables
+        if all(np.array_equal(q, self.qtables_host) for q in qts):
+            qt = self.qtables.expand(len(qts), 4, 64)
         else:
-            qt = torch.from_numpy(qts).to(dev)
+            qt = torch.from_numpy(np.stack(qts)).to(dev)
         return words_t, nbits_t, qt
 
     def decode_prepared(self, words: torch.Tensor, nbits: torch.Tensor,
@@ -192,7 +164,8 @@ class DeviceDecoder:
     def _run(self, jpegs: Sequence[bytes], chunk: int, finish,
              fallback=None) -> torch.Tensor:
         """Decode in ``chunk``-frame chunks; ``finish(coeffs, qtables)``
-        maps each chunk's coefficients to its output.  With ``fallback``,
+        maps each chunk's coefficients [F, total_blocks, 64] and its
+        per-frame tables [F, 4, 64] to its output.  With ``fallback``,
         a chunk whose frames the stream's plan does not take
         (``prepare`` raises ``UnsupportedError``: a mixed stream) becomes
         ``fallback(frames)`` instead of killing the batch."""
@@ -279,7 +252,8 @@ def _host_pixels(data: bytes, geom: FrameGeometry,
 
 def _dense_only(geom: FrameGeometry, coeffs: torch.Tensor,
                 qtables: torch.Tensor) -> torch.Tensor:
-    """[F, total_blocks, 64] coefficients -> [F, H, W, C] device pixels."""
+    """[F, total_blocks, 64] coefficients and [F, 4, 64] tables ->
+    [F, H, W, C] device pixels."""
     return _dense_from_coeffs(coeffs, geom, qtables)
 
 
@@ -325,5 +299,5 @@ def decode_frame_device(data: bytes, device) -> torch.Tensor:
             scan.ri, nb)
         o = comp_off[scan.info.component_ids[0]]
         coeffs[o : o + nb] = c_i
-    qt = torch.from_numpy(cs.qtables.astype(np.int32)).to(dev)
+    qt = torch.from_numpy(cs.qtables.astype(np.int32)[None]).to(dev)
     return _dense_only(geom, coeffs[None], qt)[0]
