@@ -95,7 +95,25 @@ process exits non-zero without printing the result line:
     byte-identical to jpeg_tpu's committed digests; a mixed stream falls
     back frame by frame and counts it; each exact kernel (``idct_exact``,
     ``fdct_exact``, ``color_exact``) bitwise equal to its plain version
-    on 1080p planes and on seeded random inputs, with times.
+    on 1080p planes and on seeded random inputs, with times;
+13. RST-less: 16 frames of 1080p 4:2:0 q75 encoded on the card with no
+    restart markers (bench.py's ``p_rl``) decode through
+    ``mjpeg.decode_stream_device`` on the speculative engine (the
+    kernels ``rstless_sync`` K8, ``rstless_resolve`` K9 and
+    ``rstless_final`` K10, then the dense tail), K8 and K10 launched once
+    per 8-frame batch and K9 once per walk and per re-decode (``2 *
+    rounds + 1`` a batch), with no fallback and no host frame; the decoded blocks
+    equal the encoder's and the pixels ``coeffs_to_pixels`` of them; the
+    host syncs of one batch; each kernel bit for bit against its plain
+    version (K9 and K10 on the kernel outputs of the stage before) on an
+    8-frame batch and on three-frame batches of 4:2:0, 4:2:2, 4:4:4, gray
+    and 12-bit gray content at the default chunk, at 64-byte chunks, at
+    16-byte chunks with a 4-byte strip (blocks cut by chunks, and
+    re-decode rounds) and, damaged (``damage``), at 64-byte chunks;
+    times, bounds and plain times of the three kernels (K8's bound counts
+    the segment, tables and links, not its membership map: that is the
+    design's scratch), ``rstless_e2e_stream_Mpix_s``,
+    ``rstless_device_resident_Mpix_s`` and the card's busy share.
 
 Every kernel's time is printed beside its bound (``bound``: the bytes it
 must move at 3.35 TB/s or its operations at the peak rate of their type
@@ -117,8 +135,10 @@ damaged (on the register lookahead too where the checkout has that
 route), ``pixels_to_zz`` on the 8-frame bench pixels, and
 ``encode_scan`` on their blocks at restart intervals 4 and 7 and with
 one segment per frame (20 back-to-back calls, CUDA events, three
-times), and the end-to-end ``encode_batch`` of the 16 bench frames,
-default and optimized (host clock, median of 5, three times), each with
+times), the end-to-end ``encode_batch`` of the 16 bench frames,
+default and optimized, and where the checkout has the RST-less engine
+the end-to-end decode of phase 13's stream (host clock, median of 5,
+three times), each with
 the peak of device memory allocated during one call and a per-kernel
 device profile of one call.  Every checkout's outputs must be equal (the
 encode stream hashed up to its word count, whichever return form the
@@ -131,11 +151,13 @@ per checkout and no result line.
 from __future__ import annotations
 
 import hashlib
+import importlib.util
 import json
 import os
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 if __name__ == "__main__" and sys.argv[1:2] == ["--time-tree"]:
@@ -164,7 +186,7 @@ from jpeg_tpu_torch.entropy.encode_torch import (
 )
 from jpeg_tpu_torch.entropy import place_cuda
 from jpeg_tpu_torch.entropy.lockstep import ScanPlan, build_scan_plan
-from jpeg_tpu_torch.entropy.lockstep_torch import scan_lanes
+from jpeg_tpu_torch.entropy.lockstep_torch import _cached_plan, scan_lanes
 from jpeg_tpu_torch.entropy.place_cuda import (
     decode_segments,
     decode_segments_general,
@@ -310,6 +332,12 @@ def frames_of(name: str):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def max_err(got, ref) -> int:
+    """The largest absolute difference between pairs of integer tensors."""
+    return max((int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                for a, b in zip(got, ref) if a.numel()), default=0)
 
 
 def bound(moved: int, ops: float, kind: str) -> dict:
@@ -1310,6 +1338,325 @@ def single_image_phase(card: str, dev: torch.device, streams: dict) -> list:
                 ("color_exact", "jpeg_tpu/ops/color.py:53"))]
 
 
+# Small RST-less geometries: name -> (components, h, v, height, width,
+# bits), three frames of seeded content each.
+RSTLESS_SMALL = {"4:2:0": (3, 2, 2, 64, 96, 8), "4:2:2": (3, 2, 1, 48, 80, 8),
+                 "4:4:4": (3, 1, 1, 40, 64, 8), "gray": (1, 1, 1, 56, 72, 8),
+                 "gray 12-bit": (1, 1, 1, 48, 64, 12)}
+
+
+def seeded_pnm(comps: int, height: int, width: int, bits: int,
+               seed: int, noise: float = 0.05) -> bytes:
+    """A PGM/PPM of smooth seeded content with gaussian noise of ``noise``
+    full scale (16-bit samples, big-endian, above 8 bits)."""
+    rng = np.random.default_rng(seed)
+    maxval = (1 << bits) - 1
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float64)
+    chans = [0.5 + 0.4 * np.sin(xx / (7.0 + 3 * c) + seed)
+             * np.cos(yy / (5.0 + 2 * c)) for c in range(comps)]
+    img = np.stack(chans, -1) + rng.normal(0, noise, (height, width, comps))
+    samples = np.clip(np.round(img * maxval), 0, maxval)
+    dt = ">u2" if maxval > 255 else np.uint8
+    magic = b"P6" if comps == 3 else b"P5"
+    return (magic + b"\n%d %d\n%d\n" % (width, height, maxval)
+            + samples.astype(dt).tobytes())
+
+
+def drop_dri(jpeg: bytes) -> bytes:
+    """The frame without its DRI segment (FFDD 0004 nnnn) before SOS."""
+    at = jpeg.find(b"\xff\xdd\x00\x04")
+    if at < 0 or at > jpeg.find(b"\xff\xda"):
+        raise AssertionError("no DRI segment before the scan")
+    return jpeg[:at] + jpeg[at + 6:]
+
+
+def rstless_modules():
+    """(engine, kernel wrappers, plain versions) of the RST-less decode,
+    imported when a phase runs: a ``--time-tree`` worker may import a
+    checkout that lacks them."""
+    from jpeg_tpu_torch.entropy import speculative as core
+    from jpeg_tpu_torch.entropy import speculative_cuda as sc
+    from jpeg_tpu_torch.entropy import speculative_torch as st
+    return core, sc, st
+
+
+def rstless_compare(label: str, plan: ScanPlan, tb: int, segs,
+                    dev: torch.device, chunk_bytes: int, strip_bytes: int,
+                    damaged: bool = False) -> tuple:
+    """Hold K8, K9 and K10 to their plain versions bit for bit on one
+    batch; K9 and K10 run on the kernel's outputs of the stage before.
+    -> (the batch's resolve stats (rounds, recovery rows, mispredicts),
+    {kernel: largest absolute difference from its plain version})."""
+    core, sc, st = rstless_modules()
+    words, nbits, rows = core.prepare_batch(segs, dev, chunk_bytes)
+    if damaged:
+        words, nbits = damage(words, nbits, 0)
+    cb, sb = chunk_bytes * 8, strip_bytes * 8
+    k = dict(zip(("links", "member"),
+                 sc.sync(plan, words, nbits, rows, cb, sb)))
+    links_p, member_p = st.sync_ref(plan, words, nbits, rows, cb, sb)
+    torch.cuda.synchronize()
+    errs = {"rstless_sync": max_err((k["links"], k["member"]),
+                                    (links_p, member_p))}
+    for name, a, b in (("links", k["links"], links_p),
+                       ("member", k["member"], member_p)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"rstless_sync {label}: {name} differs from "
+                                 f"the plain version in "
+                                 f"{int((a != b).sum())} entries")
+    rounds = 1 + max(int(c) for c in np.diff(rows.row0))
+    res_k, stats_k = sc.resolve(plan, words, nbits, rows, k["links"],
+                                k["member"], cb, sb, rounds)
+    res_p, stats_p = st.resolve_ref(plan, words, nbits, rows, k["links"],
+                                    k["member"], cb, sb, rounds)
+    if stats_k != stats_p or (res_k is None) != (res_p is None) or (
+            res_k is not None and not all(
+                torch.equal(a, b) for a, b in zip(res_k, res_p))):
+        raise AssertionError(f"rstless_resolve {label}: differs from the "
+                             f"plain version (stats {stats_k} vs {stats_p})")
+    if res_k is not None:
+        errs["rstless_resolve"] = max_err(res_k, res_p)
+    msg = (f"kernel-vs-plain rstless {label}: {rows.F} frames, {rows.R} rows "
+           f"x {plan.blocks_per_mcu} variants, chunk {chunk_bytes} B strip "
+           f"{strip_bytes} B: sync links and membership equal; resolve equal "
+           f"(rounds, recovery rows, mispredicts {stats_k})")
+    if res_k is not None:
+        f_bit, f_slot, nblk = res_k[:3]
+        ck, ok_k = sc.final(plan, words, nbits, rows, f_bit, f_slot, nblk, tb)
+        cp, ok_p = st.final_ref(plan, words, nbits, rows, f_bit, f_slot,
+                                nblk, tb)
+        torch.cuda.synchronize()
+        errs["rstless_final"] = max_err((ck, ok_k), (cp, ok_p))
+        if not (torch.equal(ck, cp) and torch.equal(ok_k, ok_p)):
+            raise AssertionError(f"rstless_final {label}: {int((ck != cp).sum())}"
+                                 f" coefficients differ from the plain version")
+        msg += f"; final equal ({int((ok_k == 0).sum())} rows not ok)"
+    log(msg)
+    return stats_k, errs
+
+
+def rstless_phase(card: str, dev: torch.device) -> list:
+    """Phase 13 (RST-less decode: the speculative engine, K8-K10); -> the
+    JSON entries of its three kernels."""
+    mark("13")
+    from jpeg_tpu_torch.models.device_decode import _rstless_scan
+
+    core, sc, st = rstless_modules()
+    # bench.py's p_rl (bench.py:251-252): 1080p 4:2:0 q75, no restart
+    # markers.  DeviceEncoder codes restart segments in parallel, so it
+    # needs a restart interval: one segment per frame, then the DRI segment
+    # dropped, is the ri=0 stream (the DC chain starts once, at the frame).
+    n_mcus = -(-synth.HEIGHT // 16) * -(-synth.WIDTH // 16)  # 16x16 MCUs
+    enc = DeviceEncoder.for_config(
+        synth.HEIGHT, synth.WIDTH, 3,
+        EncodeParams(h=2, v=2, quality=75, optimize=False,
+                     restart_interval=n_mcus, exact=False), device=dev)
+    px = bench_pixels(dev)
+    frames = [drop_dri(f) for f in
+              enc.encode_batch(px, optimize=False, chunk=CHUNK)]
+    stream = b"".join(frames)
+    cs0, _, key = _rstless_scan(frames[0])
+    plan = _cached_plan(cs0.geometry, cs0.scans[0].info, key)
+    tb = sum(c.n_blocks for c in cs0.geometry.components)
+    segs = [_rstless_scan(f)[1] for f in frames]
+    ecs = [int(s.size) for s in segs]
+    cb, sb = core.CHUNK_BYTES, core.STRIP_BYTES
+    rows8 = sum(-(-n // cb) for n in ecs[:CHUNK])
+    log(f"rstless: {STREAM_FRAMES} frames of 1080p 4:2:0 q75 ri=0, ECS "
+        f"{min(ecs)}..{max(ecs)} bytes a frame; chunk {cb} B, strip {sb} B: "
+        f"{rows8} rows x {plan.blocks_per_mcu} variants = "
+        f"{rows8 * plan.blocks_per_mcu} sync threads per {CHUNK}-frame batch "
+        f"on {torch.cuda.get_device_properties(dev).multi_processor_count} "
+        f"SMs")
+
+    # ---- the main path ------------------------------------------------
+    c0 = dict(default_metrics.counters)
+    sc.sync.launches = sc.resolve.launches = sc.final.launches = 0
+    coeffs_to_pixels.launches = 0
+    out = jpeg_tpu_torch.mjpeg.decode_stream_device(stream, dev, chunk=CHUNK)
+    torch.cuda.synchronize()
+    launches = {"rstless_sync": sc.sync.launches,
+                "rstless_resolve": sc.resolve.launches,
+                "rstless_final": sc.final.launches}
+    tail_launches = coeffs_to_pixels.launches
+    delta = {k: default_metrics.counters.get(k, 0) - c0.get(k, 0)
+             for k in ("speculative.fallbacks", "mjpeg.rstless_host_frames",
+                       "speculative.resolve_rounds",
+                       "speculative.recovery_rows", "speculative.mispredicts",
+                       "speculative.batches")}
+    batches = STREAM_FRAMES // CHUNK
+    # K9 launches a walk per round and a re-decode between two walks.
+    want_launches = {"rstless_sync": batches, "rstless_final": batches,
+                     "rstless_resolve": batches + 2 * delta[
+                         "speculative.resolve_rounds"]}
+    if launches != want_launches or tail_launches != batches:
+        raise AssertionError(f"rstless main path launches {launches}, "
+                             f"coeffs_to_pixels {tail_launches} (want "
+                             f"{want_launches}, {batches})")
+    if delta["speculative.fallbacks"] or delta["mjpeg.rstless_host_frames"]:
+        raise AssertionError(f"rstless main path fell back: {delta}")
+    want = (STREAM_FRAMES, synth.HEIGHT, synth.WIDTH, 3)
+    if tuple(out.shape) != want or out.dtype != torch.uint8 or \
+            out.device.type != dev.type:
+        raise AssertionError(f"rstless output {tuple(out.shape)} {out.dtype}")
+    log(f"rstless: decode_stream_device -> {want} uint8 on {dev}; launches "
+        f"{launches}, coeffs_to_pixels {tail_launches}; per "
+        f"{CHUNK}-frame batch: resolve rounds "
+        f"{delta['speculative.resolve_rounds'] / batches}, recovery rows "
+        f"{delta['speculative.recovery_rows'] / batches}, mispredicts "
+        f"{delta['speculative.mispredicts'] / batches}; fallbacks 0, host "
+        f"frames 0")
+
+    # ---- decoded blocks and pixels --------------------------------------
+    prev = torch.from_numpy(enc.prev_idx).to(dev)
+    qt = torch.from_numpy(np.stack([
+        _rstless_scan(f)[0].qtables.astype(np.int32) for f in frames])).to(dev)
+    for lo in range(0, STREAM_FRAMES, CHUNK):
+        coeffs, n_use = core.speculative_core_batch(plan, tb,
+                                                    segs[lo:lo + CHUNK], dev)
+        if not torch.equal(raster_to_zz(coeffs.reshape(CHUNK, tb, 64), prev),
+                           enc.dense(px[lo:lo + CHUNK])):
+            raise AssertionError(f"rstless frames {lo}..: decoded blocks "
+                                 f"differ from the encoder's")
+        ref_px = coeffs_to_pixels(coeffs.reshape(CHUNK, tb, 64),
+                                  qt[lo:lo + CHUNK], enc.geom)
+        if not torch.equal(ref_px, out[lo:lo + CHUNK]):
+            raise AssertionError(f"rstless frames {lo}..: pixels differ from "
+                                 f"coeffs_to_pixels of the decoded blocks")
+    log(f"rstless: {STREAM_FRAMES} frames' blocks equal to the encoder's, "
+        f"pixels equal to coeffs_to_pixels of them")
+
+    # ---- host syncs of one batch ----------------------------------------
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            core.speculative_core_batch(plan, tb, segs[:CHUNK], dev)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    log(f"rstless: {syncs} host syncs in one {CHUNK}-frame batch of the "
+        f"engine (uploads included)")
+
+    # ---- each kernel against its plain version ------------------------
+    compare = [(f"1080p batch x{CHUNK}", plan, tb, segs[:CHUNK], cb, sb,
+                False)]
+    for seed, (name, (nc, h, v, hh, ww, bits)) in enumerate(
+            RSTLESS_SMALL.items()):
+        params = EncodeParams(h=h, v=v, quality=75, restart_interval=0)
+        # three frames of different content and coded size
+        small = [jpeg_tpu_torch.encode_jpeg(
+            seeded_pnm(nc, hh, ww, bits, 10 * seed + i, 0.01 + 0.1 * i),
+            params, dev) for i in range(3)]
+        cs, _, k2 = _rstless_scan(small[0])
+        p2 = _cached_plan(cs.geometry, cs.scans[0].info, k2)
+        t2 = sum(c.n_blocks for c in cs.geometry.components)
+        s2 = [_rstless_scan(f)[1] for f in small]
+        # 16 B chunks cut blocks; a 4-byte strip forces re-decodes; the
+        # damaged copy (noise, cut, all-zero words, flipped bits) holds
+        # rows that never resynchronize
+        for c_b, s_b, dmg in ((cb, sb, False), (64, 16, False),
+                              (16, 4, False), (64, 16, True)):
+            compare.append((f"{name} x3 chunk {c_b}"
+                            + (" damaged" if dmg else ""), p2, t2, s2, c_b,
+                            s_b, dmg))
+    recovered = 0
+    errs = {}
+    for label, p2, t2, s2, c_b, s_b, dmg in compare:
+        stats, e = rstless_compare(label, p2, t2, s2, dev, c_b, s_b, dmg)
+        recovered += stats[1]
+        for name, v in e.items():
+            errs[name] = max(errs.get(name, 0), v)
+    if recovered == 0:
+        raise AssertionError("no comparison ran the re-decode kernel")
+
+    # ---- times ----------------------------------------------------------
+    words, nbits, rows = core.prepare_batch(segs[:CHUNK], dev)
+    cbb, sbb = cb * 8, sb * 8
+    links, member = sc.sync(plan, words, nbits, rows, cbb, sbb)
+    rounds = 1 + int(np.diff(rows.row0).max())
+    res, _ = sc.resolve(plan, words, nbits, rows, links, member, cbb, sbb,
+                        rounds)
+    f_bit, f_slot, nblk = res[:3]
+    coeffs, ok = sc.final(plan, words, nbits, rows, f_bit, f_slot, nblk, tb)
+    calls = {
+        "rstless_sync": (
+            lambda: sc.sync(plan, words, nbits, rows, cbb, sbb),
+            lambda: st.sync_ref(plan, words, nbits, rows, cbb, sbb)),
+        "rstless_resolve": (
+            lambda: sc.resolve(plan, words, nbits, rows, links, member, cbb,
+                               sbb, rounds),
+            lambda: st.resolve_ref(plan, words, nbits, rows, links, member,
+                                   cbb, sbb, rounds)),
+        "rstless_final": (
+            lambda: sc.final(plan, words, nbits, rows, f_bit, f_slot, nblk,
+                             tb),
+            lambda: st.final_ref(plan, words, nbits, rows, f_bit, f_slot,
+                                 nblk, tb)),
+    }
+    ecs_bytes = int(((nbits.to(torch.int64) + 7) // 8).sum())
+    bits = int(nbits.to(torch.int64).sum())
+    r_out = nbytes(*res)
+    bounds = {
+        # the segment, the row layout and the code tables read once, the
+        # links written; every coded bit looked at once per variant (the
+        # membership map is this design's scratch, not the function's)
+        "rstless_sync": bound(
+            ecs_bytes + nbytes(nbits, rows.r0, rows.frame32, links)
+            + 4 * place_cuda._staged_ints(plan),
+            bits * plan.blocks_per_mcu, "int32"),
+        # links read, the rows' entries and counts written; one step a row
+        "rstless_resolve": bound(nbytes(links) + r_out, rows.R, "int32"),
+        # the segment and the rows' entries read, coefficients written;
+        # every coded bit once
+        "rstless_final": bound(ecs_bytes + nbytes(f_bit, f_slot, nblk, coeffs,
+                                                  ok), bits, "int32"),
+    }
+    times = {}
+    for name, (kern, plain) in calls.items():
+        times[name] = (cuda_ms(kern, 10), cuda_ms(plain, 1))
+        log(f"time {name}_ms={times[name][0]} plain_ms={times[name][1]} per "
+            f"{CHUNK}-frame 1080p ri=0 batch ({rows.R} rows) [{card}]")
+        log_bound(name, times[name][0], bounds[name], card)
+
+    mpix = STREAM_FRAMES * synth.WIDTH * synth.HEIGHT / 1e6
+    med, runs = median_s(lambda: jpeg_tpu_torch.mjpeg.decode_stream_device(
+        stream, dev, chunk=CHUNK), E2E_RUNS)
+    log(f"time rstless_e2e_stream_Mpix_s={mpix / med} (median of {len(runs)} "
+        f"runs of {STREAM_FRAMES} ri=0 frames from bytes, chunk {CHUNK}; run "
+        f"ms {[round(r * 1e3, 3) for r in runs]}) [{card}]")
+    prepared = [(core.prepare_batch(segs[i:i + CHUNK], dev), qt[i:i + CHUNK])
+                for i in range(0, STREAM_FRAMES, CHUNK)]
+
+    def resident():
+        for (w, n, r), q in prepared:
+            lk, mb = sc.sync(plan, w, n, r, cbb, sbb)
+            rr, _ = sc.resolve(plan, w, n, r, lk, mb, cbb, sbb, rounds)
+            c, _ = sc.final(plan, w, n, r, rr[0], rr[1], rr[2], tb)
+            coeffs_to_pixels(c.reshape(-1, tb, 64), q, enc.geom)
+
+    resident()
+    med, runs = median_s(resident, E2E_RUNS)
+    log(f"time rstless_device_resident_Mpix_s={mpix / med} (median of "
+        f"{len(runs)} runs of {STREAM_FRAMES} frames whose words are on the "
+        f"card: sync, resolve, final, dense tail; host clock) [{card}]")
+    profile_window(
+        lambda: jpeg_tpu_torch.mjpeg.decode_stream_device(stream, dev,
+                                                          chunk=CHUNK),
+        "device_decode.", card, f"{STREAM_FRAMES}-frame RST-less stream "
+        "decode")
+    replaces = {"rstless_sync": "jpeg_tpu/entropy/speculative.py:545",
+                "rstless_resolve": "jpeg_tpu/entropy/speculative.py:749",
+                "rstless_final": "jpeg_tpu/entropy/speculative.py:1249"}
+    return [{"name": name, "route": "cuda",
+             "source": "jpeg_tpu_torch/csrc/decode_rstless.cu",
+             "replaces": replaces[name], "launches": launches[name],
+             "max_abs_err": errs[name], "ms": times[name][0],
+             "plain_ms": times[name][1], **bounds[name]}
+            for name in calls]
+
+
 def digest(out) -> str:
     """sha256 of a tensor or a tuple of tensors, on the host."""
     h = hashlib.sha256()
@@ -1415,6 +1762,15 @@ def time_tree(tree: str) -> dict:
             lambda: enc4.encode_batch(px16, optimize=True, chunk=CHUNK),
             jpegs_digest, "host"),
     }
+    if importlib.util.find_spec("jpeg_tpu_torch.entropy.speculative"):
+        # The RST-less stream (phase 13's), where the checkout has the
+        # engine; a checkout before it decodes such frames on the host.
+        rl = b"".join(drop_dri(f) for f in enc1.encode_batch(
+            px16, optimize=False, chunk=CHUNK))
+        cases[f"rstless ri=0 x{STREAM_FRAMES}"] = (
+            lambda: jpeg_tpu_torch.mjpeg.decode_stream_device(rl, dev,
+                                                              chunk=CHUNK),
+            digest, "host")
     # (label, shared-memory budget of the staged words; None: as it is)
     routes = [("default", None)]
     if hasattr(place_cuda, "STAGE_BYTES"):
@@ -1673,6 +2029,7 @@ def main() -> None:
     entries += general_phase(card, dev, errs["decode_segments_general"],
                              k_ms)
     entries += single_image_phase(card, dev, streams)
+    entries += rstless_phase(card, dev)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": entries}), flush=True)

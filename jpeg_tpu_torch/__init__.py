@@ -1,7 +1,9 @@
 """jpeg_tpu_torch: the PyTorch/CUDA port of jpeg_tpu.
 
 Motion-JPEG decode into pixels that stay on the device
-(``DeviceDecoder``, ``mjpeg.decode_stream_device``: any restart layout),
+(``DeviceDecoder``, ``mjpeg.decode_stream_device``: any restart layout,
+and streams without restart markers through the speculative engine,
+``decode_frame_rstless``),
 encode of device-resident frames into restart-marker JPEG streams
 (``DeviceEncoder``, default or per-batch optimized tables), and the
 single-image API (``decode_jpeg``, ``decode_coefficients``,
@@ -23,7 +25,12 @@ from .errors import (
     UnsupportedError,
 )
 from .encoder import EncodeParams, encode_jpeg
-from .models.device_decode import DeviceDecoder, decode_frame_device
+from .mjpeg import warm_stream_device
+from .models.device_decode import (
+    DeviceDecoder,
+    decode_frame_device,
+    decode_frame_rstless,
+)
 from .models.device_encode import DeviceEncoder
 
 __version__ = "0.1.0"
@@ -34,6 +41,8 @@ __all__ = [
     "DecodedImage",
     "encode_jpeg",
     "decode_frame_device",
+    "decode_frame_rstless",
+    "warm_stream_device",
     "DeviceDecoder",
     "DeviceEncoder",
     "EncodeParams",

@@ -11,9 +11,12 @@ codec).  ``DecodedImage``, ``expected_mcus``, ``checks_enabled`` and
 Entropy backends: ``"auto"`` takes the NumPy lockstep engine for scans
 of 16 or more restart segments and the serial oracle otherwise, which is
 the JAX package's own choice when its native library is absent;
-``"serial"`` and ``"lockstep"`` force one.  The native C++ engine and the
-speculative RST-less engine are not ported yet (ROADMAP queue 1 items 8
-and the native prep), so ``"native"`` and ``"speculative"`` raise.
+``"serial"`` and ``"lockstep"`` force one.  ``"speculative"`` runs the
+RST-less engine (``entropy/speculative.py``: kernels K8-K10) on the
+decode's device for a scan without restart markers, routes a scan with
+them to the lockstep engine, and decodes a scan the engine refuses with
+the serial oracle.  The native C++ engine is not ported yet (the port's
+native host layer), so ``"native"`` raises.
 """
 
 from __future__ import annotations
@@ -34,9 +37,6 @@ from .utils.pnm import write_pnm
 _NOT_PORTED = {
     "native": "the native C++ entropy engine is not ported yet (it comes "
               "with the port's native prep); use entropy='auto'",
-    "speculative": "the speculative RST-less engine is not ported yet (it "
-                   "comes with the RST-less slice, kernels K8-K10); use "
-                   "entropy='auto'",
 }
 
 
@@ -115,12 +115,13 @@ def checks_level() -> int:
 
 
 def decode_coefficients(
-    data: bytes, entropy: str = "auto"
+    data: bytes, entropy: str = "auto", device=None
 ) -> tuple[Codestream, Dict[int, np.ndarray]]:
-    """Parse + entropy-decode only (on the host): JPEG bytes ->
-    coefficient planes."""
+    """Parse + entropy-decode only: JPEG bytes -> coefficient planes (host
+    numpy).  Every backend decodes on the host except ``"speculative"``,
+    which runs on ``device`` (required for it)."""
     try:
-        return _decode_coefficients(data, entropy)
+        return _decode_coefficients(data, entropy, device)
     except JpegError:
         if entropy != "auto":
             raise
@@ -129,16 +130,23 @@ def decode_coefficients(
         # an undeclared component id, which it simply skips); the serial
         # oracle defines our behavior there -- retry once with it.  A
         # genuinely corrupt stream re-raises from the oracle.
-        return _decode_coefficients(data, "serial")
+        return _decode_coefficients(data, "serial", device)
 
 
 def _decode_coefficients(
-    data: bytes, entropy: str
+    data: bytes, entropy: str, device
 ) -> tuple[Codestream, Dict[int, np.ndarray]]:
     if entropy in _NOT_PORTED:
         raise UnsupportedError(_NOT_PORTED[entropy])
-    if entropy not in ("auto", "serial", "lockstep"):
+    if entropy not in ("auto", "serial", "lockstep", "speculative"):
         raise UnsupportedError(f"unknown entropy backend {entropy!r}")
+    if entropy == "speculative":
+        if device is None:
+            raise ValueError("entropy='speculative' decodes on a device: "
+                             "pass device")
+        from .device import resolve
+
+        device = resolve(device)
     cs = parse_codestream(data)
     geom = cs.geometry
     if geom is None:
@@ -169,6 +177,12 @@ def _decode_coefficients(
             from .entropy.serial import decode_scan_serial
 
             n = decode_scan_serial(geom, scan.info, tables, segments, planes)
+        elif backend == "speculative":
+            from .entropy.speculative import decode_scan_speculative
+
+            n = decode_scan_speculative(
+                geom, scan.info, tables, tuple(sorted(scan.htables.items())),
+                segments, planes, device)
         else:
             from .entropy.lockstep import decode_scan_lockstep
 
@@ -192,14 +206,15 @@ def decode_jpeg(
 ) -> DecodedImage:
     """Full decode: JPEG bytes -> RGB float frame (+ coefficients).
 
-    Entropy decode runs on the host, the dense pipeline on ``device``;
-    ``frame`` comes back as a float32 numpy array.
+    Entropy decode runs on the host (``entropy="speculative"``: on
+    ``device``), the dense pipeline on ``device``; ``frame`` comes back as
+    a float32 numpy array.
     """
     from .device import resolve
     from .models.pipeline import decode_frame
 
     dev = resolve(device)
-    cs, planes = decode_coefficients(data, entropy=entropy)
+    cs, planes = decode_coefficients(data, entropy=entropy, device=dev)
     geom = cs.geometry
     frame = decode_frame(planes, geom, cs.qtables.astype(np.int32), exact,
                          device=dev).cpu().numpy()

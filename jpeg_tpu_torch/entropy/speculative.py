@@ -1,0 +1,192 @@
+"""Speculative parallel decode of entropy-coded segments without restart
+markers (the port of ``jpeg_tpu/entropy/speculative.py``).
+
+Without restart markers a scan's bit positions and its DC predictor chain
+(decoder.c:350-355) are strictly sequential (read_ecs, decoder.c:364-388).
+Huffman codes self-synchronize, though: a decode started at a wrong
+position falls into the true symbol boundaries after a short prefix.  The
+engine cuts each frame's unstuffed segment into chunk rows of
+``CHUNK_BYTES`` and runs three device stages on the whole batch of
+frames (``speculative_cuda``; the kernels of ``csrc/decode_rstless.cu``,
+or on the CPU their plain versions in ``speculative_torch``):
+
+  K8 sync     every (row, slot variant) decodes its row and links into
+              its successor row at the first block-start state (bit,
+              slot) that a successor variant also passed;
+  K9 resolve  a walk per frame chains authority from row 0 (bit 0, slot
+              0) through the links; rows whose authority the links do not
+              give are re-decoded from their now-known entry, round after
+              round until every row is settled;
+  K10 final   every row re-decodes exactly its blocks into their plane
+              rows, and the per-frame DC prefix completes the predictor
+              chain.
+
+The result is bit-identical to the serial oracle on valid streams.  A
+frame whose final decode does not reach the geometry's MCU count (a
+damaged stream), or a batch the rounds cannot settle, is refused: the
+call returns ``None`` and counts ``speculative.fallbacks`` and
+``speculative.fallback[<reason>]``; callers step down (one frame at a
+time, then the host).
+
+What the TPU engine needed for XLA's static shapes has no counterpart
+here: no phase-variant lane roster, no capped record lists (TCAP, HCAP),
+no learned step bounds, no environment knobs.  The chunk and strip sizes
+are module constants, checked once by ``check_capacity``.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from ..errors import UnsupportedError
+from ..utils.metrics import default_metrics
+from . import speculative_cuda
+from .lockstep import ScanPlan
+from .lockstep_torch import pack_words
+from .place_cuda import check_plan
+from .speculative_torch import Rows, row_layout
+
+# Chunk row bytes: small enough that a batch of 1080p frames gives every
+# SM of an H100 several warps of (row, variant) threads (an 8-frame chunk
+# of the bench stream, ~206 KB a frame: ~3,200 rows, ~19,000 threads at
+# 4:2:0), large enough that the strip is a small share of the decoding.
+CHUNK_BYTES = 512
+# Head strip bytes: block starts recorded for the predecessor to link at.
+STRIP_BYTES = 128
+MAX_CHUNK_BYTES = 1 << 20
+MAX_STRIP_BYTES = 4096
+
+
+def check_capacity(chunk_bytes: int, strip_bytes: int) -> None:
+    """Raise ``ValueError`` unless 1 <= strip_bytes <= chunk_bytes,
+    strip_bytes <= MAX_STRIP_BYTES and chunk_bytes <= MAX_CHUNK_BYTES:
+    an entry linked into a row's strip must lie inside the row, and bit
+    offsets and membership entries must fit int32."""
+    for name, v in (("chunk_bytes", chunk_bytes),
+                    ("strip_bytes", strip_bytes)):
+        if not isinstance(v, (int, np.integer)) or isinstance(v, bool):
+            raise ValueError(f"{name} must be an int, got {v!r}")
+    if not 1 <= strip_bytes <= min(chunk_bytes, MAX_STRIP_BYTES):
+        raise ValueError(f"strip_bytes {strip_bytes} outside 1 .. "
+                         f"min(chunk_bytes, {MAX_STRIP_BYTES})")
+    if chunk_bytes > MAX_CHUNK_BYTES:
+        raise ValueError(f"chunk_bytes {chunk_bytes} above "
+                         f"{MAX_CHUNK_BYTES}")
+
+
+check_capacity(CHUNK_BYTES, STRIP_BYTES)
+
+
+def _fallback(why: str) -> None:
+    """Count a refused batch with its reason (the part before ':')."""
+    default_metrics.count("speculative.fallbacks")
+    default_metrics.count(f"speculative.fallback[{why.split(':')[0]}]")
+    return None
+
+
+def prepare_batch(segments: Sequence[np.ndarray], device: torch.device,
+                  chunk_bytes: int = CHUNK_BYTES):
+    """Host prep: pack each frame's unstuffed segment into one row of
+    big-endian words (``pack_words``, as ``DeviceDecoder.prepare``) and
+    cut it into chunk rows; upload.  -> (words [F, wn] int32, nbits [F]
+    int32, ``Rows``), all on ``device``."""
+    segs = [np.asarray(s, np.uint8) for s in segments]
+    sizes = np.array([s.size for s in segs], np.int64)
+    words, nbits = pack_words(np.concatenate(segs), sizes)
+    rows = Rows.build(row_layout(sizes, chunk_bytes), device)
+    return (torch.from_numpy(words.view(np.int32)).to(device),
+            torch.from_numpy(nbits.astype(np.int32)).to(device), rows)
+
+
+def speculative_core_batch(plan: ScanPlan, total_blocks: int,
+                           segments: Sequence[np.ndarray],
+                           device: torch.device,
+                           chunk_bytes: int = CHUNK_BYTES,
+                           strip_bytes: int = STRIP_BYTES):
+    """Decode F same-plan RST-less segments (unstuffed uint8) on
+    ``device``.
+
+    -> (coeffs [F * total_blocks, 64] int32 on ``device``, plane order,
+    n_use: each frame's decoded blocks, at most ``total_blocks``), or
+    ``None`` when the batch is refused (counted).  The resolve rounds are
+    bounded by the largest frame's row count plus one, which always
+    suffices: each round settles at least one more row of every frame.
+    """
+    check_capacity(chunk_bytes, strip_bytes)
+    try:
+        check_plan(plan)
+    except UnsupportedError as e:
+        return _fallback(f"plan: {e}")
+    if not segments:
+        return _fallback("empty batch")
+    words, nbits, rows = prepare_batch(segments, device, chunk_bytes)
+    max_rounds = int(np.diff(rows.row0).max()) + 1
+    default_metrics.count("speculative.batches")
+    links, member = speculative_cuda.sync(
+        plan, words, nbits, rows, chunk_bytes * 8, strip_bytes * 8)
+    res, (rounds, rec_rows, mis) = speculative_cuda.resolve(
+        plan, words, nbits, rows, links, member, chunk_bytes * 8,
+        strip_bytes * 8, max_rounds)
+    default_metrics.count("speculative.resolve_rounds", rounds)
+    default_metrics.count("speculative.recovery_rows", rec_rows)
+    default_metrics.count("speculative.mispredicts", mis)
+    if res is None:
+        return _fallback(f"unresolved: {rounds} rounds")
+    f_bit, f_slot, nblk, _, bad = res
+    coeffs, ok = speculative_cuda.final(plan, words, nbits, rows, f_bit,
+                                        f_slot, nblk, total_blocks)
+    # One host read: per frame, the walk's refusal, the rows that did not
+    # decode their blocks, and the blocks decoded.
+    frame = rows.frame
+    zero = torch.zeros(rows.F, dtype=torch.int64, device=device)
+    check = torch.stack([
+        bad.to(torch.int64),
+        zero.index_add(0, frame, (ok == 0).to(torch.int64)),
+        zero.index_add(0, frame, nblk.to(torch.int64)),
+    ]).cpu().numpy()
+    want = plan.n_mcus * plan.blocks_per_mcu
+    refused = (check[0] > 0) | (check[1] > 0) | (check[2] < want)
+    if refused.any():
+        return _fallback(f"invalid frame: {int(np.argmax(refused))} of "
+                         f"{rows.F}")
+    return coeffs, [int(min(t, total_blocks)) for t in check[2]]
+
+
+def decode_scan_speculative(geom, info, tables, htable_key: tuple,
+                            segments: List[np.ndarray],
+                            planes, device) -> int:
+    """Scan-level entry (``api.decode_coefficients(entropy=
+    "speculative")``): decode one scan into ``planes`` (host int32
+    [n_blocks, 64] per component id) and return its MCU count.
+
+    An RST-less scan (one segment) runs the engine on ``device`` and
+    downloads the coefficients; a refused scan decodes with the serial
+    oracle instead.  A scan with restart markers already has explicit
+    entry points, so it routes to the lockstep engine.
+    """
+    if len(segments) > 1:
+        from .lockstep import decode_scan_lockstep
+
+        return decode_scan_lockstep(geom, info, tables, list(segments),
+                                    planes)
+    from .lockstep_torch import _cached_plan
+
+    plan = _cached_plan(geom, info, htable_key)
+    comps = [geom.by_id(cid) for cid in info.component_ids]
+    total_blocks = sum(c.n_blocks for c in comps)
+    seg = np.asarray(segments[0], np.uint8)
+    res = speculative_core_batch(plan, total_blocks, [seg], device)
+    if res is None:
+        from .serial import decode_scan_serial
+
+        return decode_scan_serial(geom, info, tables, [seg], planes)
+    coeffs, _ = res
+    c = coeffs.cpu().numpy()
+    off = 0
+    for comp in comps:
+        planes[comp.cid][:] = c[off : off + comp.n_blocks]
+        off += comp.n_blocks
+    return plan.n_mcus  # the engine refuses a scan that decodes fewer

@@ -80,6 +80,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         "jt_coeffs_to_pixels": [p] * 5 + [i] * 16 + [p],
         "jt_decode_dense_tile_blocks": [],
         "jt_decode_dense_comp_ints": [],
+        "jt_rstless_sync": [p] * 7 + [i] * 7 + [p],
+        "jt_rstless_walk": [p] * 9 + [i] * 4 + [p],
+        "jt_rstless_recover": [p] * 10 + [i] * 7 + [p],
+        "jt_rstless_final": [p] * 12 + [i] * 8 + [p],
+        "jt_rstless_dc_fix": [p] * 7 + [i] * 5 + [p],
+        "jt_decode_rstless_table_ints": [],
+        "jt_decode_rstless_ncol": [],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -92,6 +99,7 @@ def _check_layouts(lib: ctypes.CDLL) -> None:
     Python side that packs its inputs."""
     from .entropy.encode_cuda import BLOCK_WORDS, T_MAX
     from .entropy.place_cuda import CTA_LANES, LUT_BITS, TABLE_INTS
+    from .entropy.speculative_torch import NCOL
     from .models import decode_dense
     from .models.encode_dense import TILE_BLOCKS
 
@@ -111,6 +119,9 @@ def _check_layouts(lib: ctypes.CDLL) -> None:
          decode_dense.TILE_BLOCKS),
         ("decode_dense.cu COMP_INTS", lib.jt_decode_dense_comp_ints(),
          decode_dense.COMP_INTS),
+        ("decode_rstless.cu table ints", lib.jt_decode_rstless_table_ints(),
+         TABLE_INTS),
+        ("decode_rstless.cu NCOL", lib.jt_decode_rstless_ncol(), NCOL),
     ):
         if got != want:
             raise RuntimeError(f"csrc/{name} is {got}, the Python side "

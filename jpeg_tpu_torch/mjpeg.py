@@ -10,7 +10,9 @@ parsing.  This module adds the stream-level pieces around that:
   * ``decode_stream``: decode every frame with ``api.decode_jpeg``,
     isolating per-frame failures (``StreamResult``);
   * ``decode_stream_device``: decode a stream into pixels that stay on
-    the device.
+    the device;
+  * ``warm_stream_device``: one such decode, which builds and loads the
+    kernels before a timed run.
 """
 
 from __future__ import annotations
@@ -25,8 +27,9 @@ from .api import DecodedImage, decode_jpeg
 from .errors import FileIOError, JpegError
 from .utils.metrics import default_metrics
 
-# RST-less frames above this size take the host rung (the JAX package's
-# speculative-engine threshold, jpeg_tpu/mjpeg.py:111).
+# RST-less frames above this size take the speculative engine; smaller
+# ones decode one lane per frame (the JAX package's threshold,
+# jpeg_tpu/mjpeg.py:112).
 RSTLESS_DEVICE_MAX_BYTES = 8192
 
 
@@ -103,29 +106,62 @@ def decode_stream_device(data: bytes, device, chunk: int = 8):
     """Raw MJPEG bytes -> pixel batch [F, H, W, C] on ``device``.
 
     All frames share one geometry and (implicit or repeated) Huffman
-    tables; segment and dense decode run on the device in ``chunk``-frame
+    tables; entropy and dense decode run on the device in ``chunk``-frame
     chunks and the pixels stay there (``DeviceDecoder``: any restart
     layout, and small RST-less frames as one lane each).  RST-less frames
-    over ``RSTLESS_DEVICE_MAX_BYTES`` bytes, where the JAX package runs
-    its speculative engine, take that engine's last rung here, because
-    the engine (kernels K8-K10) is not ported yet: each frame decodes with
+    over ``RSTLESS_DEVICE_MAX_BYTES`` bytes take the speculative engine
+    (``decode_stream_rstless``), each chunk down the JAX package's ladder
+    (jpeg_tpu/mjpeg.py:112-135): the chunk as one batch; if the engine
+    refuses it, one frame at a time; a frame it refuses too decodes with
     ``decode_jpeg(exact=False)`` (entropy on the host, dense stage on
-    ``device``) and its pixels are uploaded, counted in the metric
+    ``device``), its pixels uploaded and counted in
     ``mjpeg.rstless_host_frames``.  Raises on malformed streams -- use
     ``decode_stream`` when per-frame fault isolation matters more than
     throughput.
     """
-    from .models.device_decode import DeviceDecoder, _host_pixels
+    from .models.device_decode import (
+        DeviceDecoder,
+        _host_pixels,
+        decode_frame_rstless,
+        decode_stream_rstless,
+    )
 
     parts = split_stream(data)
     if not parts:
         raise FileIOError("no JPEG frames in stream")
     dec = DeviceDecoder.for_stream(parts[0], device)
-    if dec.segs_per_frame <= 1 and len(parts[0]) > RSTLESS_DEVICE_MAX_BYTES:
-        default_metrics.count("mjpeg.rstless_host_frames", len(parts))
-        return torch.stack([_host_pixels(p, dec.geom, dec.device)
-                            for p in parts])
-    return dec.decode_batch(parts, chunk=chunk)
+    if dec.segs_per_frame > 1 or len(parts[0]) <= RSTLESS_DEVICE_MAX_BYTES:
+        return dec.decode_batch(parts, chunk=chunk)
+    step = chunk if chunk > 0 else len(parts)
+    outs = []
+    for lo in range(0, len(parts), step):
+        batch = parts[lo : lo + step]
+        try:
+            outs.append(decode_stream_rstless(batch, dec.device, chunk=step))
+            continue
+        except JpegError:
+            default_metrics.count("mjpeg.rstless_batch_fallbacks")
+        for p in batch:
+            try:
+                outs.append(decode_frame_rstless(p, dec.device)[None])
+            except JpegError:
+                default_metrics.count("mjpeg.rstless_host_frames")
+                outs.append(_host_pixels(p, dec.geom, dec.device)[None])
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def warm_stream_device(data: bytes, device, chunk: int = 8,
+                       max_rounds: int = 4, budget_s: Optional[float] = None):
+    """Warm what ``decode_stream_device(data, device)`` uses; -> its output.
+
+    The JAX engine learns step bounds that are static arguments of its
+    programs, so its warm-up loops until they stop changing
+    (``max_rounds`` passes at most, ``budget_s`` seconds at most).  The
+    port learns nothing and compiles nothing per shape: one decode builds
+    and loads the kernels, so the loop always stops after its first pass.
+    The two bounds are kept for the JAX signature.
+    """
+    return decode_stream_device(data, device, chunk=chunk)
 
 
 def decode_stream(

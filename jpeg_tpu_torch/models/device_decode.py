@@ -301,3 +301,68 @@ def decode_frame_device(data: bytes, device) -> torch.Tensor:
         coeffs[o : o + nb] = c_i
     qt = torch.from_numpy(cs.qtables.astype(np.int32)[None]).to(dev)
     return _dense_only(geom, coeffs[None], qt)[0]
+
+
+def _rstless_scan(data: bytes, geom=None, htable_key=None):
+    """Parse an RST-less single-scan frame -> (codestream, its unstuffed
+    segment, htable key); ``UnsupportedError`` for any other layout, or
+    when ``geom`` / ``htable_key`` are given and the frame's differ (a
+    mixed stream)."""
+    cs = parse_codestream(data)
+    if cs.geometry is None or len(cs.scans) != 1 or \
+            len(cs.scans[0].ecs_ranges) != 1:
+        raise UnsupportedError("the RST-less engine takes single-scan frames "
+                               "without restart markers")
+    scan = cs.scans[0]
+    key = tuple(sorted(scan.htables.items()))
+    if geom is not None and (cs.geometry != geom or key != htable_key):
+        raise UnsupportedError("mixed stream; decode per frame")
+    s, e = scan.ecs_ranges[0]
+    return cs, unstuff(data[s:e]), key
+
+
+def decode_stream_rstless(parts: Sequence[bytes], device,
+                          chunk: int = 8) -> torch.Tensor:
+    """RST-less frames of one geometry and Huffman tables -> pixels [F, H,
+    W, C] on ``device``.
+
+    Each ``chunk`` frames ride one batch of the speculative engine
+    (``entropy/speculative.py``: K8-K10 on the card), then the dense tail
+    (``coeffs_to_pixels``, K3) with each frame's own quantization tables.
+    Raises ``UnsupportedError`` for a mixed stream (another geometry,
+    more than one scan, restart markers, other Huffman tables: the checks
+    of ``jpeg_tpu/models/device_decode.py:941-954``) or when the engine
+    refuses a batch (counted in ``speculative.fallbacks``).
+    """
+    from ..entropy.speculative import speculative_core_batch
+
+    dev = resolve(device)
+    if not parts:
+        raise ValueError("no frames to decode")
+    cs0, _, key0 = _rstless_scan(parts[0])
+    geom = cs0.geometry
+    plan = _cached_plan(geom, cs0.scans[0].info, key0)
+    tb = sum(c.n_blocks for c in geom.components)
+    step = chunk if chunk > 0 else len(parts)
+    outs = []
+    for lo in range(0, len(parts), step):
+        segs, qts = [], []
+        for p in parts[lo : lo + step]:
+            cs, seg, _ = _rstless_scan(p, geom, key0)
+            segs.append(seg)
+            qts.append(cs.qtables.astype(np.int32))
+        res = speculative_core_batch(plan, tb, segs, dev)
+        if res is None:
+            raise UnsupportedError("speculative resolution refused the batch; "
+                                   "decode frame by frame")
+        qt = torch.from_numpy(np.stack(qts)).to(dev)
+        outs.append(_dense_only(geom, res[0].reshape(len(segs), tb, 64), qt))
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def decode_frame_rstless(data: bytes, device) -> torch.Tensor:
+    """One RST-less frame -> pixels [H, W, C] on ``device``: the engine
+    on one frame, then the dense tail.  Raises ``UnsupportedError`` when
+    the frame has restart markers or more than one scan, or the engine
+    refuses it (a damaged stream): decode it on the host then."""
+    return decode_stream_rstless([data], device)[0]

@@ -349,20 +349,23 @@ def test_decode_frame_device_matches_jax(name):
 
 def test_rstless_stream_routing():
     """Small RST-less frames decode on the device path, one lane per
-    frame; frames over 8,192 bytes take the host rung (the speculative
-    engine is not ported), counted per frame."""
+    frame; frames over 8,192 bytes take the speculative engine, one batch
+    per chunk, and no frame takes the host rung."""
     small = frames_of("rstless_420")
     before = default_metrics.counters.get("mjpeg.rstless_host_frames", 0)
+    batches = default_metrics.counters.get("speculative.batches", 0)
     px = jt.mjpeg.decode_stream_device(b"".join(small), "cpu").numpy()
     assert default_metrics.counters.get("mjpeg.rstless_host_frames", 0) == \
         before
+    assert default_metrics.counters.get("speculative.batches", 0) == batches
     params = EncodeParams(h=2, v=2, quality=95, restart_interval=0,
                           optimize=False, exact=False)
     big = [encode_jpeg(make_ppm(192, 128, seed=s), params) for s in (1, 2)]
     assert min(map(len, big)) > jt.mjpeg.RSTLESS_DEVICE_MAX_BYTES
     got = jt.mjpeg.decode_stream_device(b"".join(big), "cpu").numpy()
-    assert default_metrics.counters["mjpeg.rstless_host_frames"] == \
-        before + 2
+    assert default_metrics.counters.get("mjpeg.rstless_host_frames", 0) == \
+        before
+    assert default_metrics.counters["speculative.batches"] == batches + 1
     for frames, out in ((small, px), (big, got)):
         for i, f in enumerate(frames):
             want = jpeg_tpu.decode_jpeg(f, exact=False).pixels()

@@ -229,8 +229,9 @@ def test_ineligible_stream_raises():
 
 
 def test_rstless_stream_raises():
-    """An RST-less stream now decodes, one lane per frame; what still
-    raises is the speculative entropy engine, which is not ported."""
+    """An RST-less stream decodes, small frames one lane per frame, and so
+    does ``entropy="speculative"``; what still raises is the native
+    entropy engine, which is not ported."""
     params = EncodeParams(h=2, v=2, quality=75, restart_interval=0,
                           optimize=False, exact=False)
     jpeg = encode_jpeg(make_ppm(64, 32, seed=3), params)
@@ -241,8 +242,11 @@ def test_rstless_stream_raises():
     assert dec.segs_per_frame == 1 and dec.ri == 0
     np.testing.assert_array_equal(dec.decode_coeffs_batch([jpeg])[0], want)
     np.testing.assert_array_equal(px[1].numpy(), px[0].numpy())
-    with pytest.raises(jt.UnsupportedError, match="speculative"):
-        jt.decode_jpeg(jpeg, "cpu", entropy="speculative")
+    got = jt.decode_coefficients(jpeg, entropy="speculative", device="cpu")[1]
+    for cid in planes:
+        np.testing.assert_array_equal(got[cid], planes[cid])
+    with pytest.raises(jt.UnsupportedError, match="native"):
+        jt.decode_jpeg(jpeg, "cpu", entropy="native")
 
 
 def test_no_frames_raises():
