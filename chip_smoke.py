@@ -100,20 +100,25 @@ process exits non-zero without printing the result line:
     restart markers (bench.py's ``p_rl``) decode through
     ``mjpeg.decode_stream_device`` on the speculative engine (the
     kernels ``rstless_sync`` K8, ``rstless_resolve`` K9 and
-    ``rstless_final`` K10, then the dense tail), K8 and K10 launched once
-    per 8-frame batch and K9 once per walk and per re-decode (``2 *
-    rounds + 1`` a batch), with no fallback and no host frame; the decoded blocks
-    equal the encoder's and the pixels ``coeffs_to_pixels`` of them; the
-    host syncs of one batch; each kernel bit for bit against its plain
-    version (K9 and K10 on the kernel outputs of the stage before) on an
-    8-frame batch and on three-frame batches of 4:2:0, 4:2:2, 4:4:4, gray
-    and 12-bit gray content at the default chunk, at 64-byte chunks, at
-    16-byte chunks with a 4-byte strip (blocks cut by chunks, and
-    re-decode rounds) and, damaged (``damage``), at 64-byte chunks;
-    times, bounds and plain times of the three kernels (K8's bound counts
-    the segment, tables and links, not its membership map: that is the
-    design's scratch), ``rstless_e2e_stream_Mpix_s``,
-    ``rstless_device_resident_Mpix_s`` and the card's busy share.
+    ``rstless_final`` K10, then the dense tail), each launched once per
+    8-frame batch, with no fallback and no host frame; the decoded blocks
+    equal the encoder's and the pixels ``coeffs_to_pixels`` of them; at
+    most ``RSTLESS_MAX_SYNCS`` host syncs in one batch, each logged with
+    its site; each kernel bit for bit against its plain version (K8's
+    links, membership and marks; K9's rows, stats and pieces; K10's
+    coefficients and ok bits; K9 and K10 on the kernel outputs of the
+    stage before) on an 8-frame batch and on three-frame batches of
+    4:2:0, 4:2:2, 4:4:4, gray and 12-bit gray content at the default
+    chunk and piece, at 64-byte chunks with 24-byte pieces (a short last
+    piece), at 16-byte chunks with a 4-byte strip and 4-byte pieces
+    (blocks cut by chunks and pieces, and re-decode rounds) and, damaged
+    (``damage``), at 64-byte chunks with 16-byte pieces; times, bounds
+    and plain times of the three kernels (K8's bound counts the segment,
+    tables, links and marks, not its membership map: that is the design's
+    scratch), ``rstless_e2e_stream_Mpix_s``,
+    ``rstless_device_resident_Mpix_s``, the card's busy share, and the
+    device time of K8's head and tail walks, K9, and K10's piece walk and
+    DC pass apart.
 
 Every kernel's time is printed beside its bound (``bound``: the bytes it
 must move at 3.35 TB/s or its operations at the peak rate of their type
@@ -157,6 +162,7 @@ import os
 import subprocess
 import sys
 import time
+import traceback
 import warnings
 from pathlib import Path
 
@@ -242,6 +248,9 @@ MULTISCAN = ("multiscan_ri4", "multiscan_ri0")
 CHUNK = 8  # frames per chunk, as bench.py decodes the stream
 STREAM_FRAMES = 16
 E2E_RUNS = 5
+# Host syncs one RST-less engine batch may make: the uploads of its words,
+# bit counts and rows, and the one read of its frame checks.
+RSTLESS_MAX_SYNCS = 4
 # bench.py's encode shape (bench.py:55-58, 484-529): 1080p 4:2:0 q75,
 # restart interval 4, default tables, fast dense path.
 BENCH_PARAMS = EncodeParams(h=2, v=2, quality=75, optimize=False,
@@ -393,10 +402,11 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def profile_window(run, span_prefix: str, card: str, what: str,
-                   top: int = 8) -> None:
+                   top: int = 8) -> dict:
     """Card busy share of one ``run()`` under torch.profiler: the union of
     the device events' intervals over the host-clock window, with the
-    package's host spans (``span_prefix``*) and the top device kernels."""
+    package's host spans (``span_prefix``*) and the top device kernels.
+    -> {device event name: (count, microseconds)}."""
     os.environ["JPEG_TPU_PROFILE"] = "1"
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -426,6 +436,7 @@ def profile_window(run, span_prefix: str, card: str, what: str,
     for name, (n, us) in sorted(by_kernel.items(),
                                 key=lambda kv: -kv[1][1])[:top]:
         log(f"profile: device {us / 1e3} ms x{n} {name[:100]}")
+    return by_kernel
 
 
 def median_s(run, runs: int) -> tuple:
@@ -1382,57 +1393,93 @@ def rstless_modules():
 
 def rstless_compare(label: str, plan: ScanPlan, tb: int, segs,
                     dev: torch.device, chunk_bytes: int, strip_bytes: int,
-                    damaged: bool = False) -> tuple:
+                    piece_bytes: int, damaged: bool = False) -> tuple:
     """Hold K8, K9 and K10 to their plain versions bit for bit on one
-    batch; K9 and K10 run on the kernel's outputs of the stage before.
-    -> (the batch's resolve stats (rounds, recovery rows, mispredicts),
-    {kernel: largest absolute difference from its plain version})."""
+    batch; K9 and K10 run on the kernel's outputs of the stage before, K10
+    also where K9 left a frame unresolved.  -> (the batch's resolve stats
+    (rounds, recovery rows, mispredicts), {kernel: largest absolute
+    difference from its plain version})."""
     core, sc, st = rstless_modules()
     words, nbits, rows = core.prepare_batch(segs, dev, chunk_bytes)
     if damaged:
         words, nbits = damage(words, nbits, 0)
-    cb, sb = chunk_bytes * 8, strip_bytes * 8
-    k = dict(zip(("links", "member"),
-                 sc.sync(plan, words, nbits, rows, cb, sb)))
-    links_p, member_p = st.sync_ref(plan, words, nbits, rows, cb, sb)
+    cb, sb, pb = chunk_bytes * 8, strip_bytes * 8, piece_bytes * 8
+    k = sc.sync(plan, words, nbits, rows, cb, sb, pb)
+    p = st.sync_ref(plan, words, nbits, rows, cb, sb, pb)
     torch.cuda.synchronize()
-    errs = {"rstless_sync": max_err((k["links"], k["member"]),
-                                    (links_p, member_p))}
-    for name, a, b in (("links", k["links"], links_p),
-                       ("member", k["member"], member_p)):
+    errs = {"rstless_sync": max_err(k, p)}
+    for name, a, b in zip(("links", "member", "marks"), k, p):
         if not torch.equal(a, b):
             raise AssertionError(f"rstless_sync {label}: {name} differs from "
                                  f"the plain version in "
                                  f"{int((a != b).sum())} entries")
+    links, member, marks = k
     rounds = 1 + max(int(c) for c in np.diff(rows.row0))
-    res_k, stats_k = sc.resolve(plan, words, nbits, rows, k["links"],
-                                k["member"], cb, sb, rounds)
-    res_p, stats_p = st.resolve_ref(plan, words, nbits, rows, k["links"],
-                                    k["member"], cb, sb, rounds)
-    if stats_k != stats_p or (res_k is None) != (res_p is None) or (
-            res_k is not None and not all(
-                torch.equal(a, b) for a, b in zip(res_k, res_p))):
-        raise AssertionError(f"rstless_resolve {label}: differs from the "
-                             f"plain version (stats {stats_k} vs {stats_p})")
-    if res_k is not None:
-        errs["rstless_resolve"] = max_err(res_k, res_p)
-    msg = (f"kernel-vs-plain rstless {label}: {rows.F} frames, {rows.R} rows "
-           f"x {plan.blocks_per_mcu} variants, chunk {chunk_bytes} B strip "
-           f"{strip_bytes} B: sync links and membership equal; resolve equal "
-           f"(rounds, recovery rows, mispredicts {stats_k})")
-    if res_k is not None:
-        f_bit, f_slot, nblk = res_k[:3]
-        ck, ok_k = sc.final(plan, words, nbits, rows, f_bit, f_slot, nblk, tb)
-        cp, ok_p = st.final_ref(plan, words, nbits, rows, f_bit, f_slot,
-                                nblk, tb)
-        torch.cuda.synchronize()
-        errs["rstless_final"] = max_err((ck, ok_k), (cp, ok_p))
-        if not (torch.equal(ck, cp) and torch.equal(ok_k, ok_p)):
-            raise AssertionError(f"rstless_final {label}: {int((ck != cp).sum())}"
-                                 f" coefficients differ from the plain version")
-        msg += f"; final equal ({int((ok_k == 0).sum())} rows not ok)"
-    log(msg)
-    return stats_k, errs
+    res_k = sc.resolve(plan, words, nbits, rows, links, member, marks, cb,
+                       sb, pb, rounds)
+    res_p = st.resolve_ref(plan, words, nbits, rows, links, member, marks,
+                           cb, sb, pb, rounds)
+    fs = res_k.frame.cpu().numpy()
+    stats = (int(fs[:, st.S_ROUNDS].max()), int(fs[:, st.S_RECOVERY].sum()),
+             int(fs[:, st.S_MISPREDICTS].sum()))
+    for name, a, b in zip(res_k._fields, res_k, res_p):
+        if not torch.equal(a, b):
+            raise AssertionError(f"rstless_resolve {label}: {name} differs "
+                                 f"from the plain version in "
+                                 f"{int((a != b).sum())} entries")
+    errs["rstless_resolve"] = max_err(res_k, res_p)
+    ck, ok_k = sc.final(plan, words, nbits, rows, res_k.pieces, tb)
+    cp, ok_p = st.final_ref(plan, words, nbits, rows, res_k.pieces, tb)
+    torch.cuda.synchronize()
+    # coefficients of the frames the engine accepts (resolved, every row
+    # ok, every MCU decoded): the kernel writes each of their blocks, and
+    # leaves a block no piece decodes, in a refused frame, as it was
+    zero = torch.zeros(rows.F, dtype=torch.int64, device=dev)
+    not_ok = zero.index_add(0, rows.frame, (ok_k == 0).to(torch.int64))
+    blocks = zero.index_add(0, rows.frame,
+                            res_k.row[st.R_NBLK].to(torch.int64))
+    keep = ((res_k.frame[:, st.S_UNRESOLVED] == 0)
+            & (res_k.frame[:, st.S_BAD] == 0) & (not_ok == 0)
+            & (blocks >= plan.n_mcus * plan.blocks_per_mcu))
+    ck, cp = (c.reshape(rows.F, tb, 64)[keep] for c in (ck, cp))
+    errs["rstless_final"] = max_err((ck, ok_k), (cp, ok_p))
+    if not (torch.equal(ck, cp) and torch.equal(ok_k, ok_p)):
+        raise AssertionError(f"rstless_final {label}: {int((ck != cp).sum())}"
+                             f" coefficients, {int((ok_k != ok_p).sum())} ok "
+                             f"bits differ from the plain version")
+    log(f"kernel-vs-plain rstless {label}: {rows.F} frames, {rows.R} rows "
+        f"x {plan.blocks_per_mcu} variants, chunk {chunk_bytes} B strip "
+        f"{strip_bytes} B piece {piece_bytes} B: sync links, membership and "
+        f"marks equal; resolve rows, stats and pieces equal (rounds, "
+        f"recovery rows, mispredicts {stats}; {int(fs[:, st.S_UNRESOLVED].sum())}"
+        f" frames unresolved); final ok bits equal ({int((ok_k == 0).sum())}"
+        f" rows not ok), coefficients equal in the {int(keep.sum())} of "
+        f"{rows.F} frames the engine accepts")
+    return stats, errs
+
+
+def rstless_stream(dev: torch.device) -> tuple:
+    """Phase 13's stream: bench.py's p_rl (bench.py:251-252), 1080p 4:2:0
+    q75 without restart markers.  DeviceEncoder codes restart segments in
+    parallel, so it needs a restart interval: one segment per frame, then
+    the DRI segment dropped, is the ri=0 stream (the DC chain starts once,
+    at the frame).  -> (encoder, pixels, frames, scan plan, blocks per
+    frame, unstuffed segments)."""
+    from jpeg_tpu_torch.models.device_decode import _rstless_scan
+
+    n_mcus = -(-synth.HEIGHT // 16) * -(-synth.WIDTH // 16)  # 16x16 MCUs
+    enc = DeviceEncoder.for_config(
+        synth.HEIGHT, synth.WIDTH, 3,
+        EncodeParams(h=2, v=2, quality=75, optimize=False,
+                     restart_interval=n_mcus, exact=False), device=dev)
+    px = bench_pixels(dev)
+    frames = [drop_dri(f) for f in
+              enc.encode_batch(px, optimize=False, chunk=CHUNK)]
+    cs0, _, key = _rstless_scan(frames[0])
+    plan = _cached_plan(cs0.geometry, cs0.scans[0].info, key)
+    tb = sum(c.n_blocks for c in cs0.geometry.components)
+    segs = [_rstless_scan(f)[1] for f in frames]
+    return enc, px, frames, plan, tb, segs
 
 
 def rstless_phase(card: str, dev: torch.device) -> list:
@@ -1442,30 +1489,16 @@ def rstless_phase(card: str, dev: torch.device) -> list:
     from jpeg_tpu_torch.models.device_decode import _rstless_scan
 
     core, sc, st = rstless_modules()
-    # bench.py's p_rl (bench.py:251-252): 1080p 4:2:0 q75, no restart
-    # markers.  DeviceEncoder codes restart segments in parallel, so it
-    # needs a restart interval: one segment per frame, then the DRI segment
-    # dropped, is the ri=0 stream (the DC chain starts once, at the frame).
-    n_mcus = -(-synth.HEIGHT // 16) * -(-synth.WIDTH // 16)  # 16x16 MCUs
-    enc = DeviceEncoder.for_config(
-        synth.HEIGHT, synth.WIDTH, 3,
-        EncodeParams(h=2, v=2, quality=75, optimize=False,
-                     restart_interval=n_mcus, exact=False), device=dev)
-    px = bench_pixels(dev)
-    frames = [drop_dri(f) for f in
-              enc.encode_batch(px, optimize=False, chunk=CHUNK)]
+    enc, px, frames, plan, tb, segs = rstless_stream(dev)
     stream = b"".join(frames)
-    cs0, _, key = _rstless_scan(frames[0])
-    plan = _cached_plan(cs0.geometry, cs0.scans[0].info, key)
-    tb = sum(c.n_blocks for c in cs0.geometry.components)
-    segs = [_rstless_scan(f)[1] for f in frames]
     ecs = [int(s.size) for s in segs]
-    cb, sb = core.CHUNK_BYTES, core.STRIP_BYTES
+    cb, sb, pb = core.CHUNK_BYTES, core.STRIP_BYTES, core.PIECE_BYTES
     rows8 = sum(-(-n // cb) for n in ecs[:CHUNK])
     log(f"rstless: {STREAM_FRAMES} frames of 1080p 4:2:0 q75 ri=0, ECS "
-        f"{min(ecs)}..{max(ecs)} bytes a frame; chunk {cb} B, strip {sb} B: "
-        f"{rows8} rows x {plan.blocks_per_mcu} variants = "
-        f"{rows8 * plan.blocks_per_mcu} sync threads per {CHUNK}-frame batch "
+        f"{min(ecs)}..{max(ecs)} bytes a frame; chunk {cb} B, strip {sb} B, "
+        f"piece {pb} B: {rows8} rows x {plan.blocks_per_mcu} variants = "
+        f"{rows8 * plan.blocks_per_mcu} sync threads, "
+        f"{rows8 * -(-cb // pb)} final-decode pieces per {CHUNK}-frame batch "
         f"on {torch.cuda.get_device_properties(dev).multi_processor_count} "
         f"SMs")
 
@@ -1485,10 +1518,8 @@ def rstless_phase(card: str, dev: torch.device) -> list:
                        "speculative.recovery_rows", "speculative.mispredicts",
                        "speculative.batches")}
     batches = STREAM_FRAMES // CHUNK
-    # K9 launches a walk per round and a re-decode between two walks.
     want_launches = {"rstless_sync": batches, "rstless_final": batches,
-                     "rstless_resolve": batches + 2 * delta[
-                         "speculative.resolve_rounds"]}
+                     "rstless_resolve": batches}
     if launches != want_launches or tail_launches != batches:
         raise AssertionError(f"rstless main path launches {launches}, "
                              f"coeffs_to_pixels {tail_launches} (want "
@@ -1528,24 +1559,45 @@ def rstless_phase(card: str, dev: torch.device) -> list:
 
     # ---- host syncs of one batch ----------------------------------------
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
+    sites, others = [], []
+
+    def on_warning(message, category, filename, lineno, file=None,
+                   line=None):
+        # the sync's innermost frame, and the port's frame that led there
+        if "called a synchronizing CUDA operation" not in str(message):
+            others.append(f"{Path(filename).name}:{lineno}: {message}")
+        else:
+            port = [f for f in traceback.extract_stack()
+                    if "jpeg_tpu_torch" in f.filename]
+            via = f" via {Path(port[-1].filename).name}:{port[-1].lineno}" \
+                if port and port[-1].filename != filename else ""
+            sites.append(f"{Path(filename).name}:{lineno}{via}")
+
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = on_warning
         torch.cuda.set_sync_debug_mode("warn")
         try:
             core.speculative_core_batch(plan, tb, segs[:CHUNK], dev)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    syncs = len(sites)
     log(f"rstless: {syncs} host syncs in one {CHUNK}-frame batch of the "
-        f"engine (uploads included)")
+        f"engine (uploads included), at {sites}; other warnings {others}")
+    if syncs > RSTLESS_MAX_SYNCS:
+        raise AssertionError(f"rstless: {syncs} host syncs in one batch, "
+                             f"more than {RSTLESS_MAX_SYNCS} (three uploads "
+                             f"and the one check read)")
 
     # ---- each kernel against its plain version ------------------------
-    compare = [(f"1080p batch x{CHUNK}", plan, tb, segs[:CHUNK], cb, sb,
+    compare = [(f"1080p batch x{CHUNK}", plan, tb, segs[:CHUNK], cb, sb, pb,
                 False)]
     for seed, (name, (nc, h, v, hh, ww, bits)) in enumerate(
             RSTLESS_SMALL.items()):
-        params = EncodeParams(h=h, v=v, quality=75, restart_interval=0)
-        # three frames of different content and coded size
+        # three frames of different content and coded size, coded with the
+        # standard tables (a batch shares the first frame's plan)
+        params = EncodeParams(h=h, v=v, quality=75, restart_interval=0,
+                              optimize=False)
         small = [jpeg_tpu_torch.encode_jpeg(
             seeded_pnm(nc, hh, ww, bits, 10 * seed + i, 0.01 + 0.1 * i),
             params, dev) for i in range(3)]
@@ -1553,18 +1605,20 @@ def rstless_phase(card: str, dev: torch.device) -> list:
         p2 = _cached_plan(cs.geometry, cs.scans[0].info, k2)
         t2 = sum(c.n_blocks for c in cs.geometry.components)
         s2 = [_rstless_scan(f)[1] for f in small]
-        # 16 B chunks cut blocks; a 4-byte strip forces re-decodes; the
-        # damaged copy (noise, cut, all-zero words, flipped bits) holds
-        # rows that never resynchronize
-        for c_b, s_b, dmg in ((cb, sb, False), (64, 16, False),
-                              (16, 4, False), (64, 16, True)):
-            compare.append((f"{name} x3 chunk {c_b}"
+        # 16 B chunks and 4, 16 and 24 B pieces cut blocks (24 B: a short
+        # last piece); a 4-byte strip forces re-decodes; the damaged copy
+        # (noise, cut, all-zero words, flipped bits) holds rows that never
+        # resynchronize
+        for c_b, s_b, p_b, dmg in ((cb, sb, pb, False), (64, 16, 24, False),
+                                   (16, 4, 4, False), (64, 16, 16, True)):
+            compare.append((f"{name} x3 chunk {c_b} piece {p_b}"
                             + (" damaged" if dmg else ""), p2, t2, s2, c_b,
-                            s_b, dmg))
+                            s_b, p_b, dmg))
     recovered = 0
     errs = {}
-    for label, p2, t2, s2, c_b, s_b, dmg in compare:
-        stats, e = rstless_compare(label, p2, t2, s2, dev, c_b, s_b, dmg)
+    for label, p2, t2, s2, c_b, s_b, p_b, dmg in compare:
+        stats, e = rstless_compare(label, p2, t2, s2, dev, c_b, s_b, p_b,
+                                   dmg)
         recovered += stats[1]
         for name, v in e.items():
             errs[name] = max(errs.get(name, 0), v)
@@ -1573,45 +1627,46 @@ def rstless_phase(card: str, dev: torch.device) -> list:
 
     # ---- times ----------------------------------------------------------
     words, nbits, rows = core.prepare_batch(segs[:CHUNK], dev)
-    cbb, sbb = cb * 8, sb * 8
-    links, member = sc.sync(plan, words, nbits, rows, cbb, sbb)
+    cbb, sbb, pbb = cb * 8, sb * 8, pb * 8
+    links, member, marks = sc.sync(plan, words, nbits, rows, cbb, sbb, pbb)
     rounds = 1 + int(np.diff(rows.row0).max())
-    res, _ = sc.resolve(plan, words, nbits, rows, links, member, cbb, sbb,
-                        rounds)
-    f_bit, f_slot, nblk = res[:3]
-    coeffs, ok = sc.final(plan, words, nbits, rows, f_bit, f_slot, nblk, tb)
+    res = sc.resolve(plan, words, nbits, rows, links, member, marks, cbb, sbb,
+                     pbb, rounds)
+    coeffs, ok = sc.final(plan, words, nbits, rows, res.pieces, tb)
     calls = {
         "rstless_sync": (
-            lambda: sc.sync(plan, words, nbits, rows, cbb, sbb),
-            lambda: st.sync_ref(plan, words, nbits, rows, cbb, sbb)),
+            lambda: sc.sync(plan, words, nbits, rows, cbb, sbb, pbb),
+            lambda: st.sync_ref(plan, words, nbits, rows, cbb, sbb, pbb)),
         "rstless_resolve": (
-            lambda: sc.resolve(plan, words, nbits, rows, links, member, cbb,
-                               sbb, rounds),
+            lambda: sc.resolve(plan, words, nbits, rows, links, member, marks,
+                               cbb, sbb, pbb, rounds),
             lambda: st.resolve_ref(plan, words, nbits, rows, links, member,
-                                   cbb, sbb, rounds)),
+                                   marks, cbb, sbb, pbb, rounds)),
         "rstless_final": (
-            lambda: sc.final(plan, words, nbits, rows, f_bit, f_slot, nblk,
-                             tb),
-            lambda: st.final_ref(plan, words, nbits, rows, f_bit, f_slot,
-                                 nblk, tb)),
+            lambda: sc.final(plan, words, nbits, rows, res.pieces, tb),
+            lambda: st.final_ref(plan, words, nbits, rows, res.pieces, tb)),
     }
     ecs_bytes = int(((nbits.to(torch.int64) + 7) // 8).sum())
     bits = int(nbits.to(torch.int64).sum())
-    r_out = nbytes(*res)
     bounds = {
         # the segment, the row layout and the code tables read once, the
-        # links written; every coded bit looked at once per variant (the
-        # membership map is this design's scratch, not the function's)
+        # links and marks written; every coded bit looked at once per
+        # variant (the membership map is this design's scratch, not the
+        # function's)
         "rstless_sync": bound(
-            ecs_bytes + nbytes(nbits, rows.r0, rows.frame32, links)
+            ecs_bytes + nbytes(nbits, rows.r0, rows.frame32, links, marks)
             + 4 * place_cuda._staged_ints(plan),
             bits * plan.blocks_per_mcu, "int32"),
-        # links read, the rows' entries and counts written; one step a row
-        "rstless_resolve": bound(nbytes(links) + r_out, rows.R, "int32"),
-        # the segment and the rows' entries read, coefficients written;
-        # every coded bit once
-        "rstless_final": bound(ecs_bytes + nbytes(f_bit, f_slot, nblk, coeffs,
-                                                  ok), bits, "int32"),
+        # links read, and the marks of the one variant each row settles
+        # through (1 / bpm of them); the rows' outputs, the frames' stats
+        # and the pieces written; one step a row
+        "rstless_resolve": bound(
+            nbytes(links, *res) + nbytes(marks) // plan.blocks_per_mcu,
+            rows.R, "int32"),
+        # the segment and the pieces read, coefficients and ok bits
+        # written; every coded bit once
+        "rstless_final": bound(ecs_bytes + nbytes(res.pieces, coeffs, ok),
+                               bits, "int32"),
     }
     times = {}
     for name, (kern, plain) in calls.items():
@@ -1631,9 +1686,9 @@ def rstless_phase(card: str, dev: torch.device) -> list:
 
     def resident():
         for (w, n, r), q in prepared:
-            lk, mb = sc.sync(plan, w, n, r, cbb, sbb)
-            rr, _ = sc.resolve(plan, w, n, r, lk, mb, cbb, sbb, rounds)
-            c, _ = sc.final(plan, w, n, r, rr[0], rr[1], rr[2], tb)
+            lk, mb, mk = sc.sync(plan, w, n, r, cbb, sbb, pbb)
+            rr = sc.resolve(plan, w, n, r, lk, mb, mk, cbb, sbb, pbb, rounds)
+            c, _ = sc.final(plan, w, n, r, rr.pieces, tb)
             coeffs_to_pixels(c.reshape(-1, tb, 64), q, enc.geom)
 
     resident()
@@ -1641,11 +1696,21 @@ def rstless_phase(card: str, dev: torch.device) -> list:
     log(f"time rstless_device_resident_Mpix_s={mpix / med} (median of "
         f"{len(runs)} runs of {STREAM_FRAMES} frames whose words are on the "
         f"card: sync, resolve, final, dense tail; host clock) [{card}]")
-    profile_window(
+    by_kernel = profile_window(
         lambda: jpeg_tpu_torch.mjpeg.decode_stream_device(stream, dev,
                                                           chunk=CHUNK),
         "device_decode.", card, f"{STREAM_FRAMES}-frame RST-less stream "
-        "decode")
+        "decode", top=12)
+    # K8's head and tail walks, K9, K10's piece walk and DC pass apart
+    for stage, kernel in (("K8 head walk", "head_kernel"),
+                          ("K8 tail walk", "tail_kernel"),
+                          ("K9 resolve", "resolve_kernel"),
+                          ("K10 piece walk", "final_kernel"),
+                          ("K10 DC pass", "dc_kernel")):
+        n, us = next(((n, us) for name, (n, us) in by_kernel.items()
+                      if f"::{kernel}(" in name), (0, 0.0))
+        log(f"profile: {stage} device {us / 1e3} ms x{n} in the "
+            f"{STREAM_FRAMES}-frame window [{card}]")
     replaces = {"rstless_sync": "jpeg_tpu/entropy/speculative.py:545",
                 "rstless_resolve": "jpeg_tpu/entropy/speculative.py:749",
                 "rstless_final": "jpeg_tpu/entropy/speculative.py:1249"}

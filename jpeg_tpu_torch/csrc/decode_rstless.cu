@@ -20,6 +20,8 @@
 // depend on a block's slot in the MCU, so two decodes meet only at a
 // common (bit, slot) block-start state; each row is decoded once per
 // possible slot ("variant" v starts at the row's first bit with slot v).
+// A row is further cut into P pieces of piece_bits bits for the final
+// decode.
 //
 //   K8  jt_rstless_sync, two launches:
 //       head  every (row, variant) thread decodes the row's first
@@ -33,33 +35,70 @@
 //             ordinal), or past the successor's strip (ST_MISS: its
 //             crossing, the first block start at or after the successor's
 //             first bit), or where it dies (ST_END; a frame's last row
-//             always decodes to the segment's end).
-//   K9  jt_rstless_walk: one CTA per frame stages the links in shared
-//       memory and one thread walks the rows from row 0, variant 0 (the
-//       true start).  A row entered by a handoff (a miss) needs a
-//       re-decode from its known entry (RECOVER); the walk continues
-//       through the row's majority link and stops the frame when there is
-//       none.  jt_rstless_recover re-decodes every RECOVER row with the
-//       tail walk into its override row (and, while the re-decode misses
-//       again, the rows after it); the host walks again until a walk counts
-//       no RECOVER row.  Each round settles at least the first unsettled
-//       row of every frame, so the loop ends.
-//   K10 jt_rstless_final: one thread per row decodes exactly its blocks
-//       from its entry into their plane rows (row-local DC predictors) and
-//       sums its DC per component; jt_rstless_dc_fix adds each row's
-//       per-frame, per-component DC prefix (a torch cumsum between the two
-//       launches) to its blocks' DC.
+//             always decodes to the segment's end).  On the way it marks,
+//             for each piece boundary j = 1 .. P-1 of the row, the first
+//             block start at or after row_start + j * piece_bits (bit,
+//             slot, ordinal; ordinal MARK_NONE where it stopped before).
+//   K9  jt_rstless_resolve, one launch, one CTA per frame (a frame's rows
+//       depend only on its own rows, so no grid barrier is needed).  The
+//       CTA stages the code tables and the frame's links and override rows
+//       (tiles of rows when the frame does not fit) in shared memory.
+//       Thread 0 walks the rows from row 0, variant 0 (the true start) into
+//       shared memory, and the CTA copies the rows' outputs out: a row
+//       entered by a handoff (a miss) needs a re-decode from its known
+//       entry (RECOVER); the walk continues through the row's majority
+//       link and stops the frame when there is none.  The CTA's threads
+//       then re-decode the frame's RECOVER rows in parallel with the tail
+//       walk into their override rows (and, while a re-decode misses
+//       again, the rows after it, up to a row another chain owns); a
+//       re-decode whose mark at a piece boundary is also a K8 variant's
+//       mark there takes that variant's link and later marks (the two
+//       decodes are one from there), so it rarely decodes past a piece.
+//       The CTA walks again, until a walk counts no RECOVER row or the
+//       frame reaches max_rounds.  Each round settles at least the first
+//       unsettled row, so the loop ends.  The kernel then counts the
+//       frame's mispredicts (rows its first walk settled at an entry the
+//       last walk does not keep), writes the frame's stats, and lays out
+//       the pieces: a row settled through variant `src` at its ordinal k
+//       holds that decode's blocks [k, k + nblk), so the marks of `src`
+//       inside that range are true block starts of the row (an override
+//       row: its own marks in [0, nblk)).  Piece j of the row runs from
+//       its mark (or the row's entry) to the next: (bit, slot, first
+//       block, count).  Nothing is read back by the host.
+//   K10 jt_rstless_final, two launches: one thread per piece decodes
+//       exactly its blocks from its entry, assembles each block in shared
+//       memory and writes it whole into its plane row (piece-local DC
+//       predictors), and sums its DC per component; the DC pass (a CTA
+//       per tile of a frame's rows) adds to each piece's blocks the
+//       frame's exclusive prefix of those sums, computed in the CTA, and
+//       writes each row's ok bit (all of its pieces decoded their blocks
+//       from a slot that matches their first block's).
 //
 // What bounds it on the H100.  The work is a dependent chain per symbol
 // (window, table lookup, length, bit position) in every thread, and every
 // bit of the segment is decoded about 1 + strip/chunk times per variant in
 // K8 (bpm variants) and once more in K10.  The bytes are small (the
 // segment, the membership map, the coefficients), so the kernels sit far
-// above their memory bound and near a latency bound: the design keeps the
-// decode loop of decode_segments.cu (12-bit first-level lookup table in
-// shared memory, a register lookahead over the words) and makes the chunk
-// small enough that a batch of frames puts several warps on each SM.
+// above their memory bound and near a latency bound: the length of the
+// longest chain and the warps in flight to hide it.  The design keeps the
+// decode loop of decode_segments.cu (12-bit first-level lookup table, a
+// register lookahead over the words), gives K10 chains of one piece (1/P
+// of a row) so a batch puts ~P times as many threads on the SMs, and
+// lets K10 read the tables through L1 rather than stage them per CTA
+// (44 KB of tables for 64 threads that decode 2 KB cost more than the
+// lookups save).  K9 stays on the card: its walks are short sequential
+// scans of shared memory by one thread a frame, which bound it, and its
+// re-decodes are few and short, so a host read a round costs more than
+// the work.
+//
+// Layout contract (entropy/speculative_torch.py has the same):
+//   links   [R * bpm, NCOL]     marks      [R * bpm, P - 1, MCOL]
+//   row_out [RCOL, R]           frame_out  [F, SCOL]
+//   pieces  [R * P, PCOL]       scratch (K9): ovr [R, OCOL], override
+//   marks [R, P - 1, MCOL], first walk [3, R]; (K10): piece DC sums
+//   [R * P, C_MAX], piece ok [R * P].
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -87,18 +126,26 @@ constexpr int OFF_ZIGZAG = OFF_BLK_END + SLOTS;
 constexpr int OFF_LUT = OFF_ZIGZAG + 64;
 constexpr int TABLE_INTS = OFF_LUT + T_MAX * LUT_SIZE / 2;
 
-// links / override columns and codes (speculative_torch.py)
-constexpr int NCOL = 5;  // status, bit, slot, ordinal, payload
-constexpr int OCOL = 3 + NCOL;  // valid, entry bit, entry slot, links row
+// Columns and codes (speculative_torch.py)
+constexpr int NCOL = 5;         // links: status, bit, slot, ordinal, payload
+constexpr int OCOL = 3 + NCOL;  // override: valid, entry bit, entry slot, links row
+constexpr int MCOL = 3;         // marks: bit, slot, ordinal
+constexpr int PCOL = 4;         // pieces: entry bit, entry slot, first block, count
+constexpr int RCOL = 7;         // row_out: entry bit, entry slot, blocks, state,
+                                // source variant (-1: override), ordinal there,
+                                // first block (frame-local)
+constexpr int SCOL = 5;         // frame_out: rounds, recovery rows, mispredicts,
+                                // max_rounds reached, walk refused the frame
+constexpr int MARK_NONE = INT_MAX;
 constexpr int ST_LINK = 0, ST_MISS = 1, ST_END = 2;
 constexpr int SETTLED = 0, RECOVER = 1, PENDING = 2;
 
-constexpr int THREADS = 64;        // K8 walks: threads per CTA
-constexpr int ROW_THREADS = 32;    // per-row walks (K9 re-decode, K10): a
-                                   // batch has ~bpm times fewer rows than
-                                   // K8 threads, so smaller CTAs spread
-                                   // them over more SMs
-constexpr int WALK_THREADS = 128;  // resolve walk: stagers per frame
+constexpr int THREADS = 64;           // K8 walks: threads per CTA
+constexpr int RESOLVE_THREADS = 256;  // K9: stagers and re-decoders per frame
+constexpr int PIECE_THREADS = 64;     // K10 walk: a thread per piece
+constexpr int FINAL_BOUND = 256;      // K10 walk: its launch bounds
+constexpr int DC_THREADS = 256;       // K10 DC pass: a thread per piece
+constexpr int MAX_SMEM = 232448;      // dynamic shared memory a CTA can opt in to
 
 struct Params {
   int wn;           // u32 words per frame row
@@ -110,6 +157,8 @@ struct Params {
   int cb_bits;      // chunk row bits
   int strip_bits;   // head strip bits
   int total_blocks; // blocks per frame
+  int piece_bits;   // piece bits of the final decode
+  int n_pieces;     // pieces a row: ceil(cb_bits / piece_bits)
 };
 
 // Rows of the batch: frame f owns rows row0[f] .. row0[f + 1] - 1.
@@ -254,15 +303,31 @@ head_kernel(const int32_t* __restrict__ tables,
 }
 
 // The tail walk of K8 and of K9's re-decode: from (bit, slot) in chunk row
-// `row` to a link into the successor's membership, a miss or the end.
-__device__ void tail_walk(const int32_t* tab, const Params& p,
+// `row` to a link into the successor's membership, a miss or the end,
+// marking the row's piece boundaries on the way (`marks`: P - 1 rows of
+// MCOL).  A re-decode passes K8's marks and links (`sp_marks`, `sp_links`;
+// K8 itself nullptr): where its last mark at a block start is also variant
+// v's mark there (same bit and slot, lowest v first), the two decodes are
+// one from there on, so it splices: v's links row and later marks, their
+// ordinals shifted to its own count.
+__device__ __forceinline__ void tail_walk(const int32_t* tab,
+                                          const Params& p,
                           const uint32_t* words, const int32_t* nbits,
                           const Rows& rows, const int32_t* member, int row,
-                          int bit, int slot, int32_t* out) {
+                          int bit, int slot, int32_t* out, int32_t* marks,
+                          const int32_t* sp_marks, const int32_t* sp_links) {
   const int f = rows.row_frame[row];
   const int local = row - rows.row0[f];
   const bool last = rows.row0[f] + local + 1 == rows.row0[f + 1];
   const int next_start = (local + 1) * p.cb_bits;
+  const int M = p.n_pieces - 1;
+  // A block start needs a look only at or past the next piece boundary or
+  // the successor's first bit: one compare on the common path, as a
+  // decode without marks has.
+  int j = 1;
+  int mark_at = M > 0 ? local * p.cb_bits + p.piece_bits : INT_MAX;
+  const int link_at = last ? INT_MAX : next_start;
+  int gate = min(mark_at, link_at);
   Decoder d;
   d.start(words + static_cast<int64_t>(f) * p.wn, p.wn, nbits[f], bit, slot);
   bool crossed = false;
@@ -270,26 +335,64 @@ __device__ void tail_walk(const int32_t* tab, const Params& p,
   Sym s;
   int st, o_bit, o_slot, o_m, o_pay = -1;
   while (true) {
-    const int rel = d.bitpos - next_start;
-    if (d.coeff == 0 && !last && rel >= 0) {
-      if (!crossed) {
-        crossed = true;
-        c_bit = d.bitpos;
-        c_slot = d.slot;
-        c_m = d.blk;
+    if (d.coeff == 0 && d.bitpos >= gate) {
+      if (d.bitpos >= mark_at) {
+        for (; j < p.n_pieces && d.bitpos >= mark_at;
+             ++j, mark_at += p.piece_bits) {
+          int32_t* m = marks + (j - 1) * MCOL;
+          m[0] = d.bitpos;
+          m[1] = d.slot;
+          m[2] = d.blk;
+        }
+        if (j == p.n_pieces) mark_at = INT_MAX;
+        gate = min(mark_at, link_at);
+        if (sp_marks != nullptr) {
+          int v = 0;
+          const int32_t* vm = nullptr;
+          for (; v < p.bpm; ++v) {
+            vm = sp_marks +
+                 ((static_cast<int64_t>(row) * p.bpm + v) * M + (j - 2)) *
+                     MCOL;
+            if (vm[0] == d.bitpos && vm[1] == d.slot) break;
+          }
+          if (v < p.bpm) {
+            const int shift = d.blk - vm[2];
+            const int32_t* vl =
+                sp_links + (static_cast<int64_t>(row) * p.bpm + v) * NCOL;
+            st = vl[0], o_bit = vl[1], o_slot = vl[2], o_m = vl[3] + shift;
+            o_pay = vl[4];
+            for (const int j1 = j; j < p.n_pieces; ++j) {  // v's later marks
+              const int32_t* a = vm + (j - j1 + 1) * MCOL;
+              int32_t* m = marks + (j - 1) * MCOL;
+              m[0] = a[0];
+              m[1] = a[1];
+              m[2] = a[2] == MARK_NONE ? MARK_NONE : a[2] + shift;
+            }
+            break;
+          }
+        }
       }
-      if (rel < p.strip_bits) {
-        const int look =
-            member[(static_cast<int64_t>(row + 1) * p.strip_bits + rel) *
-                       p.bpm + d.slot];
-        if (look > 0) {
-          st = ST_LINK, o_bit = d.bitpos, o_slot = d.slot, o_m = d.blk;
-          o_pay = look - 1;
+      if (d.bitpos >= link_at) {
+        const int rel = d.bitpos - next_start;
+        if (!crossed) {
+          crossed = true;
+          c_bit = d.bitpos;
+          c_slot = d.slot;
+          c_m = d.blk;
+        }
+        if (rel < p.strip_bits) {
+          const int look =
+              member[(static_cast<int64_t>(row + 1) * p.strip_bits + rel) *
+                         p.bpm + d.slot];
+          if (look > 0) {
+            st = ST_LINK, o_bit = d.bitpos, o_slot = d.slot, o_m = d.blk;
+            o_pay = look - 1;
+            break;
+          }
+        } else {
+          st = ST_MISS, o_bit = c_bit, o_slot = c_slot, o_m = c_m;
           break;
         }
-      } else {
-        st = ST_MISS, o_bit = c_bit, o_slot = c_slot, o_m = c_m;
-        break;
       }
     }
     if (!symbol(tab, p, d, s)) {
@@ -297,6 +400,12 @@ __device__ void tail_walk(const int32_t* tab, const Params& p,
       break;
     }
     advance(d, s, p.bpm);
+  }
+  for (; j < p.n_pieces; ++j) {
+    int32_t* m = marks + (j - 1) * MCOL;
+    m[0] = -1;
+    m[1] = -1;
+    m[2] = MARK_NONE;
   }
   out[0] = st;
   out[1] = o_bit;
@@ -310,7 +419,8 @@ __global__ void __launch_bounds__(THREADS)
 tail_kernel(const int32_t* __restrict__ tables,
             const uint32_t* __restrict__ words,
             const int32_t* __restrict__ nbits, Rows rows, Params p,
-            const int32_t* __restrict__ member, int32_t* __restrict__ links) {
+            const int32_t* __restrict__ member, int32_t* __restrict__ links,
+            int32_t* __restrict__ marks) {
   extern __shared__ int32_t tab[];
   stage_tables(tab, tables, p.tab_ints);
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -318,40 +428,169 @@ tail_kernel(const int32_t* __restrict__ tables,
   const int row = lane / p.bpm, v = lane - row * p.bpm;
   const int start = (row - rows.row0[rows.row_frame[row]]) * p.cb_bits;
   tail_walk(tab, p, words, nbits, rows, member, row, start, v,
-            links + static_cast<int64_t>(lane) * NCOL);
+            links + static_cast<int64_t>(lane) * NCOL,
+            marks + static_cast<int64_t>(lane) * (p.n_pieces - 1) * MCOL,
+            nullptr, nullptr);
 }
 
-// K9 re-decode: one thread per RECOVER row.  A row whose re-decode misses
-// again hands its crossing to the row that holds it, so the thread goes on
-// there (the rows between are empty) until a link, the segment's end, or
-// a row of its own frame that is RECOVER itself, whose thread owns it: one
-// round then settles a run of rows whose variants never meet the true
-// decode (content that does not resynchronize within a strip).
-__global__ void __launch_bounds__(ROW_THREADS)
-recover_kernel(const int32_t* __restrict__ tables,
-               const uint32_t* __restrict__ words,
-               const int32_t* __restrict__ nbits, Rows rows, Params p,
-               const int32_t* __restrict__ member,
-               const int32_t* __restrict__ f_bit,
-               const int32_t* __restrict__ f_slot,
-               const int32_t* __restrict__ state, int32_t* __restrict__ ovr) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool mine = row < rows.R && state[row] == RECOVER;
-  if (!__syncthreads_or(mine)) return;
-  extern __shared__ int32_t tab[];
-  stage_tables(tab, tables, p.tab_ints);
-  if (!mine) return;
-  const int f = rows.row_frame[row];
+// K9's outputs and scratch in device memory.
+struct Resolve {
+  int32_t* row;        // [RCOL, R] (row_out)
+  int32_t* ovr;        // [R, OCOL]: override rows
+  int32_t* ovr_marks;  // [R, P - 1, MCOL]: their marks
+  int32_t* first;      // [3, R]: the first walk's entry bit, slot, state
+};
+
+// K9 walk of frame blockIdx.x, by the whole CTA: tiles of the frame's
+// links and override rows are staged in shared memory and thread 0 walks
+// them (its walk state carries over from tile to tile) into s_out [RCOL,
+// tile_rows], which the CTA then copies out.  Thread 0 leaves the walk's
+// RECOVER rows in s_res[0] and its refusal in s_res[1]; the first walk
+// (`first_walk`) also keeps each row's entry and state.
+__device__ void walk_frame(const int32_t* links, const Rows& rows,
+                           const Params& p, int tile_rows, int32_t* s_links,
+                           int32_t* s_ovr, int32_t* s_out, const Resolve& o,
+                           bool first_walk, int* s_res) {
+  const int f = blockIdx.x, bpm = p.bpm, cb_bits = p.cb_bits, R = rows.R;
   const int q0 = rows.row0[f], q1 = rows.row0[f + 1];
-  int q = row, bit = f_bit[row], slot = f_slot[row];
+  int e_bit = 0, e_slot = 0, src = 0, k = 0, nrec = 0, bad = 0, gsum = 0;
+  bool handoff = false, ended = false, blocked = false;
+  for (int t0 = q0; t0 < q1; t0 += tile_rows) {
+    const int n = min(tile_rows, q1 - t0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < n * bpm * NCOL; i += blockDim.x)
+      s_links[i] = links[static_cast<int64_t>(t0) * bpm * NCOL + i];
+    for (int i = threadIdx.x; i < n * OCOL; i += blockDim.x)
+      s_ovr[i] = o.ovr[static_cast<int64_t>(t0) * OCOL + i];
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < n; ++i) {
+        const int li = t0 + i - q0;
+        int st = SETTLED, fb = 0, fs = 0, nb = 0, so = 0, ko = 0;
+        if (blocked) {
+          st = PENDING;
+        } else {
+          fb = e_bit;
+          fs = e_slot;
+          if (!ended && e_bit < (li + 1) * cb_bits) {  // else an empty row
+            const int32_t* ov = s_ovr + i * OCOL;
+            const int32_t* rec = nullptr;
+            bool from_ovr = false;
+            if (ov[0] && ov[1] == e_bit && ov[2] == e_slot) {
+              rec = ov + 3;
+              from_ovr = true;
+              k = 0;
+            } else if (!handoff) {
+              rec = s_links + (i * bpm + src) * NCOL;
+            } else {
+              st = RECOVER;
+              ++nrec;
+              // optimistic continuation: the majority link of the row's
+              // variants (same next bit, slot and payload), lowest variant
+              // first among equals
+              const int32_t* lk = s_links + i * bpm * NCOL;
+              int best = -1, best_c = 0;
+              for (int w = 0; w < bpm; ++w) {
+                const int32_t* a = lk + w * NCOL;
+                if (a[0] != ST_LINK) continue;
+                int c = 0;
+                for (int w2 = 0; w2 < bpm; ++w2) {
+                  const int32_t* b = lk + w2 * NCOL;
+                  c += b[0] == ST_LINK && b[1] == a[1] && b[2] == a[2] &&
+                       b[4] == a[4];
+                }
+                if (c > best_c) best_c = c, best = w;
+              }
+              if (best < 0) {
+                blocked = true;
+              } else {
+                const int32_t* a = lk + best * NCOL;
+                e_bit = a[1];
+                e_slot = a[2];
+                src = a[4] & 15;
+                k = a[4] >> 4;
+                handoff = false;
+              }
+            }
+            if (rec != nullptr) {
+              const int m = rec[3] - k;
+              if (m < 0) {
+                bad = 1;
+                blocked = true;
+                st = PENDING;
+              } else {
+                nb = m;
+                so = from_ovr ? -1 : src;
+                ko = k;
+                e_bit = rec[1];
+                e_slot = rec[2];
+                if (rec[0] == ST_LINK) {
+                  src = rec[4] & 15;
+                  k = rec[4] >> 4;
+                  handoff = false;
+                } else if (rec[0] == ST_MISS) {
+                  k = 0;
+                  handoff = true;
+                } else {
+                  ended = true;
+                }
+              }
+            }
+          }
+        }
+        int32_t* w = s_out + i;
+        w[0] = fb;
+        w[tile_rows] = fs;
+        w[2 * tile_rows] = nb;
+        w[3 * tile_rows] = st;
+        w[4 * tile_rows] = so;
+        w[5 * tile_rows] = ko;
+        w[6 * tile_rows] = gsum;
+        gsum += nb;
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < n * RCOL; i += blockDim.x) {
+      const int c = i / n, r = i - c * n;
+      o.row[static_cast<int64_t>(c) * R + t0 + r] = s_out[c * tile_rows + r];
+    }
+    if (first_walk)  // entry bit, entry slot, state
+      for (int i = threadIdx.x; i < n * 3; i += blockDim.x) {
+        const int c = i / n, r = i - c * n;
+        o.first[static_cast<int64_t>(c) * R + t0 + r] =
+            s_out[(c == 2 ? 3 : c) * tile_rows + r];
+      }
+  }
+  if (threadIdx.x == 0) {
+    s_res[0] = nrec;
+    s_res[1] = bad;
+  }
+}
+
+// K9 re-decode of RECOVER row `row` into its override row, splicing onto
+// K8's variants where it meets one (tail_walk).  A row whose re-decode
+// misses again hands its crossing to the row that holds it, so the thread
+// goes on there (the rows between are empty) until a link, the segment's
+// end, or a row of its own frame that is RECOVER itself, whose thread owns
+// it: one round then settles a run of rows whose variants never meet the
+// true decode (content that does not resynchronize within a strip).
+__device__ void recover_chain(const int32_t* tab, const Params& p,
+                              const uint32_t* words, const int32_t* nbits,
+                              const Rows& rows, const int32_t* member,
+                              const int32_t* marks, const int32_t* links,
+                              const Resolve& o, int row, int q0, int q1) {
+  const int R = rows.R, M = p.n_pieces - 1;
+  const int32_t* state = o.row + 3 * static_cast<int64_t>(R);
+  int q = row, bit = o.row[row], slot = o.row[R + row];
   while (true) {
-    int32_t* o = ovr + static_cast<int64_t>(q) * OCOL;
+    int32_t* ov = o.ovr + static_cast<int64_t>(q) * OCOL;
     int32_t res[NCOL];
-    tail_walk(tab, p, words, nbits, rows, member, q, bit, slot, res);
-    o[0] = 1;
-    o[1] = bit;
-    o[2] = slot;
-    for (int c = 0; c < NCOL; ++c) o[3 + c] = res[c];
+    tail_walk(tab, p, words, nbits, rows, member, q, bit, slot, res,
+              o.ovr_marks + static_cast<int64_t>(q) * M * MCOL, marks, links);
+    ov[0] = 1;
+    ov[1] = bit;
+    ov[2] = slot;
+    for (int c = 0; c < NCOL; ++c) ov[3 + c] = res[c];
     if (res[0] != ST_MISS) break;
     const int q2 = q0 + res[1] / p.cb_bits;  // the row of the crossing
     if (q2 >= q1) break;
@@ -364,204 +603,268 @@ recover_kernel(const int32_t* __restrict__ tables,
   }
 }
 
-// K9 walk: one CTA per frame.  The CTA stages a tile of rows' links and
-// override rows in shared memory; thread 0 walks them (its walk state
-// carries over from tile to tile).
-__global__ void __launch_bounds__(WALK_THREADS)
-walk_kernel(const int32_t* __restrict__ links,
-            const int32_t* __restrict__ ovr,
-            const int32_t* __restrict__ row0, int bpm, int cb_bits,
-            int tile_rows, int32_t* __restrict__ f_bit,
-            int32_t* __restrict__ f_slot, int32_t* __restrict__ nblk,
-            int32_t* __restrict__ state, int32_t* __restrict__ frame_bad,
-            int32_t* __restrict__ n_rec) {
+// K9: one CTA per frame runs the frame's walk and re-decode rounds, then
+// its stats and its piece layout.
+__global__ void __launch_bounds__(RESOLVE_THREADS)
+resolve_kernel(const int32_t* __restrict__ tables,
+               const uint32_t* __restrict__ words,
+               const int32_t* __restrict__ nbits, Rows rows, Params p,
+               const int32_t* __restrict__ member,
+               const int32_t* __restrict__ links,
+               const int32_t* __restrict__ marks, int tile_rows,
+               int max_rounds, Resolve o, int32_t* __restrict__ frame_out,
+               int32_t* __restrict__ pieces) {
   extern __shared__ int32_t sm[];
-  int32_t* s_links = sm;
-  int32_t* s_ovr = sm + tile_rows * bpm * NCOL;
+  int32_t* tab = sm;
+  int32_t* s_links = sm + p.tab_ints;
+  int32_t* s_ovr = s_links + tile_rows * p.bpm * NCOL;
+  int32_t* s_out = s_ovr + tile_rows * OCOL;
+  __shared__ int s_res[3];  // RECOVER rows, walk refusal, mispredicts
   const int f = blockIdx.x;
-  const int q0 = row0[f], q1 = row0[f + 1];
-  int e_bit = 0, e_slot = 0, src = 0, k = 0, nrec = 0, bad = 0;
-  bool handoff = false, ended = false, blocked = false;
-  for (int t0 = q0; t0 < q1; t0 += tile_rows) {
-    const int n = min(tile_rows, q1 - t0);
+  const int64_t R = rows.R;
+  const int q0 = rows.row0[f], q1 = rows.row0[f + 1];
+  for (int q = q0 + threadIdx.x; q < q1; q += blockDim.x)
+    o.ovr[static_cast<int64_t>(q) * OCOL] = 0;
+  if (threadIdx.x == 0) s_res[2] = 0;
+  stage_tables(tab, tables, p.tab_ints);
+  int rounds = 0, rec = 0, unresolved = 0;
+  while (true) {
+    walk_frame(links, rows, p, tile_rows, s_links, s_ovr, s_out, o,
+               rounds == 0, s_res);
     __syncthreads();
-    for (int i = threadIdx.x; i < n * bpm * NCOL; i += blockDim.x)
-      s_links[i] = links[static_cast<int64_t>(t0) * bpm * NCOL + i];
-    for (int i = threadIdx.x; i < n * OCOL; i += blockDim.x)
-      s_ovr[i] = ovr[static_cast<int64_t>(t0) * OCOL + i];
-    __syncthreads();
-    if (threadIdx.x != 0) continue;
-    for (int i = 0; i < n; ++i) {
-      const int q = t0 + i, li = q - q0;
-      int st = SETTLED, fb = 0, fs = 0, nb = 0;
-      if (blocked) {
-        st = PENDING;
-      } else {
-        fb = e_bit;
-        fs = e_slot;
-        if (!ended && e_bit < (li + 1) * cb_bits) {  // else an empty row
-          const int32_t* o = s_ovr + i * OCOL;
-          const int32_t* rec = nullptr;
-          if (o[0] && o[1] == e_bit && o[2] == e_slot) {
-            rec = o + 3;
-            k = 0;
-          } else if (!handoff) {
-            rec = s_links + (i * bpm + src) * NCOL;
-          } else {
-            st = RECOVER;
-            ++nrec;
-            // optimistic continuation: the majority link of the row's
-            // variants (same next bit, slot and payload), lowest variant
-            // first among equals
-            const int32_t* lk = s_links + i * bpm * NCOL;
-            int best = -1, best_c = 0;
-            for (int w = 0; w < bpm; ++w) {
-              const int32_t* a = lk + w * NCOL;
-              if (a[0] != ST_LINK) continue;
-              int c = 0;
-              for (int w2 = 0; w2 < bpm; ++w2) {
-                const int32_t* b = lk + w2 * NCOL;
-                c += b[0] == ST_LINK && b[1] == a[1] && b[2] == a[2] &&
-                     b[4] == a[4];
-              }
-              if (c > best_c) best_c = c, best = w;
-            }
-            if (best < 0) {
-              blocked = true;
-            } else {
-              const int32_t* a = lk + best * NCOL;
-              e_bit = a[1];
-              e_slot = a[2];
-              src = a[4] & 15;
-              k = a[4] >> 4;
-              handoff = false;
-            }
-          }
-          if (rec != nullptr) {
-            const int m = rec[3] - k;
-            if (m < 0) {
-              bad = 1;
-              blocked = true;
-              st = PENDING;
-            } else {
-              nb = m;
-              e_bit = rec[1];
-              e_slot = rec[2];
-              if (rec[0] == ST_LINK) {
-                src = rec[4] & 15;
-                k = rec[4] >> 4;
-                handoff = false;
-              } else if (rec[0] == ST_MISS) {
-                k = 0;
-                handoff = true;
-              } else {
-                ended = true;
-              }
-            }
-          }
-        }
-      }
-      f_bit[q] = fb;
-      f_slot[q] = fs;
-      nblk[q] = nb;
-      state[q] = st;
+    const int nrec = s_res[0];
+    if (nrec == 0) break;
+    ++rounds;
+    rec += nrec;
+    if (rounds >= max_rounds) {
+      unresolved = 1;
+      break;
     }
+    for (int q = q0 + threadIdx.x; q < q1; q += blockDim.x)
+      if (o.row[3 * R + q] == RECOVER)
+        recover_chain(tab, p, words, nbits, rows, member, marks, links, o, q,
+                      q0, q1);
+    // walk_frame opens with a barrier: the override rows are complete
   }
+  const int32_t* f_bit = o.row;
+  const int32_t* f_slot = o.row + R;
+  if (!unresolved && rounds > 0) {
+    int mis = 0;
+    for (int q = q0 + threadIdx.x; q < q1; q += blockDim.x)
+      mis += o.first[2 * R + q] == SETTLED &&
+             (o.first[q] != f_bit[q] || o.first[R + q] != f_slot[q]);
+    if (mis) atomicAdd(&s_res[2], mis);
+  }
+  __syncthreads();
   if (threadIdx.x == 0) {
-    frame_bad[f] = bad;
-    if (nrec) atomicAdd(n_rec, nrec);
+    int32_t* fo = frame_out + static_cast<int64_t>(f) * SCOL;
+    fo[0] = rounds;
+    fo[1] = rec;
+    fo[2] = s_res[2];
+    fo[3] = unresolved;
+    fo[4] = s_res[1];
+  }
+  // The pieces of the frame's rows.
+  const int P = p.n_pieces, M = P - 1;
+  for (int64_t i = static_cast<int64_t>(q0) * P + threadIdx.x;
+       i < static_cast<int64_t>(q1) * P; i += blockDim.x) {
+    const int q = static_cast<int>(i / P), j = static_cast<int>(i - q * P);
+    const int n = o.row[2 * R + q], s = o.row[4 * R + q];
+    const int kk = o.row[5 * R + q];
+    const int32_t* mk =
+        s >= 0 ? marks + (static_cast<int64_t>(q) * p.bpm + s) * M * MCOL
+               : o.ovr_marks + static_cast<int64_t>(q) * M * MCOL;
+    const int lo = j == 0 ? kk : max(kk, min(mk[(j - 1) * MCOL + 2], kk + n));
+    const int hi = j == M ? kk + n : max(kk, min(mk[j * MCOL + 2], kk + n));
+    int32_t* e = pieces + i * PCOL;
+    if (lo == kk) {
+      e[0] = f_bit[q];
+      e[1] = f_slot[q];
+    } else {
+      e[0] = mk[(j - 1) * MCOL];
+      e[1] = mk[(j - 1) * MCOL + 1];
+    }
+    e[2] = o.row[6 * R + q] + lo - kk;
+    e[3] = hi - lo;
   }
 }
 
 // Frame-relative block `rel` of frame-local block ordinal gblk in `slot`;
 // false when the block lies outside the frame (the restart kernels'
-// affinities and guard).
+// affinities and guard).  32-bit divisions: ordinals fit int32.
 __device__ __forceinline__ bool place(const int32_t* tab, const Params& p,
-                                      int f, int64_t gblk, int slot,
+                                      int f, int gblk, int slot,
                                       int64_t& dst) {
-  const int64_t mcu = gblk / p.bpm;
-  const int64_t my = mcu / p.m_x;
-  const int64_t rel = tab[OFF_C0 + slot] + my * tab[OFF_C1 + slot] +
-                      (mcu - my * p.m_x) * tab[OFF_C2 + slot];
+  const int mcu = gblk / p.bpm;
+  const int my = mcu / p.m_x;
+  const int64_t rel =
+      tab[OFF_C0 + slot] + static_cast<int64_t>(my) * tab[OFF_C1 + slot] +
+      static_cast<int64_t>(mcu - my * p.m_x) * tab[OFF_C2 + slot];
   dst = (static_cast<int64_t>(f) * p.total_blocks + rel) * 64;
   return mcu < p.n_mcus && rel < tab[OFF_BLK_END + slot];
 }
 
-// K10 walk: one thread per row decodes its nblk blocks from its entry.
-__global__ void __launch_bounds__(ROW_THREADS)
-final_kernel(const int32_t* __restrict__ tables,
+// K10 walk: one thread per piece decodes its blocks from its entry, with
+// the code tables read through L1.  Each thread assembles its current
+// block in shared memory (coefficient z of thread t at z * blockDim.x +
+// t: a warp's threads hit distinct banks) and writes it out whole, 16
+// bytes a store.  It runs PIECE_THREADS-thread CTAs with the register
+// budget of FINAL_BOUND-thread ones and reads its stride at run time: the
+// compiler's code for bounds of PIECE_THREADS, or for a compile-time
+// stride, spends fewer registers and measured slower (PERF.md).
+__global__ void __launch_bounds__(FINAL_BOUND)
+final_kernel(const int32_t* __restrict__ tab,
              const uint32_t* __restrict__ words,
              const int32_t* __restrict__ nbits, Rows rows, Params p,
-             const int32_t* __restrict__ f_bit,
-             const int32_t* __restrict__ f_slot,
-             const int32_t* __restrict__ nblk,
-             const int32_t* __restrict__ g0, int32_t* __restrict__ coeffs,
-             int32_t* __restrict__ dc_sum, int32_t* __restrict__ ok) {
-  extern __shared__ int32_t tab[];
-  stage_tables(tab, tables, p.tab_ints);
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= rows.R) return;
-  const int n = nblk[row], g = g0[row];
-  const int f = rows.row_frame[row];
-  bool good = !(n > 0 && g % p.bpm != f_slot[row]);
+             const int32_t* __restrict__ pieces,
+             int32_t* __restrict__ coeffs, int32_t* __restrict__ dc_sum,
+             int32_t* __restrict__ pok) {
+  extern __shared__ int32_t sm[];  // 64 ints a thread
+  const int stride = blockDim.x;
+  int32_t* mine = sm + threadIdx.x;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (i >= static_cast<int64_t>(rows.R) * p.n_pieces) return;
+  const int32_t* e = pieces + i * PCOL;
+  const int n = e[3], g = e[2];
+  const int f = rows.row_frame[i / p.n_pieces];
+  bool good = !(n > 0 && g % p.bpm != e[1]);
   uint32_t pred[C_MAX] = {0u, 0u, 0u, 0u};
   if (n > 0 && good) {
     Decoder d;
-    d.start(words + static_cast<int64_t>(f) * p.wn, p.wn, nbits[f],
-            f_bit[row], f_slot[row]);
+    d.start(words + static_cast<int64_t>(f) * p.wn, p.wn, nbits[f], e[0],
+            e[1]);
     int64_t dst = 0;
     bool valid = place(tab, p, f, g, d.slot, dst);
     int cur = 0;
+    uint64_t nz = 0;  // the block's coefficients written in `mine`
     Sym s;
     while (true) {
       if (!symbol(tab, p, d, s)) {
         good = false;
         break;
       }
-      if (valid && !s.is_dc && !s.is_eob)
-        coeffs[dst + tab[OFF_ZIGZAG + s.new_coeff]] = s.coef_val;
+      if (!s.is_dc && !s.is_eob) {
+        const int z = tab[OFF_ZIGZAG + s.new_coeff];
+        mine[z * stride] = s.coef_val;
+        nz |= 1ull << z;
+      }
       if (s.is_dc) cur = s.coef_val;
       if (s.done) {
         const int c = tab[OFF_SLOT_COMP + d.slot];
         const uint32_t dc = pred[c] + static_cast<uint32_t>(cur);
-        if (valid) coeffs[dst] = static_cast<int32_t>(dc);
         pred[c] = dc;
+        if (valid) {
+          int4* out = reinterpret_cast<int4*>(coeffs + dst);
+#pragma unroll
+          for (int q = 0; q < 16; ++q) {
+            int v[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const int z = 4 * q + u;
+              v[u] = (nz >> z) & 1 ? mine[z * stride] : 0;
+            }
+            if (q == 0) v[0] = static_cast<int32_t>(dc);
+            out[q] = make_int4(v[0], v[1], v[2], v[3]);
+          }
+        }
+        nz = 0;
         advance(d, s, p.bpm);
         if (d.blk == n) break;
-        valid = place(tab, p, f, static_cast<int64_t>(g) + d.blk, d.slot,
-                      dst);
+        valid = place(tab, p, f, g + d.blk, d.slot, dst);
       } else {
         advance(d, s, p.bpm);
       }
     }
   }
   for (int c = 0; c < C_MAX; ++c)
-    dc_sum[static_cast<int64_t>(row) * C_MAX + c] =
-        static_cast<int32_t>(pred[c]);
-  ok[row] = good ? 1 : 0;
+    dc_sum[i * C_MAX + c] = static_cast<int32_t>(pred[c]);
+  pok[i] = good ? 1 : 0;
 }
 
-// K10 DC pass: one thread per row adds its DC base to its blocks' DC.
-__global__ void __launch_bounds__(ROW_THREADS)
-dc_fix_kernel(const int32_t* __restrict__ tables, Rows rows, Params p,
-              const int32_t* __restrict__ nblk,
-              const int32_t* __restrict__ g0,
-              const int32_t* __restrict__ base,
-              int32_t* __restrict__ coeffs) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= rows.R) return;
-  const int n = nblk[row];
-  const int f = rows.row_frame[row];
-  const int32_t* b = base + static_cast<int64_t>(row) * C_MAX;
-  for (int i = 0; i < n; ++i) {
-    const int64_t gblk = static_cast<int64_t>(g0[row]) + i;
-    const int slot = static_cast<int>(gblk % p.bpm);
-    int64_t dst;
-    if (place(tables, p, f, gblk, slot, dst))
-      coeffs[dst] = static_cast<int32_t>(
-          static_cast<uint32_t>(coeffs[dst]) +
-          static_cast<uint32_t>(b[tables[OFF_SLOT_COMP + slot]]));
+// K10 DC pass: the CTA (tile blockIdx.x of frame blockIdx.y, tile_rows
+// rows) sums the DC of the frame's pieces before its tile, scans its own
+// pieces' sums in chunks of DC_THREADS, adds each piece's base to its
+// blocks' DC, and ANDs its rows' piece ok bits.  Sums wrap as uint32.
+__global__ void __launch_bounds__(DC_THREADS)
+dc_kernel(const int32_t* __restrict__ tables, Rows rows, Params p,
+          const int32_t* __restrict__ pieces,
+          const int32_t* __restrict__ dc_sum, const int32_t* __restrict__ pok,
+          int tile_rows, int32_t* __restrict__ coeffs,
+          int32_t* __restrict__ ok) {
+  __shared__ uint32_t s_carry[C_MAX];
+  __shared__ uint32_t s_scan[DC_THREADS][C_MAX];
+  __shared__ int s_ok[DC_THREADS];
+  const int f = blockIdx.y, tid = threadIdx.x;
+  const int q0 = rows.row0[f], q1 = rows.row0[f + 1];
+  const int r0 = q0 + blockIdx.x * tile_rows;
+  if (r0 >= q1) return;
+  const int r1 = min(q1, r0 + tile_rows);
+  const int P = p.n_pieces;
+  const int64_t p0 = static_cast<int64_t>(q0) * P;
+  const int64_t a = static_cast<int64_t>(r0) * P;
+  const int64_t b = static_cast<int64_t>(r1) * P;
+  if (tid < C_MAX) s_carry[tid] = 0u;
+  for (int i = tid; i < r1 - r0; i += blockDim.x) s_ok[i] = 1;
+  __syncthreads();
+  uint32_t part[C_MAX] = {0u, 0u, 0u, 0u};
+  for (int64_t i = p0 + tid; i < a; i += blockDim.x)
+    for (int c = 0; c < C_MAX; ++c)
+      part[c] += static_cast<uint32_t>(dc_sum[i * C_MAX + c]);
+  for (int c = 0; c < C_MAX; ++c)
+    if (part[c]) atomicAdd(&s_carry[c], part[c]);
+  __syncthreads();
+  for (int64_t base = a; base < b; base += blockDim.x) {
+    const int64_t i = base + tid;
+    uint32_t v[C_MAX] = {0u, 0u, 0u, 0u};
+    if (i < b)
+      for (int c = 0; c < C_MAX; ++c)
+        v[c] = static_cast<uint32_t>(dc_sum[i * C_MAX + c]);
+    for (int c = 0; c < C_MAX; ++c) s_scan[tid][c] = v[c];
+    __syncthreads();
+    for (int off = 1; off < static_cast<int>(blockDim.x); off <<= 1) {
+      uint32_t t[C_MAX] = {0u, 0u, 0u, 0u};
+      if (tid >= off)
+        for (int c = 0; c < C_MAX; ++c) t[c] = s_scan[tid - off][c];
+      __syncthreads();
+      for (int c = 0; c < C_MAX; ++c) s_scan[tid][c] += t[c];
+      __syncthreads();
+    }
+    if (i < b) {
+      uint32_t add[C_MAX];
+      for (int c = 0; c < C_MAX; ++c)
+        add[c] = s_carry[c] + s_scan[tid][c] - v[c];
+      const int32_t* e = pieces + i * PCOL;
+      const int n = e[3], g = e[2];
+      // eight blocks at a time: their loads in flight together
+      for (int j0 = 0; j0 < n; j0 += 8) {
+        int64_t dst[8];
+        bool in[8];
+        int32_t x[8];
+        int comp[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int gblk = g + j0 + u;
+          const int slot = gblk % p.bpm;
+          in[u] = j0 + u < n && place(tables, p, f, gblk, slot, dst[u]);
+          comp[u] = tables[OFF_SLOT_COMP + slot];
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (in[u]) x[u] = coeffs[dst[u]];
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (in[u])
+            coeffs[dst[u]] = static_cast<int32_t>(
+                static_cast<uint32_t>(x[u]) + add[comp[u]]);
+      }
+      if (!pok[i]) s_ok[static_cast<int>(i / P) - r0] = 0;
+    }
+    __syncthreads();
+    if (tid < C_MAX) s_carry[tid] += s_scan[blockDim.x - 1][tid];
+    __syncthreads();
   }
+  for (int i = tid; i < r1 - r0; i += blockDim.x) ok[r0 + i] = s_ok[i];
 }
 
 template <typename Kernel>
@@ -574,9 +877,17 @@ int set_smem(Kernel kern, size_t bytes) {
 int check_params(const Params& p) {
   if (p.tab_ints <= 0 || p.tab_ints > TABLE_INTS || p.bpm <= 0 ||
       p.bpm > SLOTS || p.cb_bits <= 0 || p.strip_bits <= 0 ||
-      p.strip_bits > p.cb_bits)
+      p.strip_bits > p.cb_bits || p.n_pieces <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
+}
+
+// K8 and K9 cut each row at piece_bits; K10 takes the pieces as laid out.
+int check_pieces(const Params& p) {
+  if (p.piece_bits <= 0 ||
+      p.n_pieces != (p.cb_bits + p.piece_bits - 1) / p.piece_bits)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return check_params(p);
 }
 
 }  // namespace
@@ -588,11 +899,13 @@ extern "C" int jt_decode_rstless_ncol() { return NCOL; }
 extern "C" int jt_rstless_sync(const void* tables, const void* words,
                                const void* nbits, const void* row0,
                                const void* row_frame, void* member,
-                               void* links, int R, int wn, int bpm,
-                               int vpad, int tab_ints, int cb_bits,
-                               int strip_bits, void* stream) {
-  const Params p{wn, bpm, 0, 1, vpad, tab_ints, cb_bits, strip_bits, 0};
-  int rc = check_params(p);
+                               void* links, void* marks, int R, int wn,
+                               int bpm, int vpad, int tab_ints, int cb_bits,
+                               int strip_bits, int piece_bits, int n_pieces,
+                               void* stream) {
+  const Params p{wn,      bpm,        0, 1,          vpad,    tab_ints,
+                 cb_bits, strip_bits, 0, piece_bits, n_pieces};
+  int rc = check_pieces(p);
   if (rc != 0 || R <= 0) return rc;
   const Rows rows{static_cast<const int32_t*>(row0),
                   static_cast<const int32_t*>(row_frame), R};
@@ -613,106 +926,88 @@ extern "C" int jt_rstless_sync(const void* tables, const void* words,
       static_cast<const int32_t*>(tables),
       static_cast<const uint32_t*>(words),
       static_cast<const int32_t*>(nbits), rows, p,
-      static_cast<const int32_t*>(member), static_cast<int32_t*>(links));
+      static_cast<const int32_t*>(member), static_cast<int32_t*>(links),
+      static_cast<int32_t*>(marks));
   return static_cast<int>(cudaGetLastError());
 }
 
-// K9 walk of F frames on `stream`; `n_rec` must be zeroed.
-extern "C" int jt_rstless_walk(const void* links, const void* ovr,
-                               const void* row0, void* f_bit, void* f_slot,
-                               void* nblk, void* state, void* frame_bad,
-                               void* n_rec, int F, int bpm, int cb_bits,
-                               int tile_rows, void* stream) {
-  if (F <= 0) return 0;
-  if (bpm <= 0 || bpm > SLOTS || tile_rows <= 0 || cb_bits <= 0)
+// K9 of F frames on `stream`, one launch.  `scratch` holds R * (OCOL +
+// (n_pieces - 1) * MCOL + 3) ints and needs no initial value.
+extern "C" int jt_rstless_resolve(
+    const void* tables, const void* words, const void* nbits,
+    const void* row0, const void* row_frame, const void* member,
+    const void* links, const void* marks, void* scratch, void* row_out,
+    void* frame_out, void* pieces, int F, int R, int wn, int bpm, int vpad,
+    int tab_ints, int cb_bits, int strip_bits, int piece_bits, int n_pieces,
+    int tile_rows, int max_rounds, void* stream) {
+  const Params p{wn,      bpm,        0, 1,          vpad,    tab_ints,
+                 cb_bits, strip_bits, 0, piece_bits, n_pieces};
+  int rc = check_pieces(p);
+  if (rc != 0 || F <= 0 || R <= 0) return rc;
+  if (tile_rows <= 0 || max_rounds <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(int32_t) * tile_rows * (bpm * NCOL + OCOL);
-  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  walk_kernel<<<F, WALK_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(links), static_cast<const int32_t*>(ovr),
-      static_cast<const int32_t*>(row0), bpm, cb_bits, tile_rows,
-      static_cast<int32_t*>(f_bit), static_cast<int32_t*>(f_slot),
-      static_cast<int32_t*>(nblk), static_cast<int32_t*>(state),
-      static_cast<int32_t*>(frame_bad), static_cast<int32_t*>(n_rec));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K9 re-decode of the RECOVER rows into their override rows, on `stream`.
-extern "C" int jt_rstless_recover(const void* tables, const void* words,
-                                  const void* nbits, const void* row0,
-                                  const void* row_frame, const void* member,
-                                  const void* f_bit, const void* f_slot,
-                                  const void* state, void* ovr, int R,
-                                  int wn, int bpm, int vpad, int tab_ints,
-                                  int cb_bits, int strip_bits,
-                                  void* stream) {
-  const Params p{wn, bpm, 0, 1, vpad, tab_ints, cb_bits, strip_bits, 0};
-  int rc = check_params(p);
-  if (rc != 0 || R <= 0) return rc;
+  const size_t smem =
+      sizeof(int32_t) * (tab_ints + static_cast<size_t>(tile_rows) *
+                                        (bpm * NCOL + OCOL + RCOL));
+  if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  if ((rc = set_smem(resolve_kernel, smem)))
+    return rc;
   const Rows rows{static_cast<const int32_t*>(row0),
                   static_cast<const int32_t*>(row_frame), R};
-  const size_t smem = sizeof(int32_t) * tab_ints;
-  if ((rc = set_smem(recover_kernel, smem)))
-    return rc;
-  recover_kernel<<<(R + ROW_THREADS - 1) / ROW_THREADS, ROW_THREADS, smem,
+  auto* sc = static_cast<int32_t*>(scratch);
+  const int64_t r = R;
+  const Resolve o{static_cast<int32_t*>(row_out), sc, sc + r * OCOL,
+                  sc + r * OCOL + r * (n_pieces - 1) * MCOL};
+  resolve_kernel<<<F, RESOLVE_THREADS, smem,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(tables),
       static_cast<const uint32_t*>(words),
       static_cast<const int32_t*>(nbits), rows, p,
       static_cast<const int32_t*>(member),
-      static_cast<const int32_t*>(f_bit),
-      static_cast<const int32_t*>(f_slot),
-      static_cast<const int32_t*>(state), static_cast<int32_t*>(ovr));
+      static_cast<const int32_t*>(links), static_cast<const int32_t*>(marks),
+      tile_rows, max_rounds, o, static_cast<int32_t*>(frame_out),
+      static_cast<int32_t*>(pieces));
   return static_cast<int>(cudaGetLastError());
 }
 
-// K10 walk on `stream`; `coeffs` must be zeroed.
+// K10: the piece walk, then the DC pass (dc_tiles x F CTAs of dc_tile_rows
+// rows), on `stream`.  Neither `coeffs` nor `scratch` (R * n_pieces *
+// (C_MAX + 1) ints) needs an initial value: every block of a frame that
+// decodes all its MCUs with every row ok is written whole, and a block no
+// piece decodes (only in a frame the engine refuses) is left as it was.
 extern "C" int jt_rstless_final(const void* tables, const void* words,
                                 const void* nbits, const void* row0,
-                                const void* row_frame, const void* f_bit,
-                                const void* f_slot, const void* nblk,
-                                const void* g0, void* coeffs, void* dc_sum,
-                                void* ok, int R, int wn, int bpm,
-                                int n_mcus, int m_x, int vpad, int tab_ints,
-                                int total_blocks, void* stream) {
-  const Params p{wn, bpm, n_mcus, m_x, vpad, tab_ints, 1, 1, total_blocks};
+                                const void* row_frame, const void* pieces,
+                                void* coeffs, void* scratch, void* ok, int F,
+                                int R, int wn, int bpm, int n_mcus, int m_x,
+                                int vpad, int tab_ints, int total_blocks,
+                                int n_pieces, int dc_tile_rows, int dc_tiles,
+                                void* stream) {
+  const Params p{wn, bpm, n_mcus,       m_x, vpad,    tab_ints,
+                 1,  1,   total_blocks, 0,   n_pieces};
   int rc = check_params(p);
-  if (rc != 0 || R <= 0) return rc;
-  if (m_x <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (rc != 0 || F <= 0 || R <= 0) return rc;
+  if (m_x <= 0 || dc_tile_rows <= 0 || dc_tile_rows > DC_THREADS ||
+      dc_tiles <= 0 || dc_tiles > 65535 || F > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Rows rows{static_cast<const int32_t*>(row0),
                   static_cast<const int32_t*>(row_frame), R};
-  const size_t smem = sizeof(int32_t) * tab_ints;
-  if ((rc = set_smem(final_kernel, smem)))
-    return rc;
-  final_kernel<<<(R + ROW_THREADS - 1) / ROW_THREADS, ROW_THREADS, smem,
-                 static_cast<cudaStream_t>(stream)>>>(
+  const int64_t n_pc = static_cast<int64_t>(R) * n_pieces;
+  auto* dc_sum = static_cast<int32_t*>(scratch);
+  int32_t* pok = dc_sum + n_pc * C_MAX;
+  auto s = static_cast<cudaStream_t>(stream);
+  final_kernel<<<static_cast<unsigned>((n_pc + PIECE_THREADS - 1) /
+                                       PIECE_THREADS),
+                 PIECE_THREADS, sizeof(int32_t) * 64 * PIECE_THREADS, s>>>(
       static_cast<const int32_t*>(tables),
       static_cast<const uint32_t*>(words),
       static_cast<const int32_t*>(nbits), rows, p,
-      static_cast<const int32_t*>(f_bit),
-      static_cast<const int32_t*>(f_slot),
-      static_cast<const int32_t*>(nblk), static_cast<const int32_t*>(g0),
-      static_cast<int32_t*>(coeffs), static_cast<int32_t*>(dc_sum),
-      static_cast<int32_t*>(ok));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K10 DC pass on `stream`.
-extern "C" int jt_rstless_dc_fix(const void* tables, const void* row0,
-                                 const void* row_frame, const void* nblk,
-                                 const void* g0, const void* base,
-                                 void* coeffs, int R, int bpm, int n_mcus,
-                                 int m_x, int total_blocks, void* stream) {
-  if (R <= 0) return 0;
-  if (bpm <= 0 || bpm > SLOTS || m_x <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{0, bpm, n_mcus, m_x, 0, 0, 1, 1, total_blocks};
-  const Rows rows{static_cast<const int32_t*>(row0),
-                  static_cast<const int32_t*>(row_frame), R};
-  dc_fix_kernel<<<(R + ROW_THREADS - 1) / ROW_THREADS, ROW_THREADS, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(pieces), static_cast<int32_t*>(coeffs),
+      dc_sum, pok);
+  if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
+  dc_kernel<<<dim3(dc_tiles, F), DC_THREADS, 0, s>>>(
       static_cast<const int32_t*>(tables), rows, p,
-      static_cast<const int32_t*>(nblk), static_cast<const int32_t*>(g0),
-      static_cast<const int32_t*>(base), static_cast<int32_t*>(coeffs));
+      static_cast<const int32_t*>(pieces), dc_sum, pok, dc_tile_rows,
+      static_cast<int32_t*>(coeffs), static_cast<int32_t*>(ok));
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,14 +12,19 @@ or on the CPU their plain versions in ``speculative_torch``):
 
   K8 sync     every (row, slot variant) decodes its row and links into
               its successor row at the first block-start state (bit,
-              slot) that a successor variant also passed;
-  K9 resolve  a walk per frame chains authority from row 0 (bit 0, slot
-              0) through the links; rows whose authority the links do not
-              give are re-decoded from their now-known entry, round after
-              round until every row is settled;
-  K10 final   every row re-decodes exactly its blocks into their plane
-              rows, and the per-frame DC prefix completes the predictor
-              chain.
+              slot) that a successor variant also passed, marking on the
+              way the first block start after each piece boundary of the
+              row (pieces of ``PIECE_BYTES``);
+  K9 resolve  one launch, a CTA per frame: a walk chains authority from
+              row 0 (bit 0, slot 0) through the links; rows whose
+              authority the links do not give are re-decoded from their
+              now-known entry, round after round until every row is
+              settled; the frame's stats and its pieces (entry, first
+              block, block count: a row's marks that fall inside its
+              blocks are true block starts) stay on the card;
+  K10 final   every piece re-decodes exactly its blocks into their plane
+              rows, and a DC pass adds the per-frame prefix of the
+              pieces' DC sums, completing the predictor chain.
 
 The result is bit-identical to the serial oracle on valid streams.  A
 frame whose final decode does not reach the geometry's MCU count (a
@@ -30,13 +35,15 @@ time, then the host).
 
 What the TPU engine needed for XLA's static shapes has no counterpart
 here: no phase-variant lane roster, no capped record lists (TCAP, HCAP),
-no learned step bounds, no environment knobs.  The chunk and strip sizes
-are module constants, checked once by ``check_capacity``.
+no learned step bounds, no environment knobs.  The chunk, strip and
+piece sizes are module constants, checked once by ``check_capacity``.
+The host reads the device once a batch: the frame checks and the
+resolve stats together, after K10.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -47,7 +54,16 @@ from . import speculative_cuda
 from .lockstep import ScanPlan
 from .lockstep_torch import pack_words
 from .place_cuda import check_plan
-from .speculative_torch import Rows, row_layout
+from .speculative_torch import (
+    R_NBLK,
+    S_BAD,
+    S_MISPREDICTS,
+    S_RECOVERY,
+    S_ROUNDS,
+    S_UNRESOLVED,
+    Rows,
+    row_layout,
+)
 
 # Chunk row bytes: small enough that a batch of 1080p frames gives every
 # SM of an H100 several warps of (row, variant) threads (an 8-frame chunk
@@ -56,28 +72,49 @@ from .speculative_torch import Rows, row_layout
 CHUNK_BYTES = 512
 # Head strip bytes: block starts recorded for the predecessor to link at.
 STRIP_BYTES = 128
+# Piece bytes of the final decode (K10): a thread decodes one piece, so a
+# batch runs CHUNK_BYTES / PIECE_BYTES times as many chains of 1/that
+# length as one per row.  32 B gave the shortest K10 on an H100 over 16
+# to 512 B (tools/rstless_piece_sweep.py; PERF.md).
+PIECE_BYTES = 32
 MAX_CHUNK_BYTES = 1 << 20
 MAX_STRIP_BYTES = 4096
+MAX_PIECES = 1 << 16  # pieces a row
 
 
-def check_capacity(chunk_bytes: int, strip_bytes: int) -> None:
+def check_capacity(chunk_bytes: int, strip_bytes: int,
+                   piece_bytes: Optional[int] = None) -> int:
     """Raise ``ValueError`` unless 1 <= strip_bytes <= chunk_bytes,
-    strip_bytes <= MAX_STRIP_BYTES and chunk_bytes <= MAX_CHUNK_BYTES:
-    an entry linked into a row's strip must lie inside the row, and bit
-    offsets and membership entries must fit int32."""
+    strip_bytes <= MAX_STRIP_BYTES, chunk_bytes <= MAX_CHUNK_BYTES,
+    1 <= piece_bytes <= chunk_bytes and a row holds at most MAX_PIECES
+    pieces: an entry linked into a row's strip must lie inside the row,
+    and bit offsets, membership entries and marks must fit int32.
+    ``piece_bytes`` None is ``min(PIECE_BYTES, chunk_bytes)``.  -> the
+    piece bytes."""
     for name, v in (("chunk_bytes", chunk_bytes),
-                    ("strip_bytes", strip_bytes)):
+                    ("strip_bytes", strip_bytes),
+                    ("piece_bytes", piece_bytes)):
         if not isinstance(v, (int, np.integer)) or isinstance(v, bool):
-            raise ValueError(f"{name} must be an int, got {v!r}")
+            if not (name == "piece_bytes" and v is None):
+                raise ValueError(f"{name} must be an int, got {v!r}")
     if not 1 <= strip_bytes <= min(chunk_bytes, MAX_STRIP_BYTES):
         raise ValueError(f"strip_bytes {strip_bytes} outside 1 .. "
                          f"min(chunk_bytes, {MAX_STRIP_BYTES})")
     if chunk_bytes > MAX_CHUNK_BYTES:
         raise ValueError(f"chunk_bytes {chunk_bytes} above "
                          f"{MAX_CHUNK_BYTES}")
+    if piece_bytes is None:
+        piece_bytes = min(PIECE_BYTES, chunk_bytes)
+    if not 1 <= piece_bytes <= chunk_bytes:
+        raise ValueError(f"piece_bytes {piece_bytes} outside 1 .. "
+                         f"chunk_bytes")
+    if -(-chunk_bytes // piece_bytes) > MAX_PIECES:
+        raise ValueError(f"more than {MAX_PIECES} pieces of {piece_bytes} "
+                         f"bytes a row")
+    return int(piece_bytes)
 
 
-check_capacity(CHUNK_BYTES, STRIP_BYTES)
+check_capacity(CHUNK_BYTES, STRIP_BYTES, PIECE_BYTES)
 
 
 def _fallback(why: str) -> None:
@@ -105,7 +142,8 @@ def speculative_core_batch(plan: ScanPlan, total_blocks: int,
                            segments: Sequence[np.ndarray],
                            device: torch.device,
                            chunk_bytes: int = CHUNK_BYTES,
-                           strip_bytes: int = STRIP_BYTES):
+                           strip_bytes: int = STRIP_BYTES,
+                           piece_bytes: Optional[int] = None):
     """Decode F same-plan RST-less segments (unstuffed uint8) on
     ``device``.
 
@@ -114,8 +152,11 @@ def speculative_core_batch(plan: ScanPlan, total_blocks: int,
     ``None`` when the batch is refused (counted).  The resolve rounds are
     bounded by the largest frame's row count plus one, which always
     suffices: each round settles at least one more row of every frame.
+    ``piece_bytes`` None is ``min(PIECE_BYTES, chunk_bytes)``.  The
+    device is read once, after K10: the resolve stats with the frame
+    checks.
     """
-    check_capacity(chunk_bytes, strip_bytes)
+    piece_bytes = check_capacity(chunk_bytes, strip_bytes, piece_bytes)
     try:
         check_plan(plan)
     except UnsupportedError as e:
@@ -125,34 +166,42 @@ def speculative_core_batch(plan: ScanPlan, total_blocks: int,
     words, nbits, rows = prepare_batch(segments, device, chunk_bytes)
     max_rounds = int(np.diff(rows.row0).max()) + 1
     default_metrics.count("speculative.batches")
-    links, member = speculative_cuda.sync(
-        plan, words, nbits, rows, chunk_bytes * 8, strip_bytes * 8)
-    res, (rounds, rec_rows, mis) = speculative_cuda.resolve(
-        plan, words, nbits, rows, links, member, chunk_bytes * 8,
-        strip_bytes * 8, max_rounds)
-    default_metrics.count("speculative.resolve_rounds", rounds)
-    default_metrics.count("speculative.recovery_rows", rec_rows)
-    default_metrics.count("speculative.mispredicts", mis)
-    if res is None:
-        return _fallback(f"unresolved: {rounds} rounds")
-    f_bit, f_slot, nblk, _, bad = res
-    coeffs, ok = speculative_cuda.final(plan, words, nbits, rows, f_bit,
-                                        f_slot, nblk, total_blocks)
-    # One host read: per frame, the walk's refusal, the rows that did not
-    # decode their blocks, and the blocks decoded.
+    cb, sb, pb = chunk_bytes * 8, strip_bytes * 8, piece_bytes * 8
+    links, member, marks = speculative_cuda.sync(plan, words, nbits, rows,
+                                                 cb, sb, pb)
+    res = speculative_cuda.resolve(plan, words, nbits, rows, links, member,
+                                   marks, cb, sb, pb, max_rounds)
+    # K10 reads none of K8's outputs: free the membership map before the
+    # coefficients are allocated
+    links = member = marks = None
+    # K10 runs on an unresolved batch too (its unsettled rows hold no
+    # blocks), so that the batch needs one host read.
+    coeffs, ok = speculative_cuda.final(plan, words, nbits, rows,
+                                        res.pieces, total_blocks)
+    # The one host read: per frame, the resolve stats, the rows that did
+    # not decode their blocks, and the blocks decoded.
     frame = rows.frame
     zero = torch.zeros(rows.F, dtype=torch.int64, device=device)
-    check = torch.stack([
-        bad.to(torch.int64),
-        zero.index_add(0, frame, (ok == 0).to(torch.int64)),
-        zero.index_add(0, frame, nblk.to(torch.int64)),
+    check = torch.cat([
+        res.frame.t().to(torch.int64),
+        zero.index_add(0, frame, (ok == 0).to(torch.int64))[None],
+        zero.index_add(0, frame, res.row[R_NBLK].to(torch.int64))[None],
     ]).cpu().numpy()
+    rounds = int(check[S_ROUNDS].max())
+    default_metrics.count("speculative.resolve_rounds", rounds)
+    default_metrics.count("speculative.recovery_rows",
+                          int(check[S_RECOVERY].sum()))
+    default_metrics.count("speculative.mispredicts",
+                          int(check[S_MISPREDICTS].sum()))
+    if check[S_UNRESOLVED].any():
+        return _fallback(f"unresolved: {rounds} rounds")
+    not_ok, blocks = check[-2], check[-1]
     want = plan.n_mcus * plan.blocks_per_mcu
-    refused = (check[0] > 0) | (check[1] > 0) | (check[2] < want)
+    refused = (check[S_BAD] > 0) | (not_ok > 0) | (blocks < want)
     if refused.any():
         return _fallback(f"invalid frame: {int(np.argmax(refused))} of "
                          f"{rows.F}")
-    return coeffs, [int(min(t, total_blocks)) for t in check[2]]
+    return coeffs, [int(min(t, total_blocks)) for t in blocks]
 
 
 def decode_scan_speculative(geom, info, tables, htable_key: tuple,

@@ -7,18 +7,22 @@ chunk rows (``speculative_torch.Rows``) -- checks its tensors, and on a
 CUDA tensor launches the kernels of ``csrc/decode_rstless.cu`` on PyTorch's current stream and
 counts the call in ``<wrapper>.launches``; on a CPU tensor it runs the
 plain version of ``entropy/speculative_torch.py``.  Anything else raises.
+No wrapper reads the device back.
 
-* ``sync`` (K8): head walk into the membership map, then the tail walk
-  -> (links [R * bpm, NCOL], member [R * strip_bits * bpm]).
-* ``resolve`` (K9): walk and re-decode rounds; one host read per round.
-  It counts each walk and each re-decode it launches (``2 * rounds + 1``
-  a batch that resolves).
-* ``final`` (K10): the final walk, the DC prefix (a torch cumsum) and the
-  DC pass -> (coeffs [F * total_blocks, 64], ok [R]).
+* ``sync`` (K8): head walk into the membership map, then the tail walk,
+  which also marks each row's piece boundaries -> (links [R * bpm,
+  NCOL], member [R * strip_bits * bpm], marks [R * bpm, P - 1, MCOL]).
+* ``resolve`` (K9): one launch, a CTA per frame running the frame's walk
+  and re-decode rounds on the card, its stats and its piece layout ->
+  ``Resolved`` (row outputs, per-frame stats, pieces [R * P, PCOL]).
+* ``final`` (K10): the piece walk (a thread per piece) and the DC pass
+  (the per-frame DC prefix over pieces, computed in each CTA, and the
+  rows' ok bits) -> (coeffs [F * total_blocks, 64], ok [R]).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..device import check_tensor, cuda_stream
@@ -32,18 +36,27 @@ from .place_cuda import (
     kernel_m_x,
 )
 from .speculative_torch import (
+    MCOL,
     NCOL,
     OCOL,
+    PCOL,
+    RCOL,
+    SCOL,
+    Resolved,
     Rows,
     final_ref,
-    frame_prefix,
-    resolve_loop,
+    n_pieces,
     resolve_ref,
     sync_ref,
 )
 
-# Bytes of shared memory the resolve walk stages per frame tile.
-WALK_STAGE_BYTES = 48 * 1024
+# Bytes of shared memory the resolve kernel stages per frame: the code
+# tables, then as many rows' links, override rows and walk outputs as fit
+# (a frame of more rows is walked in tiles).
+RESOLVE_STAGE_BYTES = 200 * 1024
+# Threads of a CTA of the DC pass (csrc DC_THREADS): a tile holds
+# DC_THREADS // P rows.
+DC_THREADS = 256
 
 
 def _lib():
@@ -75,28 +88,31 @@ def _batch(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
 
 
 def sync(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
-         rows: Rows, cb_bits: int, strip_bits: int):
+         rows: Rows, cb_bits: int, strip_bits: int, piece_bits: int):
     """K8.  -> (links [R * bpm, NCOL] int32, member [R * strip_bits * bpm]
-    int32)."""
+    int32, marks [R * bpm, P - 1, MCOL] int32)."""
     if words.device.type == "cpu":
-        return sync_ref(plan, words, nbits, rows, cb_bits, strip_bits)
+        return sync_ref(plan, words, nbits, rows, cb_bits, strip_bits,
+                        piece_bits)
     dev, F, R = _batch(plan, words, nbits, rows)
-    r0, frame = rows.r0, rows.frame32
     bpm = plan.blocks_per_mcu
-    if R * strip_bits * bpm >= 1 << 31:
-        raise ValueError("membership map too large for int32 offsets")
+    P = n_pieces(cb_bits, piece_bits)
+    if max(R * strip_bits, R * (P - 1) * MCOL) * bpm >= 1 << 31:
+        raise ValueError("membership map or marks too large for int32 "
+                         "offsets")
     member = torch.zeros(R * strip_bits * bpm, dtype=torch.int32, device=dev)
     links = torch.empty(R * bpm, NCOL, dtype=torch.int32, device=dev)
+    marks = torch.empty(R * bpm, P - 1, MCOL, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = _lib().jt_rstless_sync(
             _device_tables(plan, dev).data_ptr(), words.data_ptr(),
-            nbits.data_ptr(), r0.data_ptr(), frame.data_ptr(),
-            member.data_ptr(), links.data_ptr(), R, words.shape[1], bpm,
-            huffval_pad(plan), _staged_ints(plan), cb_bits, strip_bits,
-            cuda_stream(dev))
+            nbits.data_ptr(), rows.r0.data_ptr(), rows.frame32.data_ptr(),
+            member.data_ptr(), links.data_ptr(), marks.data_ptr(), R,
+            words.shape[1], bpm, huffval_pad(plan), _staged_ints(plan),
+            cb_bits, strip_bits, piece_bits, P, cuda_stream(dev))
     _check(rc, "rstless sync")
     sync.launches += 1
-    return links, member
+    return links, member, marks
 
 
 sync.launches = 0
@@ -104,95 +120,84 @@ sync.launches = 0
 
 def resolve(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
             rows: Rows, links: torch.Tensor, member: torch.Tensor,
-            cb_bits: int, strip_bits: int, max_rounds: int):
-    """K9: walk, and re-decode the rows a walk could not settle, until a
-    walk settles every row.  -> ((f_bit, f_slot, nblk, state [R] int32,
-    frame_bad [F] int32) or None after ``max_rounds`` rounds, (rounds,
-    recovery rows, mispredicts))."""
+            marks: torch.Tensor, cb_bits: int, strip_bits: int,
+            piece_bits: int, max_rounds: int) -> Resolved:
+    """K9: per frame, walk and re-decode the rows a walk could not settle
+    until a walk settles every row or ``max_rounds`` walks left rows to
+    re-decode; then the pieces.  One launch, no host read: the caller
+    reads ``Resolved.frame`` (rounds, recovery rows, mispredicts,
+    ``max_rounds`` reached, walk refusal per frame) with its own checks."""
     if words.device.type == "cpu":
-        return resolve_ref(plan, words, nbits, rows, links, member, cb_bits,
-                           strip_bits, max_rounds)
+        return resolve_ref(plan, words, nbits, rows, links, member, marks,
+                           cb_bits, strip_bits, piece_bits, max_rounds)
     dev, F, R = _batch(plan, words, nbits, rows)
-    r0, frame = rows.r0, rows.frame32
     bpm = plan.blocks_per_mcu
+    P = n_pieces(cb_bits, piece_bits)
     check_tensor("links", links, (torch.int32,), (R * bpm, NCOL), dev)
     check_tensor("member", member, (torch.int32,),
                  (R * strip_bits * bpm,), dev)
-    lib = _lib()
-    stream = cuda_stream(dev)
-    tables = _device_tables(plan, dev)
-    tile = WALK_STAGE_BYTES // (4 * (bpm * NCOL + OCOL))
-
-    def walk(ovr):
-        out = [torch.empty(R, dtype=torch.int32, device=dev) for _ in range(4)]
-        bad = torch.empty(F, dtype=torch.int32, device=dev)
-        n_rec = torch.zeros(1, dtype=torch.int32, device=dev)
-        with torch.cuda.device(dev):
-            rc = lib.jt_rstless_walk(
-                links.data_ptr(), ovr.data_ptr(), r0.data_ptr(),
-                *(t.data_ptr() for t in out), bad.data_ptr(),
-                n_rec.data_ptr(), F, bpm, cb_bits, tile, stream)
-        _check(rc, "rstless walk")
-        resolve.launches += 1
-        return (*out, bad, n_rec)
-
-    def recover(f_bit, f_slot, state, ovr):
-        with torch.cuda.device(dev):
-            rc = lib.jt_rstless_recover(
-                tables.data_ptr(), words.data_ptr(), nbits.data_ptr(),
-                r0.data_ptr(), frame.data_ptr(), member.data_ptr(),
-                f_bit.data_ptr(), f_slot.data_ptr(), state.data_ptr(),
-                ovr.data_ptr(), R, words.shape[1], bpm, huffval_pad(plan),
-                _staged_ints(plan), cb_bits, strip_bits, stream)
-        _check(rc, "rstless recover")
-        resolve.launches += 1
-        return ovr
-
-    return resolve_loop(walk, recover, R, dev, max_rounds)
+    check_tensor("marks", marks, (torch.int32,), (R * bpm, P - 1, MCOL), dev)
+    if R * P * PCOL >= 1 << 31:
+        raise ValueError("too many pieces for int32 offsets")
+    tab = _staged_ints(plan)
+    row_ints = bpm * NCOL + OCOL + RCOL  # links, override, walk outputs
+    tile = min(int(np.diff(rows.row0).max()),
+               (RESOLVE_STAGE_BYTES // 4 - tab) // row_ints)
+    if tile < 1:
+        raise ValueError("code tables leave no shared memory for a row")
+    scratch = torch.empty(R * (OCOL + (P - 1) * MCOL + 3), dtype=torch.int32,
+                          device=dev)
+    row = torch.empty(RCOL, R, dtype=torch.int32, device=dev)
+    frame = torch.empty(F, SCOL, dtype=torch.int32, device=dev)
+    pieces = torch.empty(R * P, PCOL, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _lib().jt_rstless_resolve(
+            _device_tables(plan, dev).data_ptr(), words.data_ptr(),
+            nbits.data_ptr(), rows.r0.data_ptr(), rows.frame32.data_ptr(),
+            member.data_ptr(), links.data_ptr(), marks.data_ptr(),
+            scratch.data_ptr(), row.data_ptr(), frame.data_ptr(),
+            pieces.data_ptr(), F, R, words.shape[1], bpm, huffval_pad(plan),
+            tab, cb_bits, strip_bits, piece_bits, P, tile, max_rounds,
+            cuda_stream(dev))
+    _check(rc, "rstless resolve")
+    resolve.launches += 1
+    return Resolved(row, frame, pieces)
 
 
 resolve.launches = 0
 
 
 def final(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
-          rows: Rows, f_bit: torch.Tensor, f_slot: torch.Tensor,
-          nblk: torch.Tensor, total_blocks: int):
+          rows: Rows, pieces: torch.Tensor, total_blocks: int):
     """K10.  -> (coeffs [F * total_blocks, 64] int32 with the frame's DC
-    chain, ok [R] int32)."""
+    chain, ok [R] int32).  On the card a block no piece decodes (only in
+    a frame the engine refuses) holds no defined value; the plain version
+    leaves it 0."""
     if words.device.type == "cpu":
-        return final_ref(plan, words, nbits, rows, f_bit, f_slot, nblk,
-                         total_blocks)
+        return final_ref(plan, words, nbits, rows, pieces, total_blocks)
     dev, F, R = _batch(plan, words, nbits, rows)
-    r0, frame = rows.r0, rows.frame32
-    for name, t in (("f_bit", f_bit), ("f_slot", f_slot), ("nblk", nblk)):
-        check_tensor(name, t, (torch.int32,), (R,), dev)
+    if pieces.dim() != 2 or pieces.shape[0] % R or pieces.shape[0] == 0:
+        raise ValueError(f"pieces must be [R * P, {PCOL}] for R = {R}, got "
+                         f"{tuple(pieces.shape)}")
+    P = pieces.shape[0] // R
+    check_tensor("pieces", pieces, (torch.int32,), (R * P, PCOL), dev)
     if F * total_blocks * 64 >= 1 << 31:
         raise ValueError("batch too large for int32 coefficient offsets")
-    lib = _lib()
-    stream = cuda_stream(dev)
-    tables = _device_tables(plan, dev)
-    bpm = plan.blocks_per_mcu
-    g0 = frame_prefix(nblk, rows)
-    coeffs = torch.zeros(F * total_blocks, 64, dtype=torch.int32, device=dev)
-    dc_sum = torch.empty(R, C_MAX, dtype=torch.int32, device=dev)
+    tile_rows = max(1, DC_THREADS // P)
+    tiles = -(-int(np.diff(rows.row0).max()) // tile_rows)
+    coeffs = torch.empty(F * total_blocks, 64, dtype=torch.int32, device=dev)
+    scratch = torch.empty(R * P * (C_MAX + 1), dtype=torch.int32, device=dev)
     ok = torch.empty(R, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        rc = lib.jt_rstless_final(
-            tables.data_ptr(), words.data_ptr(), nbits.data_ptr(),
-            r0.data_ptr(), frame.data_ptr(), f_bit.data_ptr(),
-            f_slot.data_ptr(), nblk.data_ptr(), g0.data_ptr(),
-            coeffs.data_ptr(), dc_sum.data_ptr(), ok.data_ptr(), R,
-            words.shape[1], bpm, plan.n_mcus, kernel_m_x(plan),
-            huffval_pad(plan), _staged_ints(plan), total_blocks, stream)
+        rc = _lib().jt_rstless_final(
+            _device_tables(plan, dev).data_ptr(), words.data_ptr(),
+            nbits.data_ptr(), rows.r0.data_ptr(), rows.frame32.data_ptr(),
+            pieces.data_ptr(), coeffs.data_ptr(), scratch.data_ptr(),
+            ok.data_ptr(), F, R, words.shape[1], plan.blocks_per_mcu,
+            plan.n_mcus, kernel_m_x(plan), huffval_pad(plan),
+            _staged_ints(plan), total_blocks, P, tile_rows, tiles,
+            cuda_stream(dev))
     _check(rc, "rstless final")
-    base = frame_prefix(dc_sum, rows).contiguous()
-    with torch.cuda.device(dev):
-        rc = lib.jt_rstless_dc_fix(
-            tables.data_ptr(), r0.data_ptr(), frame.data_ptr(),
-            nblk.data_ptr(), g0.data_ptr(), base.data_ptr(),
-            coeffs.data_ptr(), R, bpm, plan.n_mcus, kernel_m_x(plan),
-            total_blocks, stream)
-    _check(rc, "rstless dc fix")
     final.launches += 1
     return coeffs, ok
 

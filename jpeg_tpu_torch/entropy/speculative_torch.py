@@ -7,10 +7,11 @@ guessed block slot re-synchronizes with the true decode after a short
 junk prefix (Huffman codes self-synchronize).  Two decodes that reach one
 block-start state -- a bit position together with the block's slot in
 the MCU, which picks its Huffman tables -- are identical from there on.
+The final decode cuts each row further into ``P`` pieces of ``pb`` bytes.
 
 These functions follow the CUDA kernels of ``csrc/decode_rstless.cu``
-step for step, so that their intermediate outputs can be held to the
-kernels' bit for bit; on CPU tensors the engine runs them.
+step for step, so that their outputs can be held to the kernels' bit for
+bit; on CPU tensors the engine runs them.
 
 * K8 ``sync_ref``: one lane per (row, variant), variant ``v`` starting at
   the row's first bit with slot ``v``.  The head walk records every block
@@ -20,20 +21,24 @@ kernels' bit for bit; on CPU tensors the engine runs them.
   first block start that some successor variant also passed (a link),
   or, past the successor's strip, at a miss (it then reports its
   crossing: the first block start at or after the successor's first
-  bit); the last row of a frame decodes to the segment's end.  ->
-  ``links [R * bpm, NCOL]``: status, next bit, next slot, ordinal there,
-  successor payload.
-* K9 ``resolve_ref``: a walk per frame from row 0, variant 0 (the true
-  start, bit 0 slot 0) through the links, then a re-decode (``recover``)
-  of every row whose true entry is known but whose authority is not (and
-  of the rows after it while its decode misses again), repeated until no
-  row needs one.  -> each row's entry bit and slot and
-  its block count.
-* K10 ``final_ref``: each row re-decodes exactly its blocks from its
-  entry into their plane rows (block ordinal ``g0`` from a per-frame
-  prefix of the counts), with row-local DC predictors; the per-frame,
-  per-component prefix of the rows' DC sums is then added to every
-  block's DC.
+  bit); the last row of a frame decodes to the segment's end.  On the way
+  it marks, at each piece boundary ``j = 1 .. P-1`` of the row, the first
+  block start at or after ``row_start + j * pb`` (bit, slot, ordinal;
+  ordinal ``MARK_NONE`` where the walk stopped before).  -> ``links [R *
+  bpm, NCOL]``: status, next bit, next slot, ordinal there, successor
+  payload; ``marks [R * bpm, P - 1, MCOL]``.
+* K9 ``resolve_ref``: per frame, a walk from row 0, variant 0 (the true
+  start, bit 0 slot 0) through the links, then a re-decode of every row
+  whose true entry is known but whose authority is not (and of the rows
+  after it while its decode misses again; a re-decode stops where its
+  mark at a piece boundary is a K8 variant's too, and takes that
+  variant's link), repeated until a walk leaves no row to re-decode or
+  the frame reaches ``max_rounds``; then the frame's stats and the piece
+  layout (``layout_ref``).  -> ``Resolved``.
+* K10 ``final_ref``: each piece re-decodes exactly its blocks from its
+  entry into their plane rows, with piece-local DC predictors; the
+  per-frame, per-component prefix of the pieces' DC sums is then added to
+  every block's DC, and a row is ok when all its pieces are.
 
 All bit positions are frame-global: a row reads its frame's words at its
 own offset, so a decode can run past its chunk when a block is longer
@@ -43,7 +48,7 @@ than a chunk.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -59,8 +64,32 @@ ST_LINK, ST_MISS, ST_END = 0, 1, 2
 # override table columns: valid, entry bit, entry slot, then a links row
 O_VALID, O_BIT, O_SLOT = range(3)
 OCOL = 3 + NCOL
+# marks columns, and the ordinal of a boundary the walk did not reach
+M_BIT, M_SLOT, M_ORD = range(3)
+MCOL = 3
+MARK_NONE = (1 << 31) - 1
+# K9's per-row outputs (rows of ``Resolved.row``): entry bit and slot,
+# block count, state, the variant whose decode holds the row (-1: its
+# override) and the row's first ordinal in it, the row's first block
+# (frame-local)
+R_BIT, R_SLOT, R_NBLK, R_STATE, R_SRC, R_K, R_G0 = range(7)
+RCOL = 7
+# K9's per-frame outputs (columns of ``Resolved.frame``): rounds (walks
+# that left rows to re-decode), recovery rows, mispredicts, 1 where the
+# frame reached max_rounds, 1 where the walk refused it
+S_ROUNDS, S_RECOVERY, S_MISPREDICTS, S_UNRESOLVED, S_BAD = range(5)
+SCOL = 5
+# piece columns: entry bit, entry slot, first block (frame-local), count
+P_BIT, P_SLOT, P_G, P_N = range(4)
+PCOL = 4
 # row states of the resolve walk
 SETTLED, RECOVER, PENDING = 0, 1, 2
+
+
+def n_pieces(cb_bits: int, piece_bits: int) -> int:
+    """Pieces a chunk row of ``cb_bits`` is cut into (the last may be
+    shorter)."""
+    return -(-cb_bits // piece_bits)
 
 
 def row_layout(sizes, chunk_bytes: int) -> np.ndarray:
@@ -178,6 +207,14 @@ class Rows:
         return int(self.row0.size - 1)
 
 
+class Resolved(NamedTuple):
+    """K9's result, int32 tensors on the batch's device."""
+
+    row: torch.Tensor     # [RCOL, R]: R_BIT .. R_G0
+    frame: torch.Tensor   # [F, SCOL]: S_ROUNDS .. S_BAD
+    pieces: torch.Tensor  # [R * P, PCOL]: P_BIT .. P_N
+
+
 def sync_head_ref(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
                   rows: Rows, cb_bits: int,
                   strip_bits: int) -> torch.Tensor:
@@ -216,10 +253,15 @@ def sync_head_ref(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
 def tail_walk_ref(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
                   rows: Rows, member: torch.Tensor, row: torch.Tensor,
                   start_bit: torch.Tensor, start_slot: torch.Tensor,
-                  cb_bits: int, strip_bits: int) -> torch.Tensor:
+                  cb_bits: int, strip_bits: int, piece_bits: int,
+                  splice=None):
     """The tail walk of K8 and of K9's re-decode, for lanes starting at
     (``start_bit``, ``start_slot``) in chunk row ``row`` (int64 [n]).
-    -> [n, NCOL] int32 links rows."""
+    ``splice`` (a re-decode: K8's (links, marks)): where a lane's last
+    mark at a block start is also variant v's mark there (lowest v first),
+    the lane takes v's links row and later marks, their ordinals shifted
+    to its own block count, and stops.  -> ([n, NCOL] int32 links rows,
+    [n, P - 1, MCOL] int32 marks)."""
     dev = words.device
     bpm = plan.blocks_per_mcu
     k = _consts(plan, dev)
@@ -228,14 +270,20 @@ def tail_walk_ref(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
     fr = frame[row]
     nb = nbits.to(torch.int64)[fr]
     last = last_row[row]
-    next_start = (local[row] + 1) * cb_bits
+    row_start = local[row] * cb_bits
+    next_start = row_start + cb_bits
     n = row.numel()
+    P = n_pieces(cb_bits, piece_bits)
     bitpos = start_bit.to(torch.int64).clone()
     slot = start_slot.to(torch.int64).clone()
     coeff = torch.zeros_like(bitpos)
     blk = torch.zeros_like(bitpos)
     out = torch.zeros(n, NCOL, dtype=torch.int64, device=dev)
     out[:, L_PAY] = -1
+    marks = torch.full((n, P - 1, MCOL), -1, dtype=torch.int64, device=dev)
+    marks[:, :, M_ORD] = MARK_NONE
+    js = torch.arange(1, P, device=dev)
+    jn = torch.ones(n, dtype=torch.int64, device=dev)  # next boundary
     crossed = torch.zeros(n, dtype=torch.bool, device=dev)
     cross = torch.zeros(n, 3, dtype=torch.int64, device=dev)
     active = torch.ones(n, dtype=torch.bool, device=dev)
@@ -245,6 +293,21 @@ def tail_walk_ref(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
                                 1)[mask]
 
     while bool(active.any()):
+        # marks: every boundary j < P at or before a block start
+        reach = (torch.div(bitpos - row_start, piece_bits,
+                           rounding_mode="floor") + 1).clamp(1, P)
+        new = active & (coeff == 0) & (reach > jn)
+        if P > 1 and bool(new.any()):
+            li = new.nonzero().squeeze(1)
+            sel = (js[None, :] >= jn[li, None]) & (js[None, :] < reach[li, None])
+            sub = marks[li]
+            sub[sel] = torch.stack([bitpos, slot, blk], 1)[li][:, None, :] \
+                .expand(-1, P - 1, -1)[sel]
+            marks[li] = sub
+            jn = torch.where(new, reach, jn)
+            if splice is not None:
+                _splice(splice, bpm, P, row, li, reach[li] - 1, bitpos, slot,
+                        blk, out, marks, active)
         rel = bitpos - next_start
         chk = active & (coeff == 0) & ~last & (rel >= 0)
         first = chk & ~crossed
@@ -267,27 +330,59 @@ def tail_walk_ref(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
         active = active & ~dead
         bitpos, slot, coeff, blk = _advance(plan, s, active, bitpos, slot,
                                             coeff, blk)
-    return out.to(torch.int32)
+    return out.to(torch.int32), marks.to(torch.int32)
+
+
+def _splice(splice, bpm: int, P: int, row, li, jr, bitpos, slot, blk, out,
+            marks, active) -> None:
+    """Lanes ``li`` just marked boundaries up to ``jr`` (>= 1) at a block
+    start: those whose mark there is also a variant's mark of their row
+    take that variant's links row and marks after ``jr`` (ordinals shifted
+    by the lanes' block count less the variant's ordinal there) and stop
+    (``out``, ``marks`` and ``active`` in place)."""
+    links8, marks8 = splice
+    vmarks = marks8.to(torch.int64).reshape(-1, bpm, P - 1, MCOL)[row[li]]
+    at = vmarks[torch.arange(li.numel(), device=li.device), :, jr - 1]
+    hit = (at[:, :, M_BIT] == bitpos[li, None]) & \
+        (at[:, :, M_SLOT] == slot[li, None])
+    has = hit.any(1)
+    if not bool(has.any()):
+        return
+    sel = has.nonzero().squeeze(1)
+    lanes = li[sel]
+    v = hit[sel].to(torch.int64).argmax(1)  # the lowest matching variant
+    shift = blk[lanes] - at[sel, v, M_ORD]
+    lk = links8.to(torch.int64).reshape(-1, bpm, NCOL)[row[lanes], v]
+    out[lanes] = torch.stack([lk[:, L_ST], lk[:, L_BIT], lk[:, L_SLOT],
+                              lk[:, L_M] + shift, lk[:, L_PAY]], 1)
+    vm = vmarks[sel, v]  # [s, P - 1, MCOL]
+    vm[:, :, M_ORD] = torch.where(vm[:, :, M_ORD] == MARK_NONE, MARK_NONE,
+                                  vm[:, :, M_ORD] + shift[:, None])
+    after = torch.arange(1, P, device=li.device)[None, :] > jr[sel, None]
+    sub = marks[lanes]
+    sub[after] = vm[after]
+    marks[lanes] = sub
+    active[lanes] = False
 
 
 def sync_ref(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
-             rows: Rows, cb_bits: int, strip_bits: int):
+             rows: Rows, cb_bits: int, strip_bits: int, piece_bits: int):
     """Plain K8: -> (links [R * bpm, NCOL] int32, member [R * strip_bits *
-    bpm] int32)."""
+    bpm] int32, marks [R * bpm, P - 1, MCOL] int32)."""
     dev = words.device
     bpm = plan.blocks_per_mcu
     member = sync_head_ref(plan, words, nbits, rows, cb_bits, strip_bits)
     local = rows.local
     lane = torch.arange(local.numel() * bpm, device=dev)
     row = lane // bpm
-    links = tail_walk_ref(plan, words, nbits, rows, member, row,
-                          local[row] * cb_bits, lane % bpm, cb_bits,
-                          strip_bits)
-    return links, member
+    links, marks = tail_walk_ref(plan, words, nbits, rows, member, row,
+                                 local[row] * cb_bits, lane % bpm, cb_bits,
+                                 strip_bits, piece_bits)
+    return links, member, marks
 
 
 def walk_frames(links: np.ndarray, ovr: np.ndarray, rows: Rows,
-                bpm: int, cb_bits: int):
+                bpm: int, cb_bits: int) -> Dict[str, np.ndarray]:
     """K9's walk over each frame's rows (numpy, the kernel's algorithm).
 
     Row 0 of a frame enters at (bit 0, slot 0) through variant 0.  A row
@@ -298,37 +393,40 @@ def walk_frames(links: np.ndarray, ovr: np.ndarray, rows: Rows,
     (RECOVER): the walk goes on optimistically through the row's
     majority link (ties: lowest variant), or stops the frame (PENDING)
     when no variant linked.  A row whose entry lies past its chunk is
-    empty; after a row whose decode ended, every row is empty.  ->
-    (f_bit, f_slot, nblk, state [R] int32, frame_bad [F] int32, number of
-    RECOVER rows).
+    empty; after a row whose decode ended, every row is empty.  -> int64
+    arrays: per row ``f_bit``, ``f_slot``, ``nblk``, ``state``, ``src``
+    (-1: the override) and ``k`` (the decode and ordinal that hold the
+    row's blocks; 0, 0 for a row without them) and ``g0`` (the blocks of
+    the frame's rows before it); per frame ``bad`` and ``nrec`` (RECOVER
+    rows).
     """
     row0 = rows.row0
-    R = rows.R
-    f_bit = np.zeros(R, np.int64)
-    f_slot = np.zeros(R, np.int64)
-    nblk = np.zeros(R, np.int64)
-    state = np.zeros(R, np.int64)
-    bad = np.zeros(row0.size - 1, np.int64)
-    n_rec = 0
+    R, F = rows.R, rows.F
+    out = {name: np.zeros(R, np.int64) for name in
+           ("f_bit", "f_slot", "nblk", "state", "src", "k", "g0")}
+    bad = np.zeros(F, np.int64)
+    nrec = np.zeros(F, np.int64)
     lk = links.reshape(R, bpm, NCOL).astype(np.int64)
-    for f in range(row0.size - 1):
-        e_bit = e_slot = src = k = 0
+    for f in range(F):
+        e_bit = e_slot = src = k = gsum = 0
         handoff = ended = blocked = False
         for i, q in enumerate(range(row0[f], row0[f + 1])):
+            out["g0"][q] = gsum
             if blocked:
-                state[q] = PENDING
+                out["state"][q] = PENDING
                 continue
-            f_bit[q], f_slot[q] = e_bit, e_slot
+            out["f_bit"][q], out["f_slot"][q] = e_bit, e_slot
             if ended or e_bit >= (i + 1) * cb_bits:
                 continue  # an empty row
             o = ovr[q]
+            from_ovr = False
             if o[O_VALID] and o[O_BIT] == e_bit and o[O_SLOT] == e_slot:
-                rec, k = o[3:], 0
+                rec, k, from_ovr = o[3:], 0, True
             elif not handoff:
                 rec = lk[q, src]
             else:
-                state[q] = RECOVER
-                n_rec += 1
+                out["state"][q] = RECOVER
+                nrec[f] += 1
                 votes: Dict[Tuple[int, int, int], list] = {}
                 for w in range(bpm):  # the vote: (next bit, slot, payload)
                     if lk[q, w, L_ST] == ST_LINK:
@@ -348,9 +446,12 @@ def walk_frames(links: np.ndarray, ovr: np.ndarray, rows: Rows,
             if n < 0:
                 bad[f] = 1
                 blocked = True
-                state[q] = PENDING
+                out["state"][q] = PENDING
                 continue
-            nblk[q] = n
+            out["nblk"][q] = n
+            out["src"][q] = -1 if from_ovr else src
+            out["k"][q] = k
+            gsum += n
             e_bit, e_slot = int(rec[L_BIT]), int(rec[L_SLOT])
             if rec[L_ST] == ST_LINK:
                 src, k = int(rec[L_PAY]) & 15, int(rec[L_PAY]) >> 4
@@ -359,50 +460,54 @@ def walk_frames(links: np.ndarray, ovr: np.ndarray, rows: Rows,
                 k, handoff = 0, True
             else:
                 ended = True
-    return (f_bit.astype(np.int32), f_slot.astype(np.int32),
-            nblk.astype(np.int32), state.astype(np.int32),
-            bad.astype(np.int32), n_rec)
+    out["bad"] = bad
+    out["nrec"] = nrec
+    return out
 
 
 def walk_ref(links: torch.Tensor, ovr: torch.Tensor, rows: Rows,
              bpm: int, cb_bits: int):
-    """Plain K9 walk on any device: -> (f_bit, f_slot, nblk, state [R],
+    """One K9 walk on any device: -> (f_bit, f_slot, nblk, state [R],
     frame_bad [F], n_rec [1]) int32 tensors on the links' device."""
     dev = links.device
-    out = walk_frames(links.cpu().numpy(), ovr.cpu().numpy(), rows, bpm,
-                      cb_bits)
-    *arrs, n_rec = out
-    return (*(torch.from_numpy(a).to(dev) for a in arrs),
-            torch.tensor([n_rec], dtype=torch.int32, device=dev))
+    w = walk_frames(links.cpu().numpy(), ovr.cpu().numpy(), rows, bpm,
+                    cb_bits)
+    return (*(torch.from_numpy(w[n].astype(np.int32)).to(dev) for n in
+              ("f_bit", "f_slot", "nblk", "state", "bad")),
+            torch.tensor([int(w["nrec"].sum())], dtype=torch.int32,
+                         device=dev))
 
 
 def recover_ref(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
-                rows: Rows, member: torch.Tensor, f_bit: torch.Tensor,
-                f_slot: torch.Tensor, state: torch.Tensor, ovr: torch.Tensor,
-                cb_bits: int, strip_bits: int) -> torch.Tensor:
-    """Plain K9 re-decode: every RECOVER row's tail walk from its entry,
-    written into its override row; a re-decode that misses again goes on
+                rows: Rows, member: torch.Tensor, links: torch.Tensor,
+                marks: torch.Tensor, walk: Dict[str, np.ndarray],
+                start: np.ndarray, ovr: np.ndarray, ovr_marks: np.ndarray,
+                cb_bits: int, strip_bits: int, piece_bits: int) -> None:
+    """Plain K9 re-decode of the rows where ``start`` is set (RECOVER
+    rows of the walk ``walk``): each one's tail walk from its entry,
+    spliced onto K8's variants (``links``, ``marks``) where it meets one,
+    with its marks, written into its override row (``ovr``,
+    ``ovr_marks``, numpy, in place); a re-decode that misses again goes on
     in the row that holds its crossing, unless a row up to that one is
-    RECOVER itself (its own chain owns it).  -> the updated ``ovr`` [R,
-    OCOL]."""
-    ovr = ovr.clone()
-    st_np = state.cpu().numpy()
+    RECOVER itself (its own chain owns it)."""
+    dev = words.device
+    st_np = walk["state"]
     frame = rows.frame.cpu().numpy()
-    idx = np.flatnonzero(st_np == RECOVER)
-    bits = f_bit.cpu().numpy()[idx]
-    slots = f_slot.cpu().numpy()[idx]
+    idx = np.flatnonzero(start)
+    bits = walk["f_bit"][idx]
+    slots = walk["f_slot"][idx]
     while idx.size:
-        t_idx = torch.from_numpy(idx).to(ovr.device)
-        res = tail_walk_ref(plan, words, nbits, rows, member, t_idx,
-                            torch.from_numpy(bits).to(ovr.device),
-                            torch.from_numpy(slots).to(ovr.device), cb_bits,
-                            strip_bits)
-        ovr[t_idx] = torch.cat([
-            torch.ones(idx.size, 1, dtype=torch.int32, device=ovr.device),
-            torch.from_numpy(np.stack([bits, slots], 1)).to(ovr.device),
-            res], 1)
+        res, mk = tail_walk_ref(plan, words, nbits, rows, member,
+                                torch.from_numpy(idx).to(dev),
+                                torch.from_numpy(bits).to(dev),
+                                torch.from_numpy(slots).to(dev), cb_bits,
+                                strip_bits, piece_bits, (links, marks))
+        res = res.cpu().numpy()
+        ovr[idx] = np.concatenate([np.ones((idx.size, 1), np.int64),
+                                   np.stack([bits, slots], 1), res], 1)
+        ovr_marks[idx] = mk.cpu().numpy()
         nxt = []
-        for i, r in enumerate(res.cpu().numpy()):
+        for i, r in enumerate(res):
             if r[L_ST] != ST_MISS:
                 continue
             q, f = int(idx[i]), int(frame[idx[i]])
@@ -411,66 +516,103 @@ def recover_ref(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
                                               == RECOVER).any():
                 nxt.append((q2, int(r[L_BIT]), int(r[L_SLOT])))
         idx = np.array([n[0] for n in nxt], np.int64)
-        bits = np.array([n[1] for n in nxt], np.int32)
-        slots = np.array([n[2] for n in nxt], np.int32)
-    return ovr
+        bits = np.array([n[1] for n in nxt], np.int64)
+        slots = np.array([n[2] for n in nxt], np.int64)
 
 
-def resolve_loop(walk, recover, R: int, dev: torch.device, max_rounds: int):
-    """K9's round loop, shared by the kernel wrapper and the plain version:
-    walk; stop when no row needs a re-decode (one host read of the count
-    per round); else re-decode those rows and walk again.  -> (f_bit,
-    f_slot, nblk, state, frame_bad, stats) with stats (rounds, recovery
-    rows, mispredicts); ``None`` in place of the arrays when
-    ``max_rounds`` walks leave rows to recover."""
-    ovr = torch.zeros(R, OCOL, dtype=torch.int32, device=dev)
-    first = None
-    rounds = rec_rows = 0
-    while True:
-        f_bit, f_slot, nblk, state, bad, n_rec = walk(ovr)
-        if first is None:
-            first = (f_bit, f_slot, state)
-        n = int(n_rec.item())
-        if n == 0:
-            break
-        rounds += 1
-        rec_rows += n
-        if rounds >= max_rounds:
-            return None, (rounds, rec_rows, 0)
-        ovr = recover(f_bit, f_slot, state, ovr)
-    # A mispredict: a row the first walk settled at an entry the final
-    # walk does not keep (its authority came through a wrong guess).
-    fb0, fs0, st0 = first
-    mis = int(((st0 == SETTLED) & ((fb0 != f_bit) | (fs0 != f_slot)))
-              .sum()) if rounds else 0
-    return (f_bit, f_slot, nblk, state, bad), (rounds, rec_rows, mis)
+def layout_ref(row: torch.Tensor, marks: torch.Tensor,
+               ovr_marks: torch.Tensor, bpm: int, P: int) -> torch.Tensor:
+    """The piece layout at the end of K9: -> pieces [R * P, PCOL] int32.
+
+    A row's blocks are ordinals ``[k, k + nblk)`` of the decode that holds
+    it (variant ``src``'s row of ``marks``, or its override's marks), so a
+    mark whose ordinal lies in that range is a true block start.  Piece j
+    runs from boundary j to boundary j + 1, each the mark's ordinal
+    clamped into the range (boundary 0 is the row's entry, boundary P its
+    end); a piece that starts at ``k`` enters at the row's entry, any
+    other at its mark."""
+    R = row.shape[1]
+    r = row.to(torch.int64)
+    kk, n, src = r[R_K], r[R_NBLK], r[R_SRC]
+    q = torch.arange(R, device=row.device)
+    mk = torch.where((src >= 0)[:, None, None],
+                     marks.to(torch.int64).reshape(R, bpm, P - 1, MCOL)[
+                         q, src.clamp(min=0)],
+                     ovr_marks.to(torch.int64))
+    end = (kk + n)[:, None]
+    inner = torch.minimum(torch.maximum(mk[:, :, M_ORD], kk[:, None]), end)
+    bnd = torch.cat([kk[:, None], inner, end], 1)  # [R, P + 1]
+    lo, hi = bnd[:, :-1], bnd[:, 1:]
+    entry = lo == kk[:, None]
+    bit = torch.where(entry, r[R_BIT][:, None],
+                      torch.cat([r[R_BIT][:, None], mk[:, :, M_BIT]], 1))
+    slot = torch.where(entry, r[R_SLOT][:, None],
+                       torch.cat([r[R_SLOT][:, None], mk[:, :, M_SLOT]], 1))
+    g = r[R_G0][:, None] + lo - kk[:, None]
+    return torch.stack([bit, slot, g, hi - lo], -1).reshape(R * P, PCOL) \
+        .to(torch.int32)
 
 
 def resolve_ref(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
                 rows: Rows, links: torch.Tensor, member: torch.Tensor,
-                cb_bits: int, strip_bits: int, max_rounds: int):
-    """Plain K9 (walk and re-decode rounds); result as ``resolve_loop``."""
+                marks: torch.Tensor, cb_bits: int, strip_bits: int,
+                piece_bits: int, max_rounds: int) -> Resolved:
+    """Plain K9: the rounds of every frame (walk; stop the frame when the
+    walk counts no RECOVER row, or at ``max_rounds`` such walks; else
+    re-decode them), in one loop over the batch; a frame that has stopped
+    keeps its override rows, so its later walks repeat its last.  Then
+    each frame's mispredicts (rows its first walk settled at an entry the
+    last walk does not keep; counted only when the frame resolved after a
+    re-decode) and the piece layout."""
+    dev = words.device
     bpm = plan.blocks_per_mcu
-    return resolve_loop(
-        lambda ovr: walk_ref(links, ovr, rows, bpm, cb_bits),
-        lambda fb, fs, st, ovr: recover_ref(plan, words, nbits, rows, member,
-                                            fb, fs, st, ovr, cb_bits,
-                                            strip_bits),
-        rows.R, words.device, max_rounds)
+    R, F = rows.R, rows.F
+    P = n_pieces(cb_bits, piece_bits)
+    lk = links.cpu().numpy()
+    frame = rows.frame.cpu().numpy()
+    ovr = np.zeros((R, OCOL), np.int64)
+    ovr_marks = np.zeros((R, P - 1, MCOL), np.int64)
+    rounds = np.zeros(F, np.int64)
+    rec = np.zeros(F, np.int64)
+    unresolved = np.zeros(F, np.int64)
+    done = np.zeros(F, bool)
+    first = None
+    while True:
+        w = walk_frames(lk, ovr, rows, bpm, cb_bits)
+        if first is None:
+            first = w
+        more = ~done & (w["nrec"] > 0)
+        rounds += more
+        rec += np.where(more, w["nrec"], 0)
+        hit = more & (rounds >= max_rounds)
+        unresolved[hit] = 1
+        done |= ~more | hit
+        if done.all():
+            break
+        recover_ref(plan, words, nbits, rows, member, links, marks, w,
+                    (w["state"] == RECOVER) & ~done[frame], ovr, ovr_marks,
+                    cb_bits, strip_bits, piece_bits)
+    moved = (first["state"] == SETTLED) & (
+        (first["f_bit"] != w["f_bit"]) | (first["f_slot"] != w["f_slot"]))
+    mis = np.bincount(frame, weights=moved, minlength=F).astype(np.int64)
+    mis[(rounds == 0) | (unresolved == 1)] = 0
+    row = torch.from_numpy(np.stack([
+        w[n] for n in ("f_bit", "f_slot", "nblk", "state", "src", "k", "g0")
+    ]).astype(np.int32)).to(dev)
+    stats = torch.from_numpy(np.stack(
+        [rounds, rec, mis, unresolved, w["bad"]], 1).astype(np.int32)).to(dev)
+    pieces = layout_ref(row, marks, torch.from_numpy(ovr_marks).to(dev), bpm,
+                        P)
+    return Resolved(row, stats, pieces)
 
 
-def frame_prefix(x: torch.Tensor, rows: Rows) -> torch.Tensor:
-    """Per-frame exclusive prefix sum over rows of ``x`` [R] or [R, C]
-    (int32, wrapping like the kernels' int32 sums).  The sum runs along
-    the last axis of a [C, R] copy: a scan along the outer axis of [R, C]
-    takes the card ~0.5 ms for 3,088 rows."""
-    xt = x.to(torch.int64).t().contiguous() if x.dim() == 2 \
-        else x.to(torch.int64)
-    excl = xt.cumsum(-1) - xt
-    out = excl - excl[..., rows.first]
-    out = out.t() if x.dim() == 2 else out
-    return ((out + (1 << 31)) % (1 << 32) - (1 << 31)).to(torch.int32) \
-        .contiguous()
+def frame_prefix(x: torch.Tensor, first: torch.Tensor) -> torch.Tensor:
+    """Per-frame exclusive prefix sum of ``x`` [N] or [N, C] (int32,
+    wrapping like the kernels' int32 sums); ``first`` [N] is the index of
+    the first element of each element's frame."""
+    excl = x.to(torch.int64).cumsum(0) - x.to(torch.int64)
+    out = excl - excl[first]
+    return ((out + (1 << 31)) % (1 << 32) - (1 << 31)).to(torch.int32)
 
 
 def _placement(plan: ScanPlan, k, gblk, slot, frame, total_blocks):
@@ -484,81 +626,98 @@ def _placement(plan: ScanPlan, k, gblk, slot, frame, total_blocks):
     return (frame * total_blocks + rel) * 64, valid
 
 
+def _piece_frames(rows: Rows, pieces: torch.Tensor) -> Tuple[int, torch.Tensor]:
+    """-> (pieces a row, each piece's row)."""
+    P = pieces.shape[0] // rows.R
+    return P, torch.arange(pieces.shape[0], device=pieces.device) // P
+
+
 def final_walk_ref(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
-                   rows: Rows, f_bit: torch.Tensor, f_slot: torch.Tensor,
-                   nblk: torch.Tensor, g0: torch.Tensor, total_blocks: int):
-    """K10's walk: -> (coeffs [F * total_blocks, 64] int32 with row-local
-    DC, dc_sum [R, C_MAX] int32 (each row's last local DC per component),
-    ok [R] int32: 0 where a row with blocks died before its last block or
-    its entry slot is not its first block's slot, ``g0 % bpm``)."""
+                   rows: Rows, pieces: torch.Tensor, total_blocks: int):
+    """K10's walk, a lane per piece, each block written whole when it
+    completes (a block a lane dies in is not written): -> (coeffs [F *
+    total_blocks, 64] int32 with piece-local DC, dc_sum [R * P, C_MAX]
+    int32 (each piece's last local DC per component), ok [R * P] int32: 0
+    where a piece with blocks died before its last block or its entry
+    slot is not its first block's slot, ``g % bpm``)."""
     dev = words.device
     bpm = plan.blocks_per_mcu
     k = _consts(plan, dev)
     w64 = _words64(words)
-    frame, R, F = rows.frame, rows.R, rows.F
-    out = torch.zeros(F * total_blocks * 64, dtype=torch.int32, device=dev)
-    n = nblk.to(torch.int64)
-    g = g0.to(torch.int64)
-    slot = f_slot.to(torch.int64).clone()
+    _, prow = _piece_frames(rows, pieces)
+    frame = rows.frame[prow]
+    N = pieces.shape[0]
+    out = torch.zeros(rows.F * total_blocks, 64, dtype=torch.int32,
+                      device=dev)
+    buf = torch.zeros(pieces.shape[0], 64, dtype=torch.int32, device=dev)
+    e = pieces.to(torch.int64)
+    n, g = e[:, P_N], e[:, P_G]
+    slot = e[:, P_SLOT].clone()
     ok = ~((n > 0) & (g % bpm != slot))
     active = (n > 0) & ok
     nb = nbits.to(torch.int64)[frame]
-    bitpos = f_bit.to(torch.int64).clone()
-    coeff = torch.zeros(R, dtype=torch.int64, device=dev)
+    bitpos = e[:, P_BIT].clone()
+    coeff = torch.zeros(N, dtype=torch.int64, device=dev)
     blk = torch.zeros_like(coeff)
-    pred = torch.zeros(R, C_MAX, dtype=torch.int32, device=dev)
-    cur = torch.zeros(R, dtype=torch.int32, device=dev)
-    lanes = torch.arange(R, device=dev)
+    pred = torch.zeros(N, C_MAX, dtype=torch.int32, device=dev)
+    cur = torch.zeros(N, dtype=torch.int32, device=dev)
+    lanes = torch.arange(N, device=dev)
     while bool(active.any()):
         s = _symbol(plan, k, w64, frame, bitpos, slot, coeff, nb)
         dead = active & s["dies"]
         ok = ok & ~dead
         live = active & ~dead
         dst, valid = _placement(plan, k, g + blk, slot, frame, total_blocks)
-        ac = live & valid & ~s["is_dc"] & ~s["is_eob"]
+        ac = live & ~s["is_dc"] & ~s["is_eob"]
         pos = k["zigzag"][s["new_coeff"].clamp(0, 63)]
-        out[(dst + pos)[ac]] = s["coef_val"][ac]
+        buf[lanes[ac], pos[ac]] = s["coef_val"][ac]
         cur = torch.where(live & s["is_dc"], s["coef_val"], cur)
         done = live & s["done"]
         comp = k["slot_comp"][slot]
         dc = pred[lanes, comp] + cur
-        out[dst[done & valid]] = dc[done & valid]
+        put = done & valid
+        buf[put, 0] = dc[put]
+        out[dst[put] // 64] = buf[put]
+        buf[done] = 0
         pred[lanes[done], comp[done]] = dc[done]
         bitpos, slot, coeff, blk = _advance(plan, s, live, bitpos, slot,
                                             coeff, blk)
         active = live & (blk < n)
-    return out.reshape(-1, 64), pred, ok.to(torch.int32)
+    return out, pred, ok.to(torch.int32)
 
 
 def dc_fix_ref(plan: ScanPlan, coeffs: torch.Tensor, rows: Rows,
-               nblk: torch.Tensor, g0: torch.Tensor, base: torch.Tensor,
+               pieces: torch.Tensor, base: torch.Tensor,
                total_blocks: int) -> torch.Tensor:
-    """K10's DC pass: add each row's DC base (``base`` [R, C_MAX], the
-    per-frame exclusive prefix of ``dc_sum``) to coefficient 0 of each of
-    its placed blocks.  -> the updated coefficients."""
+    """K10's DC pass: add each piece's DC base (``base`` [R * P, C_MAX],
+    the per-frame exclusive prefix of the pieces' ``dc_sum``) to
+    coefficient 0 of each of its placed blocks.  -> the updated
+    coefficients."""
     dev = coeffs.device
     k = _consts(plan, dev)
-    n = nblk.to(torch.int64)
-    row = torch.repeat_interleave(torch.arange(n.numel(), device=dev), n)
+    _, prow = _piece_frames(rows, pieces)
+    n = pieces[:, P_N].to(torch.int64)
+    pc = torch.repeat_interleave(torch.arange(n.numel(), device=dev), n)
     start = torch.repeat_interleave(n.cumsum(0) - n, n)
-    gblk = g0.to(torch.int64)[row] + torch.arange(row.numel(),
-                                                  device=dev) - start
+    gblk = pieces[:, P_G].to(torch.int64)[pc] + torch.arange(
+        pc.numel(), device=dev) - start
     slot = gblk % plan.blocks_per_mcu
-    dst, valid = _placement(plan, k, gblk, slot, rows.frame[row],
+    dst, valid = _placement(plan, k, gblk, slot, rows.frame[prow[pc]],
                             total_blocks)
     flat = coeffs.reshape(-1).clone()
-    add = base[row, k["slot_comp"][slot]]
+    add = base[pc, k["slot_comp"][slot]]
     flat[dst[valid]] += add[valid]
     return flat.reshape(-1, 64)
 
 
 def final_ref(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
-              rows: Rows, f_bit: torch.Tensor, f_slot: torch.Tensor,
-              nblk: torch.Tensor, total_blocks: int):
-    """Plain K10: walk, the DC prefix, the DC pass.  -> (coeffs [F *
-    total_blocks, 64] int32, ok [R] int32)."""
-    g0 = frame_prefix(nblk, rows)
-    coeffs, dc_sum, ok = final_walk_ref(plan, words, nbits, rows, f_bit,
-                                        f_slot, nblk, g0, total_blocks)
-    base = frame_prefix(dc_sum, rows)
-    return dc_fix_ref(plan, coeffs, rows, nblk, g0, base, total_blocks), ok
+              rows: Rows, pieces: torch.Tensor, total_blocks: int):
+    """Plain K10: the piece walk, the DC prefix over each frame's pieces,
+    the DC pass.  -> (coeffs [F * total_blocks, 64] int32, ok [R] int32:
+    1 where every piece of the row is ok)."""
+    P, prow = _piece_frames(rows, pieces)
+    coeffs, dc_sum, ok = final_walk_ref(plan, words, nbits, rows, pieces,
+                                        total_blocks)
+    base = frame_prefix(dc_sum, rows.first[prow] * P)
+    return (dc_fix_ref(plan, coeffs, rows, pieces, base, total_blocks),
+            ok.reshape(rows.R, P).amin(1))

@@ -80,11 +80,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         "jt_coeffs_to_pixels": [p] * 5 + [i] * 16 + [p],
         "jt_decode_dense_tile_blocks": [],
         "jt_decode_dense_comp_ints": [],
-        "jt_rstless_sync": [p] * 7 + [i] * 7 + [p],
-        "jt_rstless_walk": [p] * 9 + [i] * 4 + [p],
-        "jt_rstless_recover": [p] * 10 + [i] * 7 + [p],
-        "jt_rstless_final": [p] * 12 + [i] * 8 + [p],
-        "jt_rstless_dc_fix": [p] * 7 + [i] * 5 + [p],
+        "jt_rstless_sync": [p] * 8 + [i] * 9 + [p],
+        "jt_rstless_resolve": [p] * 12 + [i] * 12 + [p],
+        "jt_rstless_final": [p] * 9 + [i] * 12 + [p],
         "jt_decode_rstless_table_ints": [],
         "jt_decode_rstless_ncol": [],
     }

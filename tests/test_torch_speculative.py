@@ -89,11 +89,13 @@ def segment_of(data):
 
 
 def engine(frames, chunk_bytes=speculative.CHUNK_BYTES,
-           strip_bytes=speculative.STRIP_BYTES, segments=None):
+           strip_bytes=speculative.STRIP_BYTES, segments=None,
+           piece_bytes=None):
     plan, tb = plan_of(frames[0])
     segs = segments or [segment_of(f) for f in frames]
     return speculative.speculative_core_batch(plan, tb, segs, CPU,
-                                              chunk_bytes, strip_bytes)
+                                              chunk_bytes, strip_bytes,
+                                              piece_bytes)
 
 
 def counter(name):
@@ -129,34 +131,42 @@ def test_batch_of_different_frames(chunk):
 
 
 def test_stages_hold_their_contracts():
-    """K8's links on an intact frame, K9's rows and K10's row checks."""
+    """K8's links and marks on an intact frame, K9's rows, stats and
+    pieces, and K10's row checks."""
     data = rstless("420")
     plan, tb = plan_of(data)
     words, nbits, rows = speculative.prepare_batch([segment_of(data)], CPU,
                                                    64)
-    links, member = speculative_cuda.sync(plan, words, nbits, rows, 512, 128)
+    links, member, marks = speculative_cuda.sync(plan, words, nbits, rows,
+                                                 512, 128, 128)
     bpm = plan.blocks_per_mcu
     assert links.shape == (rows.R * bpm, st.NCOL)
     assert member.shape == (rows.R * 128 * bpm,)
+    assert marks.shape == (rows.R * bpm, 3, st.MCOL)  # 4 pieces a row
     # the frame's last row ends at the segment's end, every other row links
     # or misses; variant 0 of row 0 starts at the true origin
     assert int(links[(rows.R - 1) * bpm, st.L_ST]) == st.ST_END
     assert set(links[:(rows.R - 1) * bpm, st.L_ST].tolist()) <= {
         st.ST_LINK, st.ST_MISS, st.ST_END}
-    res, stats = speculative_cuda.resolve(plan, words, nbits, rows, links,
-                                          member, 512, 128, rows.R + 1)
-    f_bit, f_slot, nblk, state, bad = res
-    assert int(f_bit[0]) == 0 and int(f_slot[0]) == 0
-    assert (state == st.SETTLED).all() and int(bad.sum()) == 0
-    assert int(nblk.sum()) >= plan.n_mcus * bpm
-    coeffs, ok = speculative_cuda.final(plan, words, nbits, rows, f_bit,
-                                        f_slot, nblk, tb)
+    res = speculative_cuda.resolve(plan, words, nbits, rows, links, member,
+                                   marks, 512, 128, 128, rows.R + 1)
+    row = res.row
+    assert int(row[st.R_BIT, 0]) == 0 and int(row[st.R_SLOT, 0]) == 0
+    assert (row[st.R_STATE] == st.SETTLED).all()
+    assert res.frame.shape == (1, st.SCOL)
+    assert int(res.frame[0, st.S_BAD]) == 0
+    assert int(res.frame[0, st.S_UNRESOLVED]) == 0
+    assert int(row[st.R_NBLK].sum()) >= plan.n_mcus * bpm
+    assert res.pieces.shape == (rows.R * 4, st.PCOL)
+    assert int(res.pieces[:, st.P_N].sum()) == int(row[st.R_NBLK].sum())
+    coeffs, ok = speculative_cuda.final(plan, words, nbits, rows, res.pieces,
+                                        tb)
     assert bool((ok == 1).all())
     np.testing.assert_array_equal(coeffs.numpy(), oracle(data)[0])
     # the wrappers launch or raise on a device that is neither
     with pytest.raises(ValueError, match="device"):
         speculative_cuda.sync(plan, words.to("meta"), nbits.to("meta"),
-                              rows, 512, 128)
+                              rows, 512, 128, 128)
 
 
 def test_stream_pixels_and_routing():
@@ -250,7 +260,8 @@ def test_many_rows_missing_in_the_first_round():
     segs = [segment_of(f) for f in frames]
     chunk = -(-max(s.size for s in segs) // 2)  # two rows a frame
     words, nbits, rows = speculative.prepare_batch(segs, CPU, chunk)
-    links, _ = speculative_cuda.sync(plan, words, nbits, rows, chunk * 8, 8)
+    links, _, _ = speculative_cuda.sync(plan, words, nbits, rows, chunk * 8,
+                                        8, chunk * 8)
     ovr = torch.zeros(rows.R, st.OCOL, dtype=torch.int32)
     first = st.walk_ref(links, ovr, rows, plan.blocks_per_mcu, chunk * 8)
     assert int(first[-1]) > 256  # RECOVER rows of the first walk
@@ -278,14 +289,193 @@ def test_mispredicts_are_counted():
 
 @pytest.mark.parametrize("chunk,strip", [(512, 1024), (0, 0), (64, 0),
                                          (2 << 20, 128), (8192, 8192),
-                                         (64.0, 16), (True, 1)])
+                                         (64.0, 16), (True, 1),
+                                         (64, (16, 0)), (64, (16, 65)),
+                                         (64, (16, 16.0)), (64, (16, True)),
+                                         (1 << 20, (128, 8))])
 def test_capacity_out_of_range_raises(chunk, strip):
     """ADVICE: the JAX engine reads TCAP/HCAP from the environment without
     validation.  The port has no such knob: its sizes are constants, and
-    a size out of range raises."""
+    a size out of range raises -- a strip given as (strip, piece) holds a
+    piece size: 0, longer than the row, not an int, or more than
+    MAX_PIECES pieces a row."""
+    strip, piece = strip if isinstance(strip, tuple) else (strip, None)
     with pytest.raises(ValueError):
-        speculative.check_capacity(chunk, strip)
+        speculative.check_capacity(chunk, strip, piece)
     with pytest.raises(ValueError):
-        engine([rstless("gray")], chunk, strip)
-    speculative.check_capacity(speculative.CHUNK_BYTES,
-                               speculative.STRIP_BYTES)
+        engine([rstless("gray")], chunk, strip, piece_bytes=piece)
+    assert speculative.check_capacity(
+        speculative.CHUNK_BYTES, speculative.STRIP_BYTES,
+        speculative.PIECE_BYTES) == speculative.PIECE_BYTES < \
+        speculative.CHUNK_BYTES
+
+
+# (chunk bytes, strip bytes, piece bytes): 4-byte pieces of 16-byte rows
+# and 24-byte pieces of 64-byte rows (a short last piece) cut blocks, on
+# every image; one piece per row (as the chunk tests run) on one image
+PIECES = [(16, 4, 4), (64, 16, 24), (64, 16, 64)]
+PIECE_CASES = [pytest.param(name, c, id=f"{name}-piece{c[2]}of{c[0]}")
+               for c in PIECES for name in IMAGES
+               if c[2] < c[0] or name == "420"]
+
+
+@pytest.mark.parametrize("name,chunk", PIECE_CASES)
+def test_engine_piece_sizes(name, chunk):
+    """K10 decodes pieces of a row; any piece size gives the oracle's
+    coefficients."""
+    data = rstless(name, seed=4)
+    coeffs, n_use = engine([data], *chunk[:2], piece_bytes=chunk[2])
+    want, _ = oracle(data)
+    np.testing.assert_array_equal(coeffs.numpy(), want)
+    assert n_use == [want.shape[0]]
+
+
+@pytest.mark.parametrize("image,kw", [
+    (lambda: make_ppm(90, 60, seed=1), dict(h=2, v=2)),
+    (lambda: make_ppm(70, 44, seed=2), dict(h=2, v=1)),
+    (lambda: make_ppm(37, 21, seed=3), dict(h=1, v=1)),
+    (lambda: make_ppm(40, 40, seed=4), dict(h=1, v=2)),
+    (lambda: make_pgm(70, 50, seed=5), {}),
+], ids=["420", "422", "444", "h1v2", "gray"])
+def test_accepted_frame_places_every_block(image, kw):
+    """K10 does not clear its output on the card: it must write every
+    block of a frame the engine accepts.  Such a frame decodes its first
+    n_mcus * bpm block ordinals, and those place onto the frame's blocks
+    one to one, also where the size is not a whole number of MCUs."""
+    data = encode_jpeg(image(), EncodeParams(restart_interval=0,
+                                             optimize=False, **kw))
+    plan, tb = plan_of(data)
+    g = torch.arange(plan.n_mcus * plan.blocks_per_mcu)
+    dst, valid = st._placement(plan, st._consts(plan, CPU), g,
+                               g % plan.blocks_per_mcu, 0, tb)
+    assert bool(valid.all())
+    assert sorted((dst // 64).tolist()) == list(range(tb))
+
+
+@pytest.mark.parametrize("name", ["420", "444"])
+def test_pieces_tile_rows_at_true_block_starts(name):
+    """Every settled row's pieces tile its blocks [g0, g0 + nblk) with no
+    gap or overlap, and a piece that does not start at the row's entry
+    enters at the block start that a decode of the whole frame as one row
+    marks at the same boundary (variant 0 of row 0 is the true decode, so
+    its marks are all true)."""
+    data = rstless(name, seed=6)
+    plan, _ = plan_of(data)
+    seg = segment_of(data)
+    chunk, strip, piece = 16, 4, 4
+    P = chunk // piece
+    words, nbits, rows = speculative.prepare_batch([seg], CPU, chunk)
+    links, member, marks = speculative_cuda.sync(
+        plan, words, nbits, rows, chunk * 8, strip * 8, piece * 8)
+    res = speculative_cuda.resolve(plan, words, nbits, rows, links, member,
+                                   marks, chunk * 8, strip * 8, piece * 8,
+                                   rows.R + 1)
+    row = res.row.numpy()
+    pieces = res.pieces.numpy().reshape(rows.R, P, st.PCOL)
+    assert (row[st.R_STATE] == st.SETTLED).all()
+    one = -(-seg.size // piece) * piece  # one row, the same boundaries
+    w1, n1, r1 = speculative.prepare_batch([seg], CPU, one)
+    true = speculative_cuda.sync(plan, w1, n1, r1, one * 8, strip * 8,
+                                 piece * 8)[2].numpy()[0]
+    cut = 0
+    for q in range(rows.R):
+        ps, g0 = pieces[q], row[st.R_G0, q]
+        assert (ps[:, st.P_N] >= 0).all()
+        assert ps[:, st.P_N].sum() == row[st.R_NBLK, q]
+        starts = g0 + np.concatenate([[0], np.cumsum(ps[:-1, st.P_N])])
+        used = ps[:, st.P_N] > 0
+        np.testing.assert_array_equal(ps[used, st.P_G], starts[used])
+        for j in np.flatnonzero(used):
+            got = tuple(ps[j, [st.P_BIT, st.P_SLOT, st.P_G]])
+            if ps[j, st.P_G] == g0:
+                assert got[:2] == (row[st.R_BIT, q], row[st.R_SLOT, q])
+            else:
+                cut += 1
+                assert got == tuple(true[q * P + j - 1])
+    assert cut > rows.R  # most rows hold more than one piece
+    assert row[st.R_NBLK].sum() >= plan.n_mcus * plan.blocks_per_mcu
+
+
+def global_rounds(plan, words, nbits, rows, links, member, marks, cb, sb, pb,
+                  max_rounds):
+    """The round loop as one batch-wide loop (one read of the RECOVER rows
+    a walk): -> (last walk, (rounds, recovery rows, mispredicts)), or
+    (None, ...) at ``max_rounds``."""
+    bpm = plan.blocks_per_mcu
+    lk = links.numpy()
+    marks8 = marks.numpy()
+    ovr = np.zeros((rows.R, st.OCOL), np.int64)
+    ovr_marks = np.zeros((rows.R, -(-cb // pb) - 1, st.MCOL), np.int64)
+    first, rounds, rec = None, 0, 0
+    while True:
+        w = st.walk_frames(lk, ovr, rows, bpm, cb)
+        first = first if first is not None else w
+        n = int(w["nrec"].sum())
+        if n == 0:
+            break
+        rounds, rec = rounds + 1, rec + n
+        if rounds >= max_rounds:
+            return None, (rounds, rec, 0)
+        st.recover_ref(plan, words, nbits, rows, member, links,
+                       torch.from_numpy(marks8), w,
+                       w["state"] == st.RECOVER, ovr, ovr_marks, cb, sb, pb)
+    mis = int(((first["state"] == st.SETTLED) & (
+        (first["f_bit"] != w["f_bit"]) | (first["f_slot"] != w["f_slot"])))
+        .sum()) if rounds else 0
+    return w, (rounds, rec, mis)
+
+
+@pytest.mark.parametrize("case", [
+    ("422", (2,), 32, 4), ("420", (3, 4, 5), 16, 4), ("gray", (0, 1, 2), 0, 1)
+], ids=["mispredicts", "three_frames", "two_rows"])
+def test_resolve_stats_equal_the_batch_round_loop(case):
+    """Per-frame rounds on the card (one CTA per frame) give the batch the
+    same stats as one batch-wide loop: rounds the most of any frame,
+    recovery rows and mispredicts summed; and the same rows."""
+    name, seeds, chunk, strip = case
+    frames = [rstless(name, seed=s) for s in seeds]
+    plan, _ = plan_of(frames[0])
+    segs = [segment_of(f) for f in frames]
+    chunk = chunk or -(-max(s.size for s in segs) // 2)
+    words, nbits, rows = speculative.prepare_batch(segs, CPU, chunk)
+    cb, sb, pb = chunk * 8, strip * 8, 4 * 8
+    links, member, marks = speculative_cuda.sync(plan, words, nbits, rows,
+                                                 cb, sb, pb)
+    res = speculative_cuda.resolve(plan, words, nbits, rows, links, member,
+                                   marks, cb, sb, pb, rows.R + 1)
+    w, (rounds, rec, mis) = global_rounds(plan, words, nbits, rows, links,
+                                          member, marks, cb, sb, pb,
+                                          rows.R + 1)
+    fs = res.frame.numpy()
+    assert rec > 0
+    assert (int(fs[:, st.S_ROUNDS].max()), int(fs[:, st.S_RECOVERY].sum()),
+            int(fs[:, st.S_MISPREDICTS].sum())) == (rounds, rec, mis)
+    assert not fs[:, st.S_UNRESOLVED].any()
+    for i, key in enumerate(("f_bit", "f_slot", "nblk", "state")):
+        np.testing.assert_array_equal(res.row[i].numpy(), w[key])
+
+
+def test_unresolved_batch_is_refused(monkeypatch):
+    """A batch whose frames reach max_rounds is refused as ``unresolved``,
+    counted with its rounds, from the one read of the frame checks: K10
+    runs on it (its unsettled rows hold no blocks)."""
+    data = rstless("422", seed=2)
+    resolve = speculative_cuda.resolve
+    finals = []
+    monkeypatch.setattr(speculative_cuda, "resolve",
+                        lambda *a: resolve(*a[:-1], 1))
+    monkeypatch.setattr(speculative_cuda, "final", lambda *a: finals.append(
+        st.final_ref(*a)) or finals[-1])
+    before = {k: counter(k) for k in (
+        "speculative.fallbacks", "speculative.fallback[unresolved]",
+        "speculative.resolve_rounds", "speculative.recovery_rows")}
+    assert engine([data], 32, 4) is None
+    assert counter("speculative.fallbacks") == \
+        before["speculative.fallbacks"] + 1
+    assert counter("speculative.fallback[unresolved]") == \
+        before["speculative.fallback[unresolved]"] + 1
+    assert counter("speculative.resolve_rounds") == \
+        before["speculative.resolve_rounds"] + 1
+    assert counter("speculative.recovery_rows") > \
+        before["speculative.recovery_rows"]
+    assert len(finals) == 1 and finals[0][0].shape[1] == 64
