@@ -27,7 +27,10 @@ process exits non-zero without printing the result line:
    ``TAIL_DIFF_SHARE`` of the samples differing, on the 8-frame bench
    chunk, on every small corpus stream, each also with seeded noise
    (+-40) on its coefficients (both clip ends hit), and on YCCK and luma
-   h=1 v=2 frames of seeded coefficients and per-frame tables; a warm
+   h=1 v=2 frames of seeded coefficients and per-frame tables; the bench
+   chunk's blocks at an address 4 bytes past a 16-byte boundary (the
+   kernel's 4-byte copies in place of its bulk copies) to the same pixels
+   as aligned; a warm
    call under ``torch.cuda.set_sync_debug_mode("error")``; a stream whose
    quality changes from frame to frame (``MIXED_QUALITY``, encoded by the
    port) through ``DeviceDecoder.decode_batch`` with no fallback, each
@@ -101,7 +104,8 @@ process exits non-zero without printing the result line:
     ``mjpeg.decode_stream_device`` on the speculative engine (the
     kernels ``rstless_sync`` K8, ``rstless_resolve`` K9 and
     ``rstless_final`` K10, then the dense tail), each launched once per
-    8-frame batch, with no fallback and no host frame; the decoded blocks
+    8-frame batch (K8's head and tail walks counted apart, once each a
+    batch), with no fallback and no host frame; the decoded blocks
     equal the encoder's and the pixels ``coeffs_to_pixels`` of them; at
     most ``RSTLESS_MAX_SYNCS`` host syncs in one batch, each logged with
     its site; each kernel bit for bit against its plain version (K8's
@@ -116,9 +120,10 @@ process exits non-zero without printing the result line:
     and plain times of the three kernels (K8's bound counts the segment,
     tables, links and marks, not its membership map: that is the design's
     scratch), ``rstless_e2e_stream_Mpix_s``,
-    ``rstless_device_resident_Mpix_s``, the card's busy share, and the
+    ``rstless_device_resident_Mpix_s``, the card's busy share, the
     device time of K8's head and tail walks, K9, and K10's piece walk and
-    DC pass apart.
+    DC pass apart, and K8's survivors (the distinct decodes that walk past
+    the strip) in the 8-frame batch.
 
 Every kernel's time is printed beside its bound (``bound``: the bytes it
 must move at 3.35 TB/s or its operations at the peak rate of their type
@@ -147,10 +152,10 @@ three times), each with
 the peak of device memory allocated during one call and a per-kernel
 device profile of one call.  Every checkout's outputs must be equal (the
 encode stream hashed up to its word count, whichever return form the
-checkout has), except the dense tail's and the device-resident
-decode's, which may differ by +-1 between checkouts (``WITHIN_ONE``) and
-must be equal between runs of one checkout.  It prints one JSON line
-per checkout and no result line.
+checkout has), the dense tail's and the device-resident decode's
+included: a checkout's dense tail kernel must give the pixels of every
+other's byte for byte.  It prints one JSON line per checkout and no
+result line.
 """
 
 from __future__ import annotations
@@ -731,6 +736,19 @@ def dense_tail_phase(card: str, dev: torch.device, streams: dict,
     coeffs, _ = dec.decode_prepared(words, nbits, CHUNK)
     err = check_tail(f"bench chunk x{CHUNK}", coeffs, qt_b, dec.geom,
                      TAIL_DIFF_SHARE["chunk"], False)
+    # The same blocks 4 bytes past a 16-byte boundary: the kernel copies
+    # them with 4-byte cp.async in place of bulk copies, to the same pixels.
+    buf = torch.empty(coeffs.numel() + 1, dtype=torch.int32, device=dev)
+    off = buf[1:].view(coeffs.shape)
+    off.copy_(coeffs)
+    if off.data_ptr() % 16 == 0 or not torch.equal(
+            coeffs_to_pixels(off, qt_b, dec.geom),
+            coeffs_to_pixels(coeffs, qt_b, dec.geom)):
+        raise AssertionError("coeffs_to_pixels: an unaligned view of the "
+                             "bench chunk's blocks decodes differently")
+    log(f"coeffs_to_pixels: the bench chunk's blocks at an address "
+        f"{off.data_ptr() % 16} mod 16 give the same pixels")
+    del buf, off
     rng = np.random.default_rng(21)
     for name, fr in streams.items():
         if name == "bench":
@@ -1505,12 +1523,14 @@ def rstless_phase(card: str, dev: torch.device) -> list:
     # ---- the main path ------------------------------------------------
     c0 = dict(default_metrics.counters)
     sc.sync.launches = sc.resolve.launches = sc.final.launches = 0
+    sc.sync.stage_launches = {"head": 0, "tail": 0}
     coeffs_to_pixels.launches = 0
     out = jpeg_tpu_torch.mjpeg.decode_stream_device(stream, dev, chunk=CHUNK)
     torch.cuda.synchronize()
     launches = {"rstless_sync": sc.sync.launches,
                 "rstless_resolve": sc.resolve.launches,
                 "rstless_final": sc.final.launches}
+    stage_launches = dict(sc.sync.stage_launches)
     tail_launches = coeffs_to_pixels.launches
     delta = {k: default_metrics.counters.get(k, 0) - c0.get(k, 0)
              for k in ("speculative.fallbacks", "mjpeg.rstless_host_frames",
@@ -1520,10 +1540,12 @@ def rstless_phase(card: str, dev: torch.device) -> list:
     batches = STREAM_FRAMES // CHUNK
     want_launches = {"rstless_sync": batches, "rstless_final": batches,
                      "rstless_resolve": batches}
-    if launches != want_launches or tail_launches != batches:
+    if launches != want_launches or tail_launches != batches or \
+            stage_launches != {"head": batches, "tail": batches}:
         raise AssertionError(f"rstless main path launches {launches}, "
+                             f"K8's head and tail {stage_launches}, "
                              f"coeffs_to_pixels {tail_launches} (want "
-                             f"{want_launches}, {batches})")
+                             f"{want_launches}, {batches} each)")
     if delta["speculative.fallbacks"] or delta["mjpeg.rstless_host_frames"]:
         raise AssertionError(f"rstless main path fell back: {delta}")
     want = (STREAM_FRAMES, synth.HEIGHT, synth.WIDTH, 3)
@@ -1531,7 +1553,8 @@ def rstless_phase(card: str, dev: torch.device) -> list:
             out.device.type != dev.type:
         raise AssertionError(f"rstless output {tuple(out.shape)} {out.dtype}")
     log(f"rstless: decode_stream_device -> {want} uint8 on {dev}; launches "
-        f"{launches}, coeffs_to_pixels {tail_launches}; per "
+        f"{launches} (K8's head and tail walks {stage_launches}), "
+        f"coeffs_to_pixels {tail_launches}; per "
         f"{CHUNK}-frame batch: resolve rounds "
         f"{delta['speculative.resolve_rounds'] / batches}, recovery rows "
         f"{delta['speculative.recovery_rows'] / batches}, mispredicts "
@@ -1628,7 +1651,12 @@ def rstless_phase(card: str, dev: torch.device) -> list:
     # ---- times ----------------------------------------------------------
     words, nbits, rows = core.prepare_batch(segs[:CHUNK], dev)
     cbb, sbb, pbb = cb * 8, sb * 8, pb * 8
-    links, member, marks = sc.sync(plan, words, nbits, rows, cbb, sbb, pbb)
+    links, member, marks, listed = sc._sync(plan, words, nbits, rows, cbb,
+                                            sbb, pbb)
+    survivors = int(listed[0])
+    log(f"rstless: K8 survivors {survivors} of {rows.R * plan.blocks_per_mcu}"
+        f" (row, variant) lanes walk past the strip in the {CHUNK}-frame "
+        f"batch")
     rounds = 1 + int(np.diff(rows.row0).max())
     res = sc.resolve(plan, words, nbits, rows, links, member, marks, cbb, sbb,
                      pbb, rounds)
@@ -1651,8 +1679,10 @@ def rstless_phase(card: str, dev: torch.device) -> list:
     bounds = {
         # the segment, the row layout and the code tables read once, the
         # links and marks written; every coded bit looked at once per
-        # variant (the membership map is this design's scratch, not the
-        # function's)
+        # variant (the membership map and the survivor groups are this
+        # design's scratch, not the function's; the design decodes fewer
+        # bits than this counts: past the strip, only each row's distinct
+        # decodes walk)
         "rstless_sync": bound(
             ecs_bytes + nbytes(nbits, rows.r0, rows.frame32, links, marks)
             + 4 * place_cuda._staged_ints(plan),
@@ -1708,7 +1738,8 @@ def rstless_phase(card: str, dev: torch.device) -> list:
                           ("K10 piece walk", "final_kernel"),
                           ("K10 DC pass", "dc_kernel")):
         n, us = next(((n, us) for name, (n, us) in by_kernel.items()
-                      if f"::{kernel}(" in name), (0, 0.0))
+                      if f"::{kernel}(" in name or f"::{kernel}<" in name),
+                     (0, 0.0))
         log(f"profile: {stage} device {us / 1e3} ms x{n} in the "
             f"{STREAM_FRAMES}-frame window [{card}]")
     replaces = {"rstless_sync": "jpeg_tpu/entropy/speculative.py:545",
@@ -1874,17 +1905,9 @@ def time_tree(tree: str) -> dict:
     return out
 
 
-# --compare cases whose outputs differ by +-1 between a checkout with the
-# plain dense tail and one with its kernel (the IDCT's summation order;
-# chip_smoke's main run holds the kernel to +-1 of its plain version):
-# their digests are compared only between runs of one checkout.
-WITHIN_ONE = ("dense_tail ri=4", f"device_resident ri=4 x{STREAM_FRAMES}")
-
-
 def compare_trees(trees: list) -> None:
     """``--compare``: ``time_tree`` for each checkout in turn, each in a
-    process of its own; every checkout's outputs must be equal (those of
-    ``WITHIN_ONE`` between runs of one checkout)."""
+    process of its own; every checkout's outputs must be equal."""
     if not torch.cuda.is_available() or not trees:
         raise SystemExit("chip_smoke --compare: needs a CUDA card and "
                          "at least one checkout")
@@ -1901,8 +1924,7 @@ def compare_trees(trees: list) -> None:
                              f"({res.returncode})")
         rec = json.loads(res.stdout.strip().splitlines()[-1])
         for name, case in rec["cases"].items():
-            key = (tree, name) if name in WITHIN_ONE else name
-            if digests.setdefault(key, case["sha256"]) != case["sha256"]:
+            if digests.setdefault(name, case["sha256"]) != case["sha256"]:
                 raise AssertionError(f"{name}: the output of {tree} "
                                      f"differs from an earlier run's")
     log(f"compare: the outputs of {len(trees)} runs are equal")

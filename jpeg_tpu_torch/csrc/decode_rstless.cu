@@ -24,21 +24,35 @@
 // decode.
 //
 //   K8  jt_rstless_sync, two launches:
-//       head  every (row, variant) thread decodes the row's first
-//             strip_bits bits and raises member[row, bit, slot] to
-//             ((ordinal << 4) | variant) + 1 at each block start (atomicMax:
-//             deterministic);
-//       tail  every (row, variant) thread decodes from its start through
-//             the row into the successor row and stops at the first block
-//             start present in the successor's membership (ST_LINK: the
-//             state, its own ordinal there and the successor's variant and
-//             ordinal), or past the successor's strip (ST_MISS: its
-//             crossing, the first block start at or after the successor's
-//             first bit), or where it dies (ST_END; a frame's last row
-//             always decodes to the segment's end).  On the way it marks,
-//             for each piece boundary j = 1 .. P-1 of the row, the first
-//             block start at or after row_start + j * piece_bits (bit,
-//             slot, ordinal; ordinal MARK_NONE where it stopped before).
+//       head  a CTA holds the bpm variants of each of its rows.  Every
+//             (row, variant) thread decodes the row's first strip_bits
+//             bits, raises member[row, bit, slot] to ((ordinal << 4) |
+//             variant) + 1 at each block start (atomicMax:
+//             deterministic), marks the piece boundaries it passes, and
+//             stops at its strip mark: the first block start at or after
+//             row_start + strip_bits (bit, slot, ordinal), or where it dies
+//             (ST_END: its links row is final).  Behind one barrier the
+//             CTA groups each row's variants by strip mark: from an equal
+//             (bit, slot) two decodes are one, so only the lowest variant
+//             of a group (its survivor) decodes on.  The survivors go to
+//             a list on the card (one atomicAdd a CTA for its place);
+//       tail  one thread per survivor, packed densely into warps, resumes
+//             at its strip mark (no bit of the strip is decoded twice) and
+//             decodes through the row into the successor row, stopping at
+//             the first block start present in the successor's membership
+//             (ST_LINK: the state, its own ordinal there and the
+//             successor's variant and ordinal), or past the successor's
+//             strip (ST_MISS: its crossing, the first block start at or
+//             after the successor's first bit), or where it dies (ST_END;
+//             a frame's last row always decodes to the segment's end).  On
+//             the way it marks, for each piece boundary j after its strip
+//             mark, the first block start at or after row_start + j *
+//             piece_bits (bit, slot, ordinal; ordinal MARK_NONE where it
+//             stopped before).  It then writes its links row and those
+//             marks for every member of its group, each ordinal shifted by
+//             the member's ordinal less its own at the strip mark (the
+//             splice K9 makes too), so links and marks are those of an
+//             every-variant walk from each row's first bit.
 //   K9  jt_rstless_resolve, one launch, one CTA per frame (a frame's rows
 //       depend only on its own rows, so no grid barrier is needed).  The
 //       CTA stages the code tables and the frame's links and override rows
@@ -75,24 +89,32 @@
 //       from a slot that matches their first block's).
 //
 // What bounds it on the H100.  The work is a dependent chain per symbol
-// (window, table lookup, length, bit position) in every thread, and every
-// bit of the segment is decoded about 1 + strip/chunk times per variant in
-// K8 (bpm variants) and once more in K10.  The bytes are small (the
-// segment, the membership map, the coefficients), so the kernels sit far
-// above their memory bound and near a latency bound: the length of the
-// longest chain and the warps in flight to hide it.  The design keeps the
-// decode loop of decode_segments.cu (12-bit first-level lookup table, a
-// register lookahead over the words), gives K10 chains of one piece (1/P
-// of a row) so a batch puts ~P times as many threads on the SMs, and
-// lets K10 read the tables through L1 rather than stage them per CTA
-// (44 KB of tables for 64 threads that decode 2 KB cost more than the
-// lookups save).  K9 stays on the card: its walks are short sequential
-// scans of shared memory by one thread a frame, which bound it, and its
-// re-decodes are few and short, so a host read a round costs more than
-// the work.
+// (window, table lookups, length, bit position) in every thread: ~230 ns a
+// symbol for a lone thread (two dependent L1 lookups and ~40 dependent
+// ALU steps).  The bytes are small (the segment, the membership map, the
+// coefficients), so the kernels sit far above their memory bound and near
+// a latency bound: the length of the longest chain and how much a warp's
+// divergent lanes stretch each step.  The design keeps the decode loop of
+// decode_segments.cu (12-bit first-level lookup table, a register
+// lookahead over the words).  K8 decodes each row's strip once per
+// variant and the rest of the row once per distinct decode: a row's
+// variants mostly meet within the strip, so the tail walk runs a few
+// survivors a row from the strip's end, not every variant from the row's
+// first bit; and both walks put only a few walking threads in a warp (16,
+// 4), since a warp of 32 distinct decodes diverges at every branch of the
+// step, and read the tables through L1.  The tail walk then takes about
+// its longest survivor's chain.  K10 gets chains of one piece (1/P of a
+// row), so a batch puts ~P times as many threads on the SMs, and reads the
+// tables through L1 rather than stage them per CTA (44 KB of tables for
+// 64 threads that decode 2 KB cost more than the lookups save).  K9 stays
+// on the card: its walks are short sequential scans of shared memory by
+// one thread a frame, which bound it, and its re-decodes are few and
+// short, so a host read a round costs more than the work.
 //
 // Layout contract (entropy/speculative_torch.py has the same):
 //   links   [R * bpm, NCOL]     marks      [R * bpm, P - 1, MCOL]
+//   scratch (K8): group [R * bpm, GCOL], survivors [1 + R * bpm] (count,
+//   then lanes)
 //   row_out [RCOL, R]           frame_out  [F, SCOL]
 //   pieces  [R * P, PCOL]       scratch (K9): ovr [R, OCOL], override
 //   marks [R, P - 1, MCOL], first walk [3, R]; (K10): piece DC sums
@@ -130,6 +152,8 @@ constexpr int TABLE_INTS = OFF_LUT + T_MAX * LUT_SIZE / 2;
 constexpr int NCOL = 5;         // links: status, bit, slot, ordinal, payload
 constexpr int OCOL = 3 + NCOL;  // override: valid, entry bit, entry slot, links row
 constexpr int MCOL = 3;         // marks: bit, slot, ordinal
+constexpr int GCOL = 4;         // group: strip-mark bit, slot, ordinal,
+                                // survivor variant (-1: ended in the strip)
 constexpr int PCOL = 4;         // pieces: entry bit, entry slot, first block, count
 constexpr int RCOL = 7;         // row_out: entry bit, entry slot, blocks, state,
                                 // source variant (-1: override), ordinal there,
@@ -140,7 +164,11 @@ constexpr int MARK_NONE = INT_MAX;
 constexpr int ST_LINK = 0, ST_MISS = 1, ST_END = 2;
 constexpr int SETTLED = 0, RECOVER = 1, PENDING = 2;
 
-constexpr int THREADS = 64;           // K8 walks: threads per CTA
+constexpr int SYNC_LANES = 64;        // K8 head walk: lanes a CTA (whole rows)
+constexpr int HEAD_LANES = 16;        // K8 head walk: walking threads a warp
+constexpr int TAIL_LANES = 4;         // K8 tail walk: walking threads a warp
+constexpr int SYNC_BOUND = 512;       // K8 walks: their launch bounds
+constexpr int TAIL_WARPS = 2;         // K8 tail walk: warps a CTA
 constexpr int RESOLVE_THREADS = 256;  // K9: stagers and re-decoders per frame
 constexpr int PIECE_THREADS = 64;     // K10 walk: a thread per piece
 constexpr int FINAL_BOUND = 256;      // K10 walk: its launch bounds
@@ -274,48 +302,143 @@ __device__ __forceinline__ void advance(Decoder& d, const Sym& s, int bpm) {
   d.consume(s.need);
 }
 
-// K8 head walk: one thread per (row, variant).
-__global__ void __launch_bounds__(THREADS)
-head_kernel(const int32_t* __restrict__ tables,
+// Marks piece boundaries j, j + 1, ... up to the block start at d.bitpos
+// with its state (bit, slot, ordinal); mark_at is boundary j's bit.
+__device__ __forceinline__ void mark_to(const Params& p, const Decoder& d,
+                                        int& j, int& mark_at,
+                                        int32_t* marks) {
+  for (; j < p.n_pieces && d.bitpos >= mark_at;
+       ++j, mark_at += p.piece_bits) {
+    int32_t* m = marks + (j - 1) * MCOL;
+    m[0] = d.bitpos;
+    m[1] = d.slot;
+    m[2] = d.blk;
+  }
+  if (j == p.n_pieces) mark_at = INT_MAX;
+}
+
+__device__ __forceinline__ void write_link(int32_t* out, int st, int bit,
+                                           int slot, int m, int pay) {
+  out[0] = st;
+  out[1] = bit;
+  out[2] = slot;
+  out[3] = m;
+  out[4] = pay;
+}
+
+// K8 head walk: a CTA of rows_per_cta rows x bpm variants, a thread per
+// (row, variant), decodes each row's strip into the membership map and
+// its marks, to its strip mark; then groups each row's variants by strip
+// mark and lists the survivors (`survivors`: count, then lanes).  Only the
+// first HEAD_LANES threads of each warp walk (logical lane warp *
+// HEAD_LANES + lane): a warp's distinct decodes diverge at the branches of
+// the symbol step, so fewer of them a warp, in more warps, shorten each
+// step; 16 in the head and 4 in the tail gave the shortest walks on an
+// H100 over 32, 16, 8 and 4 (PERF.md).  The code tables are read through
+// L1 (staging them a CTA measured slower).
+__global__ void __launch_bounds__(SYNC_BOUND)
+head_kernel(const int32_t* __restrict__ tab,
             const uint32_t* __restrict__ words,
             const int32_t* __restrict__ nbits, Rows rows, Params p,
-            int32_t* __restrict__ member) {
-  extern __shared__ int32_t tab[];
-  stage_tables(tab, tables, p.tab_ints);
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= rows.R * p.bpm) return;
-  const int row = lane / p.bpm, v = lane - row * p.bpm;
-  const int f = rows.row_frame[row];
-  const int start = (row - rows.row0[f]) * p.cb_bits;
-  Decoder d;
-  d.start(words + static_cast<int64_t>(f) * p.wn, p.wn, nbits[f], start, v);
-  Sym s;
-  while (true) {
-    const int rel = d.bitpos - start;
-    if (rel >= p.strip_bits) break;
-    if (d.coeff == 0)
-      atomicMax(member + (static_cast<int64_t>(row) * p.strip_bits + rel) *
-                             p.bpm + d.slot,
-                ((d.blk << 4) | v) + 1);
-    if (!symbol(tab, p, d, s)) break;
-    advance(d, s, p.bpm);
+            int rows_per_cta, int32_t* __restrict__ member,
+            int32_t* __restrict__ links, int32_t* __restrict__ marks,
+            int32_t* __restrict__ group, int32_t* __restrict__ survivors) {
+  __shared__ int32_t s_st[2 * SYNC_LANES];  // a lane's strip mark: bit, slot
+  __shared__ int s_n, s_base;
+  if (threadIdx.x == 0) s_n = 0;
+  const int wl = threadIdx.x & 31;
+  const int n_lanes = rows_per_cta * p.bpm;
+  const int li =
+      wl < HEAD_LANES ? (threadIdx.x >> 5) * HEAD_LANES + wl : n_lanes;
+  const int v = li % p.bpm;
+  const int row = blockIdx.x * rows_per_cta + li / p.bpm;
+  const bool in = li < n_lanes && row < rows.R;
+  const int M = p.n_pieces - 1;
+  const int64_t lane = static_cast<int64_t>(row) * p.bpm + v;
+  int bit = -1, slot = -1, blk = 0;  // bit -1: ended in the strip
+  if (in) {
+    const int f = rows.row_frame[row];
+    const int start = (row - rows.row0[f]) * p.cb_bits;
+    const int strip_end = start + p.strip_bits;
+    int32_t* mk = marks + lane * M * MCOL;
+    int j = 1;
+    int mark_at = M > 0 ? start + p.piece_bits : INT_MAX;
+    Decoder d;
+    d.start(words + static_cast<int64_t>(f) * p.wn, p.wn, nbits[f], start,
+            v);
+    Sym s;
+    while (true) {
+      if (d.coeff == 0) {
+        if (d.bitpos >= mark_at) mark_to(p, d, j, mark_at, mk);
+        if (d.bitpos >= strip_end) {
+          bit = d.bitpos;
+          slot = d.slot;
+          blk = d.blk;
+          break;
+        }
+        atomicMax(member + (static_cast<int64_t>(row) * p.strip_bits +
+                            d.bitpos - start) * p.bpm + d.slot,
+                  ((d.blk << 4) | v) + 1);
+      }
+      if (!symbol(tab, p, d, s)) {
+        write_link(links + lane * NCOL, ST_END, d.bitpos, d.slot, d.blk, -1);
+        for (; j < p.n_pieces; ++j) {
+          int32_t* m = mk + (j - 1) * MCOL;
+          m[0] = -1;
+          m[1] = -1;
+          m[2] = MARK_NONE;
+        }
+        break;
+      }
+      advance(d, s, p.bpm);
+    }
   }
+  if (li < n_lanes) {
+    s_st[2 * li] = bit;
+    s_st[2 * li + 1] = slot;
+  }
+  __syncthreads();
+  // The survivor of a group is its lowest variant; a thread that ended in
+  // the strip has bit -1, which no strip mark equals.
+  int srv = -1, at = 0;
+  if (in && bit >= 0) {
+    const int32_t* r0 = s_st + 2 * (li - v);
+    srv = 0;
+    while (srv < v && !(r0[2 * srv] == bit && r0[2 * srv + 1] == slot))
+      ++srv;
+    if (srv == v) at = atomicAdd(&s_n, 1);
+  }
+  if (in) {
+    int32_t* g = group + lane * GCOL;
+    g[0] = bit;
+    g[1] = slot;
+    g[2] = blk;
+    g[3] = srv;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) s_base = s_n > 0 ? atomicAdd(survivors, s_n) : 0;
+  __syncthreads();
+  if (in && bit >= 0 && srv == v)
+    survivors[1 + s_base + at] = static_cast<int32_t>(lane);
 }
 
 // The tail walk of K8 and of K9's re-decode: from (bit, slot) in chunk row
-// `row` to a link into the successor's membership, a miss or the end,
-// marking the row's piece boundaries on the way (`marks`: P - 1 rows of
-// MCOL).  A re-decode passes K8's marks and links (`sp_marks`, `sp_links`;
-// K8 itself nullptr): where its last mark at a block start is also variant
-// v's mark there (same bit and slot, lowest v first), the two decodes are
-// one from there on, so it splices: v's links row and later marks, their
-// ordinals shifted to its own count.
+// `row`, at ordinal blk0, to a link into the successor's membership, a miss
+// or the end, marking the row's piece boundaries from j0 on the way
+// (`marks`: P - 1 rows of MCOL; K8 resumes at a strip mark with the
+// boundaries up to it marked, K9 starts a decode with j0 = 1).  A
+// re-decode passes K8's marks and links (`sp_marks`, `sp_links`; K8 itself
+// nullptr): where its last mark at a block start is also variant v's mark
+// there (same bit and slot, lowest v first), the two decodes are one from
+// there on, so it splices: v's links row and later marks, their ordinals
+// shifted to its own count.
 __device__ __forceinline__ void tail_walk(const int32_t* tab,
                                           const Params& p,
                           const uint32_t* words, const int32_t* nbits,
                           const Rows& rows, const int32_t* member, int row,
-                          int bit, int slot, int32_t* out, int32_t* marks,
-                          const int32_t* sp_marks, const int32_t* sp_links) {
+                          int bit, int slot, int blk0, int j0, int32_t* out,
+                          int32_t* marks, const int32_t* sp_marks,
+                          const int32_t* sp_links) {
   const int f = rows.row_frame[row];
   const int local = row - rows.row0[f];
   const bool last = rows.row0[f] + local + 1 == rows.row0[f + 1];
@@ -324,12 +447,14 @@ __device__ __forceinline__ void tail_walk(const int32_t* tab,
   // A block start needs a look only at or past the next piece boundary or
   // the successor's first bit: one compare on the common path, as a
   // decode without marks has.
-  int j = 1;
-  int mark_at = M > 0 ? local * p.cb_bits + p.piece_bits : INT_MAX;
+  int j = j0;
+  int mark_at = j < p.n_pieces ? local * p.cb_bits + j * p.piece_bits
+                               : INT_MAX;
   const int link_at = last ? INT_MAX : next_start;
   int gate = min(mark_at, link_at);
   Decoder d;
   d.start(words + static_cast<int64_t>(f) * p.wn, p.wn, nbits[f], bit, slot);
+  d.blk = blk0;
   bool crossed = false;
   int c_bit = 0, c_slot = 0, c_m = 0;
   Sym s;
@@ -337,14 +462,7 @@ __device__ __forceinline__ void tail_walk(const int32_t* tab,
   while (true) {
     if (d.coeff == 0 && d.bitpos >= gate) {
       if (d.bitpos >= mark_at) {
-        for (; j < p.n_pieces && d.bitpos >= mark_at;
-             ++j, mark_at += p.piece_bits) {
-          int32_t* m = marks + (j - 1) * MCOL;
-          m[0] = d.bitpos;
-          m[1] = d.slot;
-          m[2] = d.blk;
-        }
-        if (j == p.n_pieces) mark_at = INT_MAX;
+        mark_to(p, d, j, mark_at, marks);
         gate = min(mark_at, link_at);
         if (sp_marks != nullptr) {
           int v = 0;
@@ -407,30 +525,54 @@ __device__ __forceinline__ void tail_walk(const int32_t* tab,
     m[1] = -1;
     m[2] = MARK_NONE;
   }
-  out[0] = st;
-  out[1] = o_bit;
-  out[2] = o_slot;
-  out[3] = o_m;
-  out[4] = o_pay;
+  write_link(out, st, o_bit, o_slot, o_m, o_pay);
 }
 
-// K8 tail walk: one thread per (row, variant).
-__global__ void __launch_bounds__(THREADS)
-tail_kernel(const int32_t* __restrict__ tables,
+// K8 tail walk: a thread per listed survivor, TAIL_LANES of them a warp
+// (as the head walk), resumes at its strip mark, then writes its links row
+// and later marks for each member of its group, their ordinals shifted.
+// The grid covers every lane; CTAs past the count return at once.
+__global__ void __launch_bounds__(SYNC_BOUND)
+tail_kernel(const int32_t* __restrict__ tab,
             const uint32_t* __restrict__ words,
             const int32_t* __restrict__ nbits, Rows rows, Params p,
-            const int32_t* __restrict__ member, int32_t* __restrict__ links,
-            int32_t* __restrict__ marks) {
-  extern __shared__ int32_t tab[];
-  stage_tables(tab, tables, p.tab_ints);
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= rows.R * p.bpm) return;
+            const int32_t* __restrict__ member,
+            const int32_t* __restrict__ group,
+            const int32_t* __restrict__ survivors,
+            int32_t* __restrict__ links, int32_t* __restrict__ marks) {
+  const int n = survivors[0];
+  const int per_cta = (blockDim.x >> 5) * TAIL_LANES;
+  if (blockIdx.x * per_cta >= n) return;
+  const int wl = threadIdx.x & 31;
+  const int i = blockIdx.x * per_cta + (threadIdx.x >> 5) * TAIL_LANES + wl;
+  if (wl >= TAIL_LANES || i >= n) return;
+  const int lane = survivors[1 + i];
   const int row = lane / p.bpm, v = lane - row * p.bpm;
+  const int M = p.n_pieces - 1;
+  const int32_t* g = group + static_cast<int64_t>(lane) * GCOL;
+  const int bit = g[0], slot = g[1], blk = g[2];
   const int start = (row - rows.row0[rows.row_frame[row]]) * p.cb_bits;
-  tail_walk(tab, p, words, nbits, rows, member, row, start, v,
-            links + static_cast<int64_t>(lane) * NCOL,
-            marks + static_cast<int64_t>(lane) * (p.n_pieces - 1) * MCOL,
-            nullptr, nullptr);
+  const int j0 = min(p.n_pieces, (bit - start) / p.piece_bits + 1);
+  int32_t* out = links + static_cast<int64_t>(lane) * NCOL;
+  int32_t* mk = marks + static_cast<int64_t>(lane) * M * MCOL;
+  tail_walk(tab, p, words, nbits, rows, member, row, bit, slot, blk, j0, out,
+            mk, nullptr, nullptr);
+  for (int w = v + 1; w < p.bpm; ++w) {
+    const int64_t lw = static_cast<int64_t>(row) * p.bpm + w;
+    const int32_t* gw = group + lw * GCOL;
+    if (gw[3] != v) continue;
+    const int shift = gw[2] - blk;
+    write_link(links + lw * NCOL, out[0], out[1], out[2], out[3] + shift,
+               out[4]);
+    int32_t* mw = marks + lw * M * MCOL;
+    for (int j = j0; j < p.n_pieces; ++j) {
+      const int32_t* a = mk + (j - 1) * MCOL;
+      int32_t* m = mw + (j - 1) * MCOL;
+      m[0] = a[0];
+      m[1] = a[1];
+      m[2] = a[2] == MARK_NONE ? MARK_NONE : a[2] + shift;
+    }
+  }
 }
 
 // K9's outputs and scratch in device memory.
@@ -585,7 +727,7 @@ __device__ void recover_chain(const int32_t* tab, const Params& p,
   while (true) {
     int32_t* ov = o.ovr + static_cast<int64_t>(q) * OCOL;
     int32_t res[NCOL];
-    tail_walk(tab, p, words, nbits, rows, member, q, bit, slot, res,
+    tail_walk(tab, p, words, nbits, rows, member, q, bit, slot, 0, 1, res,
               o.ovr_marks + static_cast<int64_t>(q) * M * MCOL, marks, links);
     ov[0] = 1;
     ov[1] = bit;
@@ -894,40 +1036,49 @@ int check_pieces(const Params& p) {
 
 extern "C" int jt_decode_rstless_table_ints() { return TABLE_INTS; }
 extern "C" int jt_decode_rstless_ncol() { return NCOL; }
+extern "C" int jt_decode_rstless_gcol() { return GCOL; }
 
-// K8: head walk, then tail walk, on `stream`.  `member` must be zeroed.
+// K8 on `stream`: clears the survivor count, then launch 1 (the head walk
+// and grouping) and launch 2 (the tail walk of the survivors, a grid that
+// covers every lane).  `member` must be zeroed; `scratch` holds R * bpm *
+// GCOL ints of group state, then the survivor list (1 + R * bpm ints).
 extern "C" int jt_rstless_sync(const void* tables, const void* words,
                                const void* nbits, const void* row0,
                                const void* row_frame, void* member,
-                               void* links, void* marks, int R, int wn,
-                               int bpm, int vpad, int tab_ints, int cb_bits,
-                               int strip_bits, int piece_bits, int n_pieces,
-                               void* stream) {
+                               void* links, void* marks, void* scratch, int R,
+                               int wn, int bpm, int vpad, int tab_ints,
+                               int cb_bits, int strip_bits, int piece_bits,
+                               int n_pieces, void* stream) {
   const Params p{wn,      bpm,        0, 1,          vpad,    tab_ints,
                  cb_bits, strip_bits, 0, piece_bits, n_pieces};
   int rc = check_pieces(p);
   if (rc != 0 || R <= 0) return rc;
+  const int rows_per_cta = bpm < SYNC_LANES ? SYNC_LANES / bpm : 1;
+  const int threads =
+      32 * ((rows_per_cta * bpm + HEAD_LANES - 1) / HEAD_LANES);
+  if (threads > SYNC_BOUND) return static_cast<int>(cudaErrorInvalidValue);
   const Rows rows{static_cast<const int32_t*>(row0),
                   static_cast<const int32_t*>(row_frame), R};
-  const size_t smem = sizeof(int32_t) * tab_ints;
-  const int blocks = (R * bpm + THREADS - 1) / THREADS;
+  const auto* tab = static_cast<const int32_t*>(tables);
+  const auto* w = static_cast<const uint32_t*>(words);
+  const auto* nb = static_cast<const int32_t*>(nbits);
+  auto* group = static_cast<int32_t*>(scratch);
+  int32_t* survivors = group + static_cast<int64_t>(R) * bpm * GCOL;
   auto s = static_cast<cudaStream_t>(stream);
-  if ((rc = set_smem(head_kernel, smem)))
+  if ((rc = static_cast<int>(
+           cudaMemsetAsync(survivors, 0, sizeof(int32_t), s))))
     return rc;
-  if ((rc = set_smem(tail_kernel, smem)))
-    return rc;
-  head_kernel<<<blocks, THREADS, smem, s>>>(
-      static_cast<const int32_t*>(tables),
-      static_cast<const uint32_t*>(words),
-      static_cast<const int32_t*>(nbits), rows, p,
-      static_cast<int32_t*>(member));
+  head_kernel<<<(R + rows_per_cta - 1) / rows_per_cta, threads, 0, s>>>(
+      tab, w, nb, rows, p, rows_per_cta, static_cast<int32_t*>(member),
+      static_cast<int32_t*>(links), static_cast<int32_t*>(marks), group,
+      survivors);
   if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
-  tail_kernel<<<blocks, THREADS, smem, s>>>(
-      static_cast<const int32_t*>(tables),
-      static_cast<const uint32_t*>(words),
-      static_cast<const int32_t*>(nbits), rows, p,
-      static_cast<const int32_t*>(member), static_cast<int32_t*>(links),
-      static_cast<int32_t*>(marks));
+  const int64_t lanes = static_cast<int64_t>(R) * bpm;
+  const int per_cta = TAIL_WARPS * TAIL_LANES;
+  tail_kernel<<<static_cast<unsigned>((lanes + per_cta - 1) / per_cta),
+                TAIL_WARPS * 32, 0, s>>>(
+      tab, w, nb, rows, p, static_cast<const int32_t*>(member), group,
+      survivors, static_cast<int32_t*>(links), static_cast<int32_t*>(marks));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,9 +9,13 @@ counts the call in ``<wrapper>.launches``; on a CPU tensor it runs the
 plain version of ``entropy/speculative_torch.py``.  Anything else raises.
 No wrapper reads the device back.
 
-* ``sync`` (K8): head walk into the membership map, then the tail walk,
-  which also marks each row's piece boundaries -> (links [R * bpm,
-  NCOL], member [R * strip_bits * bpm], marks [R * bpm, P - 1, MCOL]).
+* ``sync`` (K8): head walk into the membership map and the marks to each
+  variant's strip mark, grouping a row's variants by strip mark; then the
+  tail walk of the survivors only, which writes every member's links and
+  later marks -> (links [R * bpm, NCOL], member [R * strip_bits * bpm],
+  marks [R * bpm, P - 1, MCOL]).  Its two launches are counted apart in
+  ``sync.stage_launches``; ``_sync`` returns the survivor list (count,
+  then lanes) on the card besides.
 * ``resolve`` (K9): one launch, a CTA per frame running the frame's walk
   and re-decode rounds on the card, its stats and its piece layout ->
   ``Resolved`` (row outputs, per-frame stats, pieces [R * P, PCOL]).
@@ -36,6 +40,7 @@ from .place_cuda import (
     kernel_m_x,
 )
 from .speculative_torch import (
+    GCOL,
     MCOL,
     NCOL,
     OCOL,
@@ -94,28 +99,43 @@ def sync(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
     if words.device.type == "cpu":
         return sync_ref(plan, words, nbits, rows, cb_bits, strip_bits,
                         piece_bits)
+    return _sync(plan, words, nbits, rows, cb_bits, strip_bits,
+                 piece_bits)[:3]
+
+
+def _sync(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
+          rows: Rows, cb_bits: int, strip_bits: int, piece_bits: int):
+    """K8 on the card -> ``sync``'s triple and the survivor list
+    [1 + R * bpm] int32 (count, then lanes in no fixed order)."""
     dev, F, R = _batch(plan, words, nbits, rows)
     bpm = plan.blocks_per_mcu
     P = n_pieces(cb_bits, piece_bits)
-    if max(R * strip_bits, R * (P - 1) * MCOL) * bpm >= 1 << 31:
+    if max(R * strip_bits, R * (P - 1) * MCOL, R * GCOL + 1) * bpm >= 1 << 31:
         raise ValueError("membership map or marks too large for int32 "
                          "offsets")
     member = torch.zeros(R * strip_bits * bpm, dtype=torch.int32, device=dev)
     links = torch.empty(R * bpm, NCOL, dtype=torch.int32, device=dev)
     marks = torch.empty(R * bpm, P - 1, MCOL, dtype=torch.int32, device=dev)
+    # group state [R * bpm, GCOL], then the survivor count and list
+    scratch = torch.empty(R * bpm * (GCOL + 1) + 1, dtype=torch.int32,
+                          device=dev)
     with torch.cuda.device(dev):
         rc = _lib().jt_rstless_sync(
             _device_tables(plan, dev).data_ptr(), words.data_ptr(),
             nbits.data_ptr(), rows.r0.data_ptr(), rows.frame32.data_ptr(),
-            member.data_ptr(), links.data_ptr(), marks.data_ptr(), R,
-            words.shape[1], bpm, huffval_pad(plan), _staged_ints(plan),
-            cb_bits, strip_bits, piece_bits, P, cuda_stream(dev))
+            member.data_ptr(), links.data_ptr(), marks.data_ptr(),
+            scratch.data_ptr(), R, words.shape[1], bpm, huffval_pad(plan),
+            _staged_ints(plan), cb_bits, strip_bits, piece_bits, P,
+            cuda_stream(dev))
     _check(rc, "rstless sync")
+    sync.stage_launches["head"] += 1
+    sync.stage_launches["tail"] += 1
     sync.launches += 1
-    return links, member, marks
+    return links, member, marks, scratch[R * bpm * GCOL:]
 
 
 sync.launches = 0
+sync.stage_launches = {"head": 0, "tail": 0}
 
 
 def resolve(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,

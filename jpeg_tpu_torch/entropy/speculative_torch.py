@@ -16,17 +16,25 @@ bit; on CPU tensors the engine runs them.
 * K8 ``sync_ref``: one lane per (row, variant), variant ``v`` starting at
   the row's first bit with slot ``v``.  The head walk records every block
   start inside the row's first ``strip`` bits in a membership map
-  ``member[row, bit, slot] = max((ordinal << 4 | variant) + 1)``.  The
-  tail walk decodes through the row into its successor and stops at the
-  first block start that some successor variant also passed (a link),
-  or, past the successor's strip, at a miss (it then reports its
-  crossing: the first block start at or after the successor's first
-  bit); the last row of a frame decodes to the segment's end.  On the way
-  it marks, at each piece boundary ``j = 1 .. P-1`` of the row, the first
-  block start at or after ``row_start + j * pb`` (bit, slot, ordinal;
-  ordinal ``MARK_NONE`` where the walk stopped before).  -> ``links [R *
-  bpm, NCOL]``: status, next bit, next slot, ordinal there, successor
-  payload; ``marks [R * bpm, P - 1, MCOL]``.
+  ``member[row, bit, slot] = max((ordinal << 4 | variant) + 1)``, marks
+  the piece boundaries it passes, and stops at the lane's strip mark: the
+  first block start at or after the strip's end (or where it dies, its
+  final state).  A row's lanes with equal strip marks (bit and slot) are
+  one decode from there on: the lowest is the group's survivor.  The
+  tail walk runs the survivors only, from their strip marks through the
+  row into its successor, and stops at the first block start that some
+  successor variant also passed (a link), or, past the successor's
+  strip, at a miss (it then reports its crossing: the first block start
+  at or after the successor's first bit); the last row of a frame
+  decodes to the segment's end.  On the way it marks, at each piece
+  boundary ``j`` of the row, the first block start at or after
+  ``row_start + j * pb`` (bit, slot, ordinal; ordinal ``MARK_NONE``
+  where the walk stopped before).  Each member of a group takes its
+  survivor's link and later marks, ordinals shifted by the difference of
+  their ordinals at the strip mark.  -> ``links [R * bpm, NCOL]``:
+  status, next bit, next slot, ordinal there, successor payload; ``marks
+  [R * bpm, P - 1, MCOL]``: those of a walk of every lane from its row's
+  first bit.
 * K9 ``resolve_ref``: per frame, a walk from row 0, variant 0 (the true
   start, bit 0 slot 0) through the links, then a re-decode of every row
   whose true entry is known but whose authority is not (and of the rows
@@ -68,6 +76,11 @@ OCOL = 3 + NCOL
 M_BIT, M_SLOT, M_ORD = range(3)
 MCOL = 3
 MARK_NONE = (1 << 31) - 1
+# K8's group state of a lane (csrc GCOL): its strip mark (bit -1 where it
+# ended in the strip), its ordinal there, and its group's survivor variant
+# (-1 where it ended in the strip)
+G_BIT, G_SLOT, G_ORD, G_SRV = range(4)
+GCOL = 4
 # K9's per-row outputs (rows of ``Resolved.row``): entry bit and slot,
 # block count, state, the variant whose decode holds the row (-1: its
 # override) and the row's first ordinal in it, the row's first block
@@ -215,15 +228,48 @@ class Resolved(NamedTuple):
     pieces: torch.Tensor  # [R * P, PCOL]: P_BIT .. P_N
 
 
+class Head(NamedTuple):
+    """K8's head walk and grouping, on the batch's device."""
+
+    member: torch.Tensor  # [R * strip_bits * bpm] int32
+    links: torch.Tensor   # [R * bpm, NCOL] int32: final where G_SRV < 0
+    marks: torch.Tensor   # [R * bpm, P - 1, MCOL] int32, up to the strip mark
+    group: torch.Tensor   # [R * bpm, GCOL] int32
+
+
+def _mark(marks, jn, new, bitpos, slot, blk, row_start, piece_bits, P):
+    """Lanes ``new`` stand at a block start: mark their boundaries from
+    ``jn`` (the next unmarked one) up to ``bitpos`` with (bit, slot,
+    ordinal).  -> (updated jn, the marked lanes, the boundary count
+    reached per lane)."""
+    reach = (torch.div(bitpos - row_start, piece_bits, rounding_mode="floor")
+             + 1).clamp(1, P)
+    new = new & (reach > jn)
+    li = new.nonzero().squeeze(1)
+    if P > 1 and li.numel():
+        js = torch.arange(1, P, device=bitpos.device)
+        sel = (js[None, :] >= jn[li, None]) & (js[None, :] < reach[li, None])
+        sub = marks[li]
+        sub[sel] = torch.stack([bitpos, slot, blk], 1)[li][:, None, :] \
+            .expand(-1, P - 1, -1)[sel]
+        marks[li] = sub
+    return torch.where(new, reach, jn), li, reach
+
+
 def sync_head_ref(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
-                  rows: Rows, cb_bits: int,
-                  strip_bits: int) -> torch.Tensor:
-    """K8's head walk: -> member [R * strip_bits * bpm] int32."""
+                  rows: Rows, cb_bits: int, strip_bits: int,
+                  piece_bits: int) -> Head:
+    """K8's head walk and grouping: every lane decodes its row's strip
+    into the membership map and its marks, to its strip mark or its
+    death (then its links row is final: ST_END where it died); then each
+    row's lanes are grouped by strip mark (bit, slot), the lowest variant
+    of a group its survivor."""
     dev = words.device
     bpm = plan.blocks_per_mcu
     k = _consts(plan, dev)
     w64 = _words64(words)
     frame, local, R = rows.frame, rows.local, rows.R
+    P = n_pieces(cb_bits, piece_bits)
     lane = torch.arange(R * bpm, device=dev)
     row, var = lane // bpm, lane % bpm
     fr = frame[row]
@@ -233,35 +279,62 @@ def sync_head_ref(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
     coeff = torch.zeros_like(bitpos)
     blk = torch.zeros_like(bitpos)
     member = torch.zeros(R * strip_bits * bpm, dtype=torch.int32, device=dev)
-    alive = torch.ones_like(bitpos, dtype=torch.bool)
-    while True:
+    links = torch.zeros(R * bpm, NCOL, dtype=torch.int64, device=dev)
+    marks = torch.full((R * bpm, P - 1, MCOL), -1, dtype=torch.int64,
+                       device=dev)
+    marks[:, :, M_ORD] = MARK_NONE
+    jn = torch.ones_like(bitpos)
+    at_mark = torch.zeros(R * bpm, dtype=torch.bool, device=dev)
+    active = torch.ones_like(at_mark)
+    while bool(active.any()):
+        bs = active & (coeff == 0)
+        jn, _, _ = _mark(marks, jn, bs, bitpos, slot, blk, start,
+                         piece_bits, P)
         rel = bitpos - start
-        alive = alive & (rel < strip_bits)
-        if not bool(alive.any()):
-            break
-        at = alive & (coeff == 0)
+        stop = bs & (rel >= strip_bits)
+        at_mark |= stop
+        active = active & ~stop
+        at = active & (coeff == 0)
         idx = (row * strip_bits + rel) * bpm + slot
         member.scatter_reduce_(0, idx[at], ((blk << 4 | var) + 1)[at]
                                .to(torch.int32), "amax")
         s = _symbol(plan, k, w64, fr, bitpos, slot, coeff, nb)
-        alive = alive & ~s["dies"]
-        bitpos, slot, coeff, blk = _advance(plan, s, alive, bitpos, slot,
+        dead = active & s["dies"]
+        links[dead] = torch.stack([torch.full_like(bitpos, ST_END), bitpos,
+                                   slot, blk, torch.full_like(bitpos, -1)],
+                                  1)[dead]
+        active = active & ~dead
+        bitpos, slot, coeff, blk = _advance(plan, s, active, bitpos, slot,
                                             coeff, blk)
-    return member
+    # the group of each lane at its strip mark: the lowest variant of its
+    # row with the same (bit, slot)
+    mb = torch.where(at_mark, bitpos, -1).reshape(R, bpm)
+    ms = torch.where(at_mark, slot, -1).reshape(R, bpm)
+    same = (mb[:, :, None] == mb[:, None, :]) & \
+        (ms[:, :, None] == ms[:, None, :])
+    srv = torch.where(at_mark, same.reshape(R * bpm, bpm).to(torch.int64)
+                      .argmax(1), -1)
+    group = torch.stack([torch.where(at_mark, bitpos, -1),
+                         torch.where(at_mark, slot, -1),
+                         torch.where(at_mark, blk, 0), srv], 1)
+    return Head(member, links.to(torch.int32), marks.to(torch.int32),
+                group.to(torch.int32))
 
 
 def tail_walk_ref(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
                   rows: Rows, member: torch.Tensor, row: torch.Tensor,
                   start_bit: torch.Tensor, start_slot: torch.Tensor,
                   cb_bits: int, strip_bits: int, piece_bits: int,
-                  splice=None):
+                  splice=None, start_blk=None, start_j=None):
     """The tail walk of K8 and of K9's re-decode, for lanes starting at
-    (``start_bit``, ``start_slot``) in chunk row ``row`` (int64 [n]).
+    (``start_bit``, ``start_slot``) in chunk row ``row`` (int64 [n]), at
+    ordinal ``start_blk`` (None: 0) with boundaries before ``start_j``
+    (None: 1) already marked elsewhere (K8 resumes at a strip mark).
     ``splice`` (a re-decode: K8's (links, marks)): where a lane's last
     mark at a block start is also variant v's mark there (lowest v first),
     the lane takes v's links row and later marks, their ordinals shifted
     to its own block count, and stops.  -> ([n, NCOL] int32 links rows,
-    [n, P - 1, MCOL] int32 marks)."""
+    [n, P - 1, MCOL] int32 marks; a boundary before ``start_j`` unmarked)."""
     dev = words.device
     bpm = plan.blocks_per_mcu
     k = _consts(plan, dev)
@@ -277,13 +350,14 @@ def tail_walk_ref(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
     bitpos = start_bit.to(torch.int64).clone()
     slot = start_slot.to(torch.int64).clone()
     coeff = torch.zeros_like(bitpos)
-    blk = torch.zeros_like(bitpos)
+    blk = torch.zeros_like(bitpos) if start_blk is None else \
+        start_blk.to(torch.int64).clone()
     out = torch.zeros(n, NCOL, dtype=torch.int64, device=dev)
     out[:, L_PAY] = -1
     marks = torch.full((n, P - 1, MCOL), -1, dtype=torch.int64, device=dev)
     marks[:, :, M_ORD] = MARK_NONE
-    js = torch.arange(1, P, device=dev)
-    jn = torch.ones(n, dtype=torch.int64, device=dev)  # next boundary
+    jn = torch.ones(n, dtype=torch.int64, device=dev) if start_j is None \
+        else start_j.to(torch.int64).clone()  # next boundary
     crossed = torch.zeros(n, dtype=torch.bool, device=dev)
     cross = torch.zeros(n, 3, dtype=torch.int64, device=dev)
     active = torch.ones(n, dtype=torch.bool, device=dev)
@@ -294,20 +368,11 @@ def tail_walk_ref(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
 
     while bool(active.any()):
         # marks: every boundary j < P at or before a block start
-        reach = (torch.div(bitpos - row_start, piece_bits,
-                           rounding_mode="floor") + 1).clamp(1, P)
-        new = active & (coeff == 0) & (reach > jn)
-        if P > 1 and bool(new.any()):
-            li = new.nonzero().squeeze(1)
-            sel = (js[None, :] >= jn[li, None]) & (js[None, :] < reach[li, None])
-            sub = marks[li]
-            sub[sel] = torch.stack([bitpos, slot, blk], 1)[li][:, None, :] \
-                .expand(-1, P - 1, -1)[sel]
-            marks[li] = sub
-            jn = torch.where(new, reach, jn)
-            if splice is not None:
-                _splice(splice, bpm, P, row, li, reach[li] - 1, bitpos, slot,
-                        blk, out, marks, active)
+        jn, li, reach = _mark(marks, jn, active & (coeff == 0), bitpos, slot,
+                              blk, row_start, piece_bits, P)
+        if P > 1 and splice is not None and li.numel():
+            _splice(splice, bpm, P, row, li, reach[li] - 1, bitpos, slot,
+                    blk, out, marks, active)
         rel = bitpos - next_start
         chk = active & (coeff == 0) & ~last & (rel >= 0)
         first = chk & ~crossed
@@ -365,20 +430,58 @@ def _splice(splice, bpm: int, P: int, row, li, jr, bitpos, slot, blk, out,
     active[lanes] = False
 
 
+def sync_tail_ref(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
+                  rows: Rows, head: Head, cb_bits: int, strip_bits: int,
+                  piece_bits: int):
+    """K8's tail walk: each survivor resumes at its strip mark; every
+    member of its group takes its links row and its marks after the strip
+    mark, ordinals shifted by the member's ordinal less the survivor's
+    there.  -> (links [R * bpm, NCOL] int32, marks [R * bpm, P - 1, MCOL]
+    int32)."""
+    dev = words.device
+    bpm = plan.blocks_per_mcu
+    g = head.group.to(torch.int64)
+    lane = torch.arange(g.shape[0], device=dev)
+    row = lane // bpm
+    srv = g[:, G_SRV]
+    sv = (srv == lane % bpm).nonzero().squeeze(1)
+    start = rows.local[row[sv]] * cb_bits
+    j0 = (torch.div(g[sv, G_BIT] - start, piece_bits, rounding_mode="floor")
+          + 1).clamp(max=n_pieces(cb_bits, piece_bits))
+    t_links, t_marks = tail_walk_ref(
+        plan, words, nbits, rows, head.member, row[sv], g[sv, G_BIT],
+        g[sv, G_SLOT], cb_bits, strip_bits, piece_bits,
+        start_blk=g[sv, G_ORD], start_j=j0)
+    links = head.links.to(torch.int64).clone()
+    marks = head.marks.to(torch.int64).clone()
+    pos = torch.full((lane.numel(),), -1, dtype=torch.int64, device=dev)
+    pos[sv] = torch.arange(sv.numel(), device=dev)
+    mem = (srv >= 0).nonzero().squeeze(1)  # survivors and members
+    at = pos[row[mem] * bpm + srv[mem]]  # their survivor's tail walk
+    shift = g[mem, G_ORD] - g[row[mem] * bpm + srv[mem], G_ORD]
+    lk = t_links[at].to(torch.int64)
+    lk[:, L_M] += shift
+    links[mem] = lk
+    mk = t_marks[at].to(torch.int64)
+    after = torch.arange(1, mk.shape[1] + 1, device=dev)[None, :] >= \
+        j0[at][:, None]
+    mk[:, :, M_ORD] = torch.where(mk[:, :, M_ORD] == MARK_NONE, MARK_NONE,
+                                  mk[:, :, M_ORD] + shift[:, None])
+    sub = marks[mem]
+    sub[after] = mk[after]
+    marks[mem] = sub
+    return links.to(torch.int32), marks.to(torch.int32)
+
+
 def sync_ref(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
              rows: Rows, cb_bits: int, strip_bits: int, piece_bits: int):
     """Plain K8: -> (links [R * bpm, NCOL] int32, member [R * strip_bits *
     bpm] int32, marks [R * bpm, P - 1, MCOL] int32)."""
-    dev = words.device
-    bpm = plan.blocks_per_mcu
-    member = sync_head_ref(plan, words, nbits, rows, cb_bits, strip_bits)
-    local = rows.local
-    lane = torch.arange(local.numel() * bpm, device=dev)
-    row = lane // bpm
-    links, marks = tail_walk_ref(plan, words, nbits, rows, member, row,
-                                 local[row] * cb_bits, lane % bpm, cb_bits,
+    head = sync_head_ref(plan, words, nbits, rows, cb_bits, strip_bits,
+                         piece_bits)
+    links, marks = sync_tail_ref(plan, words, nbits, rows, head, cb_bits,
                                  strip_bits, piece_bits)
-    return links, member, marks
+    return links, head.member, marks
 
 
 def walk_frames(links: np.ndarray, ovr: np.ndarray, rows: Rows,

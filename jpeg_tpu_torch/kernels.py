@@ -77,14 +77,16 @@ def _declare(lib: ctypes.CDLL) -> None:
         "jt_idct_exact": [p, p, p, p, ll, i, p],
         "jt_fdct_exact": [p, p, p, p, ll, i, p],
         "jt_color_exact": [p, p, ll, i, i, p],
-        "jt_coeffs_to_pixels": [p] * 5 + [i] * 16 + [p],
+        "jt_coeffs_to_pixels": [p] * 5 + [i] * 17 + [p],
         "jt_decode_dense_tile_blocks": [],
         "jt_decode_dense_comp_ints": [],
-        "jt_rstless_sync": [p] * 8 + [i] * 9 + [p],
+        "jt_decode_dense_plan_ints": [],
+        "jt_rstless_sync": [p] * 9 + [i] * 9 + [p],
         "jt_rstless_resolve": [p] * 12 + [i] * 12 + [p],
         "jt_rstless_final": [p] * 9 + [i] * 12 + [p],
         "jt_decode_rstless_table_ints": [],
         "jt_decode_rstless_ncol": [],
+        "jt_decode_rstless_gcol": [],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -97,7 +99,7 @@ def _check_layouts(lib: ctypes.CDLL) -> None:
     Python side that packs its inputs."""
     from .entropy.encode_cuda import BLOCK_WORDS, T_MAX
     from .entropy.place_cuda import CTA_LANES, LUT_BITS, TABLE_INTS
-    from .entropy.speculative_torch import NCOL
+    from .entropy.speculative_torch import GCOL, NCOL
     from .models import decode_dense
     from .models.encode_dense import TILE_BLOCKS
 
@@ -117,9 +119,12 @@ def _check_layouts(lib: ctypes.CDLL) -> None:
          decode_dense.TILE_BLOCKS),
         ("decode_dense.cu COMP_INTS", lib.jt_decode_dense_comp_ints(),
          decode_dense.COMP_INTS),
+        ("decode_dense.cu PLAN_INTS", lib.jt_decode_dense_plan_ints(),
+         decode_dense.PLAN_INTS),
         ("decode_rstless.cu table ints", lib.jt_decode_rstless_table_ints(),
          TABLE_INTS),
         ("decode_rstless.cu NCOL", lib.jt_decode_rstless_ncol(), NCOL),
+        ("decode_rstless.cu GCOL", lib.jt_decode_rstless_gcol(), GCOL),
     ):
         if got != want:
             raise RuntimeError(f"csrc/{name} is {got}, the Python side "

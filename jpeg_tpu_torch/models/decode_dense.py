@@ -4,8 +4,9 @@
 ``device_decode._dense_from_coeffs`` (dequantize -> IDCT -> level shift
 -> nearest-neighbour upsample -> colour -> round/clip -> uint8/uint16).
 On a CUDA tensor it launches the hand-written kernel
-``csrc/decode_dense.cu``, which decodes one tile of MCUs per CTA
-(``tile_plan``); on a CPU tensor it runs the plain version
+``csrc/decode_dense.cu``, a persistent grid whose CTAs walk the tiles of
+MCUs (``tile_plan``), each tile's coefficients copied in by its runs
+(``tile_runs``) one tile ahead; on a CPU tensor it runs the plain version
 ``coeffs_to_pixels_ref``, built from the port's plain ops the same way
 the JAX program is built from its own.
 
@@ -44,6 +45,15 @@ from ..utils.floatops import roundf
 COMP_INTS = 8
 C_MAX = 4
 TILE_BLOCKS = 64  # blocks of one tile; csrc/decode_dense.cu
+# A run of a tile (csrc RUN_INTS): component j, block row r of the MCU row,
+# the run's first stage slot per MCU (first_j + r * h_j) and its blocks per
+# MCU (h_j).  A tile of n MCUs copies run (j, r) from plane block
+# first_block_j + (my * v_j + r) * b_x_j + tx * mcus * h_j, n * h_j blocks,
+# to stage slot n * (first_j + r * h_j).  One run per component block row:
+# at most 10 for a baseline MCU, RUN_MAX for any C_MAX components.
+RUN_INTS = 4
+RUN_MAX = 16
+PLAN_INTS = C_MAX * COMP_INTS + RUN_MAX * RUN_INTS  # csrc PLAN_INTS
 
 
 def check_geometry(geom: FrameGeometry) -> None:
@@ -114,6 +124,7 @@ class TilePlan:
     mcu_h: int  # pixel rows of one MCU (and of a tile)
     bpm: int  # blocks per MCU
     comps: np.ndarray  # [C_MAX, COMP_INTS] int32, geometry order
+    runs: np.ndarray  # [n_runs, RUN_INTS] int32: a tile's copies
 
 
 def tile_plan(geom: FrameGeometry) -> TilePlan:
@@ -121,21 +132,48 @@ def tile_plan(geom: FrameGeometry) -> TilePlan:
     bpm = sum(c.h * c.v for c in geom.components)
     mcus = max(1, min(TILE_BLOCKS // bpm, geom.m_x))
     t = np.zeros((C_MAX, COMP_INTS), np.int32)
+    runs = []
     off = first = 0
     for j, c in enumerate(geom.components):
         t[j] = (c.h, c.v, geom.max_v // c.v, geom.max_h // c.h, off, c.b_x,
                 c.tq, first)
+        runs += [(j, r, first + r * c.h, c.h) for r in range(c.v)]
         off += c.n_blocks
         first += c.h * c.v
     return TilePlan(mcus=mcus, tiles_x=-(-geom.m_x // mcus),
                     mcu_w=8 * geom.max_h, mcu_h=8 * geom.max_v, bpm=bpm,
-                    comps=t)
+                    comps=t, runs=np.array(runs, np.int32).reshape(-1,
+                                                                   RUN_INTS))
+
+
+def tile_runs(plan: TilePlan, m_x: int, my: int, tx: int) -> list:
+    """The copies of tile (``my``, ``tx``) of a frame ``m_x`` MCUs wide,
+    as the kernel issues them: [(component, first plane block (frame-
+    relative, components in geometry order), blocks, first stage slot)].
+    Each is one contiguous run of 256-byte blocks in the plane, copied a
+    block (one bulk copy) to a stage slot, so every copy is 16-byte
+    aligned wherever the frame's coefficients are."""
+    n = min(plan.mcus, m_x - tx * plan.mcus)
+    out = []
+    for j, r, slot, h in plan.runs.tolist():
+        c = plan.comps[j]
+        first = int(c[4]) + (my * int(c[1]) + r) * int(c[5]) + \
+            tx * plan.mcus * int(c[0])
+        out.append((j, first, n * h, n * slot))
+    return out
 
 
 @lru_cache(maxsize=16)
 def _device_consts(geom: FrameGeometry, device: torch.device):
     plan = tile_plan(geom)
-    return lut_on(device), torch.from_numpy(plan.comps).to(device), plan
+    if plan.runs.shape[0] > RUN_MAX:
+        raise UnsupportedError(f"{plan.runs.shape[0]} block rows an MCU, "
+                               f"more than {RUN_MAX}")
+    packed = np.zeros(PLAN_INTS, np.int32)
+    packed[:C_MAX * COMP_INTS] = plan.comps.reshape(-1)
+    packed[C_MAX * COMP_INTS:C_MAX * COMP_INTS + plan.runs.size] = \
+        plan.runs.reshape(-1)
+    return lut_on(device), torch.from_numpy(packed).to(device), plan
 
 
 def coeffs_to_pixels(coeffs: torch.Tensor, qtables: torch.Tensor,
@@ -181,7 +219,8 @@ def coeffs_to_pixels(coeffs: torch.Tensor, qtables: torch.Tensor,
             ctab.data_ptr(), out.data_ptr(), int(out_dt == torch.uint16), f,
             geom.height, geom.width, geom.nf, nc, geom.precision, tb,
             geom.m_x, geom.m_y, plan.mcus, plan.tiles_x, plan.mcu_w,
-            plan.mcu_h, plan.bpm, 0 if shared else 4 * 64, cuda_stream(dev),
+            plan.mcu_h, plan.bpm, 0 if shared else 4 * 64,
+            plan.runs.shape[0], cuda_stream(dev),
         )
     if rc != 0:
         raise RuntimeError(f"coeffs_to_pixels launch failed: CUDA error {rc}")

@@ -8,9 +8,11 @@ u8/u16 sample, because the float32 matmul sums in another order.  The
 elementwise ops it is built from are pinned one by one.
 
 The CUDA kernel ``csrc/decode_dense.cu`` cannot run here, so a numpy
-model of it (``kernel_model``: its tile walk, slot and sample arithmetic
-and its separable ``fmaf`` IDCT) is held to the plain version: every
-pixel written once, within +-1.
+model of it (``kernel_model``: its tile walk, the runs it copies into a
+tile's stage, its slot and sample arithmetic and its separable ``fmaf``
+IDCT) is held to the plain version: every pixel written once, within
++-1; and the runs (``tile_runs``) are held to cover every block of every
+tile once, each a 16-byte aligned copy.
 """
 
 import os
@@ -39,9 +41,11 @@ from jpeg_tpu_torch import geometry as pgeometry
 from jpeg_tpu_torch.device import set_precision
 from jpeg_tpu_torch.format.parse import parse_codestream
 from jpeg_tpu_torch.models.decode_dense import (
+    RUN_MAX,
     coeffs_to_pixels,
     coeffs_to_pixels_ref,
     tile_plan,
+    tile_runs,
 )
 from jpeg_tpu_torch.models.device_decode import _dense_from_coeffs
 from jpeg_tpu_torch.ops import color, dct
@@ -243,19 +247,18 @@ def kernel_model(coeffs, qtables, geom):
     for t in range(geom.m_y * plan.tiles_x):
         my, tx = divmod(t, plan.tiles_x)
         n = min(plan.mcus, geom.m_x - tx * plan.mcus)
-        # A. slots -> frame blocks, dequantized with each frame's table
-        blks, tqs = [], []
+        # A. the tile's runs into its stage slots; B. each slot dequantized
+        # with its component's table (the kernel's search over slots)
+        blks = np.full(n * plan.bpm, -1)
+        for _, first, count, slot in tile_runs(plan, geom.m_x, my, tx):
+            blks[slot:slot + count] = np.arange(first, first + count)
+        assert (blks >= 0).all()
+        tqs = []
         for b in range(n * plan.bpm):
             j = 0
             while j + 1 < nf and b >= n * cp[j + 1][7]:
                 j += 1
-            c = cp[j]
-            local = b - n * c[7]
-            cw = n * c[0]
-            r = local // cw
-            blks.append(c[4] + (my * c[1] + r) * c[5] + tx * plan.mcus * c[0]
-                        + local - r * cw)
-            tqs.append(c[6])
+            tqs.append(cp[j][6])
         prod = (coeffs[:, blks].astype(np.uint32)
                 * qtables[:, tqs].astype(np.uint32))
         x = prod.astype(np.int32).astype(np.float32).reshape(f, -1, 8, 8)
@@ -298,6 +301,56 @@ def kernel_model(coeffs, qtables, geom):
         out[:, y0:y0 + nrow, x0:x0 + ncol] = px_out
         writes[:, y0:y0 + nrow, x0:x0 + ncol] += 1
     return out.astype(np.uint8 if prec <= 8 else np.uint16), writes
+
+
+# (components as (id, h, v, tq), height, width): 4:2:0, 4:2:2, 4:4:4, luma
+# h=1 v=2, gray and YCCK, each with a short last tile in its MCU rows
+# (4:2:0: 13 MCUs a row in tiles of 10) and padding on both edges
+RUN_GEOMETRIES = {
+    "420": (((1, 2, 2, 0), (2, 1, 1, 1), (3, 1, 1, 1)), 40, 200),
+    "422": (((1, 2, 1, 0), (2, 1, 1, 1), (3, 1, 1, 1)), 20, 300),
+    "444": (((1, 1, 1, 0), (2, 1, 1, 1), (3, 1, 1, 1)), 17, 190),
+    "h1v2": (((1, 1, 2, 0), (2, 1, 1, 1), (3, 1, 1, 1)), 37, 130),
+    "gray": (((1, 1, 1, 0),), 9, 530),
+    "ycck": (((1, 1, 1, 0), (2, 1, 1, 1), (3, 1, 1, 1), (4, 1, 1, 0)), 16,
+             180),
+}
+
+
+@pytest.mark.parametrize("name", list(RUN_GEOMETRIES))
+def test_tile_runs_cover_every_block_once(name):
+    """The runs of each tile fill its stage slots [0, n * bpm) once, each
+    slot from a block of the component the kernel's slot search gives it;
+    over the frame's tiles every block of every plane is copied once; and
+    every run starts and ends on a 16-byte boundary of the frame's
+    coefficients and of the stage, as the bulk copies need."""
+    comps, height, width = RUN_GEOMETRIES[name]
+    geom = pgeometry.with_block_grid(pgeometry.FrameGeometry(
+        8, height, width, tuple(pgeometry.Component(cid=i, h=h, v=v, tq=tq)
+                                for i, h, v, tq in comps)))
+    plan = tile_plan(geom)
+    tb = sum(c.n_blocks for c in geom.components)
+    starts = np.cumsum([0] + [c.n_blocks for c in geom.components])
+    assert plan.runs.shape[0] == sum(c.v for c in geom.components) <= RUN_MAX
+    copied = np.zeros(tb, np.int64)
+    ragged = False
+    for my in range(geom.m_y):
+        for tx in range(plan.tiles_x):
+            n = min(plan.mcus, geom.m_x - tx * plan.mcus)
+            ragged |= n < plan.mcus
+            slots = np.zeros(n * plan.bpm, np.int64)
+            for j, first, count, slot in tile_runs(plan, geom.m_x, my, tx):
+                assert starts[j] <= first and first + count <= starts[j + 1]
+                copied[first:first + count] += 1
+                slots[slot:slot + count] += 1
+                c = plan.comps[j]
+                assert n * c[7] <= slot and slot + count <= n * (c[7]
+                                                                + c[0] * c[1])
+                for off in (first * 256, count * 256, slot * 256):
+                    assert off % 16 == 0
+            assert (slots == 1).all()
+    assert (copied == 1).all()
+    assert ragged == (geom.m_x % plan.mcus != 0) and ragged
 
 
 MODEL_CASES = [(name, False) for name in SINGLE_SCAN[:4]] + [

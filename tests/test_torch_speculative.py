@@ -12,7 +12,9 @@ it: ``mjpeg.decode_stream_device`` and ``decode_frame_rstless`` against
 ``jpeg_tpu.decode_jpeg`` (pixels within +-1: the float32 IDCT sums in
 another order), ``decode_jpeg(entropy="speculative")`` against the
 serial backend, damaged streams, and the three faults ADVICE.md records
-against the JAX engine.
+against the JAX engine.  K8's plain version, which walks only each row's
+distinct decodes past the strip, is held integer for integer to a walk of
+every variant from its row's first bit (``sync_every_variant``).
 
 The JAX package's own device path (``models.device_decode.
 decode_stream_rstless``) is not run here: its first call on one 192x128
@@ -479,3 +481,160 @@ def test_unresolved_batch_is_refused(monkeypatch):
     assert counter("speculative.recovery_rows") > \
         before["speculative.recovery_rows"]
     assert len(finals) == 1 and finals[0][0].shape[1] == 64
+
+
+def sync_every_variant(plan, words, nbits, rows, cb, sb, pb):
+    """K8 as a walk of every (row, variant) lane, with no grouping: the
+    membership of each lane's strip, then each lane's tail walk from its
+    row's first bit.  The oracle that the grouped K8 (``sync_ref``, which
+    walks only each group's survivor past the strip) must equal."""
+    bpm = plan.blocks_per_mcu
+    k, w64 = st._consts(plan, CPU), st._words64(words)
+    lane = torch.arange(rows.R * bpm)
+    row, var = lane // bpm, lane % bpm
+    fr = rows.frame[row]
+    nb = nbits.to(torch.int64)[fr]
+    start = rows.local[row] * cb
+    bitpos, slot = start.clone(), var.clone()
+    coeff, blk = torch.zeros_like(bitpos), torch.zeros_like(bitpos)
+    member = torch.zeros(rows.R * sb * bpm, dtype=torch.int32)
+    alive = torch.ones_like(bitpos, dtype=torch.bool)
+    while True:
+        rel = bitpos - start
+        alive = alive & (rel < sb)
+        if not bool(alive.any()):
+            break
+        at = alive & (coeff == 0)
+        idx = (row * sb + rel) * bpm + slot
+        member.scatter_reduce_(0, idx[at], ((blk << 4 | var) + 1)[at]
+                               .to(torch.int32), "amax")
+        s = st._symbol(plan, k, w64, fr, bitpos, slot, coeff, nb)
+        alive = alive & ~s["dies"]
+        bitpos, slot, coeff, blk = st._advance(plan, s, alive, bitpos, slot,
+                                               coeff, blk)
+    links, marks = st.tail_walk_ref(plan, words, nbits, rows, member, row,
+                                    start, var, cb, sb, pb)
+    return links, member, marks
+
+
+def damage_frames(words, nbits, seed):
+    """Frame i of the batch damaged the (i % 4)-th way chip_smoke's
+    ``damage`` damages lanes: pure noise, cut short, all-zero words over
+    its whole row, three flipped bits."""
+    rng = np.random.default_rng(seed)
+    w = words.numpy().view(np.uint32).copy()
+    nb = nbits.numpy().copy()
+    for i in range(w.shape[0]):
+        kind = i % 4
+        if kind == 0:
+            w[i] = rng.integers(0, 1 << 32, w.shape[1], dtype=np.uint32)
+        elif kind == 1:
+            nb[i] = int(nb[i] * rng.random())
+        elif kind == 2:
+            w[i] = 0
+            nb[i] = 32 * w.shape[1]
+        else:
+            for p in (rng.random(3) * nb[i]).astype(np.int64):
+                w[i, p >> 5] ^= np.uint32(1) << np.uint32(31 - (p & 31))
+    return torch.from_numpy(w.view(np.int32)), torch.from_numpy(nb)
+
+
+# (chunk, strip, piece) bytes: the defaults, and sizes whose rows, strips
+# and pieces cut blocks (a short last piece at 24 of 64 bytes)
+SYNC_SIZES = [(512, 128, 32), (16, 4, 4), (64, 16, 24)]
+
+
+def _sync_batch(name, chunk, seeds=(1, 2), damaged=False):
+    frames = [rstless(name, seed=s) for s in seeds]
+    plan, _ = plan_of(frames[0])
+    words, nbits, rows = speculative.prepare_batch(
+        [segment_of(f) for f in frames], CPU, chunk)
+    if damaged:
+        words, nbits = damage_frames(words, nbits, 0)
+    return plan, words, nbits, rows
+
+
+@pytest.mark.parametrize("size", SYNC_SIZES,
+                         ids=lambda c: "chunk{}-strip{}-piece{}".format(*c))
+@pytest.mark.parametrize("name", list(IMAGES))
+def test_grouped_sync_equals_every_variant_walk(name, size):
+    """K8's plain version, which walks each row's strip once per variant
+    and only its distinct decodes past the strip, gives the links,
+    membership and marks of a walk of every variant from its row's first
+    bit, integer for integer."""
+    plan, words, nbits, rows = _sync_batch(name, size[0])
+    bits = [8 * x for x in size]
+    got = st.sync_ref(plan, words, nbits, rows, *bits)
+    want = sync_every_variant(plan, words, nbits, rows, *bits)
+    for what, a, b in zip(("links", "member", "marks"), got, want):
+        assert torch.equal(a, b), what
+
+
+@pytest.mark.parametrize("name", list(IMAGES))
+def test_grouped_sync_equals_every_variant_walk_damaged(name):
+    """The same on four frames damaged four ways, at 64-byte rows with
+    16-byte strips and pieces: lanes die in the strip and past it, and
+    rows that never resynchronize miss their links."""
+    plan, words, nbits, rows = _sync_batch(name, 64, (1, 2, 3, 4), True)
+    got = st.sync_ref(plan, words, nbits, rows, 512, 128, 128)
+    want = sync_every_variant(plan, words, nbits, rows, 512, 128, 128)
+    for what, a, b in zip(("links", "member", "marks"), got, want):
+        assert torch.equal(a, b), what
+    assert (want[0][:, st.L_ST] == st.ST_END).sum() > rows.F
+
+
+def test_groups_are_the_lowest_variant_at_each_strip_mark():
+    """With pieces as long as the strip, boundary 1's mark of the
+    every-variant walk is each lane's strip mark.  Every lane that
+    reaches it is grouped with the lowest variant of its row at the same
+    (bit, slot), with its own ordinal there; a lane that ends before it
+    has no group.  A row whose variants never meet in the strip keeps all
+    of them; most rows keep fewer."""
+    plan, words, nbits, rows = _sync_batch("420", 16, (1,))
+    bpm = plan.blocks_per_mcu
+    head = st.sync_head_ref(plan, words, nbits, rows, 128, 8, 8)
+    mark = sync_every_variant(plan, words, nbits, rows, 128, 8, 8)[2][:, 0]
+    group = head.group.numpy()
+    all_kept = fewer = 0
+    for q in range(rows.R):
+        at = mark[q * bpm:(q + 1) * bpm].numpy()
+        reached = at[:, st.M_ORD] != st.MARK_NONE
+        keys = [tuple(a[:2]) for a in at]
+        for v in range(bpm):
+            g = group[q * bpm + v]
+            if not reached[v]:
+                assert g[st.G_SRV] == -1 and g[st.G_BIT] == -1
+                continue
+            lowest = min(w for w in range(bpm)
+                         if reached[w] and keys[w] == keys[v])
+            assert g[st.G_SRV] == lowest
+            assert tuple(g[[st.G_BIT, st.G_SLOT, st.G_ORD]]) == tuple(at[v])
+        kept = int((group[q * bpm:(q + 1) * bpm, st.G_SRV]
+                    == np.arange(bpm)).sum())
+        if reached.all() and len(set(keys)) == bpm:
+            assert kept == bpm
+            all_kept += 1
+        fewer += kept < bpm
+    assert all_kept > 0 and fewer > 0
+
+
+def test_survivors_on_bench_content_are_few():
+    """On the benchmark's content (a 480 x 272 cut of the 1080p frame,
+    4:2:0 q75, no restart markers) at the engine's default sizes, fewer
+    than half of the lanes survive their strip: the tail walk decodes
+    less than half of what a walk of every variant would."""
+    from jpeg_tpu_torch.utils import synth
+
+    px = synth.make_frame(0)[:272, :480]
+    ppm = b"P6\n480 272\n255\n" + px.tobytes()
+    data = encode_jpeg(ppm, EncodeParams(h=2, v=2, quality=75,
+                                         restart_interval=0, optimize=False))
+    plan, _ = plan_of(data)
+    words, nbits, rows = speculative.prepare_batch([segment_of(data)], CPU)
+    bits = [8 * x for x in (speculative.CHUNK_BYTES, speculative.STRIP_BYTES,
+                            speculative.PIECE_BYTES)]
+    head = st.sync_head_ref(plan, words, nbits, rows, *bits)
+    bpm = plan.blocks_per_mcu
+    srv = head.group[:, st.G_SRV]
+    survivors = int((srv == torch.arange(rows.R * bpm) % bpm).sum())
+    assert rows.R > 8 and 0 < survivors < rows.R * bpm // 2

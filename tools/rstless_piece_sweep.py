@@ -41,7 +41,7 @@ def device_ms(run, kernel_names) -> dict:
         if e.device_type != DeviceType.CUDA:
             continue
         for k in kernel_names:
-            if f"::{k}(" in e.name:
+            if f"::{k}(" in e.name or f"::{k}<" in e.name:
                 out[k] += (e.time_range.end - e.time_range.start) / 1e3
     return out
 
