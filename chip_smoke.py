@@ -60,7 +60,10 @@ process exits non-zero without printing the result line:
    every symbol kind, once with tables that code every symbol and once
    with one symbol left without a code (``missing``), and on a frame of
    worst-case blocks under 16-bit codes (every block at or near
-   ``word_capacity``); a warm call of ``encode_scan`` and of
+   ``word_capacity``); ``block_histogram`` also on every case of
+   ``synth.hostile_hist`` (INT_MIN and +-32767, no EOB, zero runs of 16,
+   31 and 47, eight tables), alone and added into a caller's histogram
+   (``out=``); a warm call of ``encode_scan`` and of
    ``pixels_to_zz`` runs under ``torch.cuda.set_sync_debug_mode("error")``,
    so neither may sync with the host;
 8. encode against JAX: the coefficients of every corpus stream the port
@@ -98,7 +101,11 @@ process exits non-zero without printing the result line:
     byte-identical to jpeg_tpu's committed digests; a mixed stream falls
     back frame by frame and counts it; each exact kernel (``idct_exact``,
     ``fdct_exact``, ``color_exact``) bitwise equal to its plain version
-    on 1080p planes and on seeded random inputs, with times;
+    on 1080p planes and on seeded random inputs (``fdct_exact`` also on
+    every case of ``synth.hostile_fdct``: 12-bit samples, exact .5
+    ties, Q = 1 and 255, and on the Y plane 4 bytes past a 16-byte
+    boundary), with times and the host time of each step of its
+    wrapper;
 13. RST-less: 16 frames of 1080p 4:2:0 q75 encoded on the card with no
     restart markers (bench.py's ``p_rl``) decode through
     ``mjpeg.decode_stream_device`` on the speculative engine (the
@@ -127,7 +134,10 @@ process exits non-zero without printing the result line:
 
 Every kernel's time is printed beside its bound (``bound``: the bytes it
 must move at 3.35 TB/s or its operations at the peak rate of their type
-(``PEAK_OPS_PER_S``), whichever is larger) and its roofline share.  The
+(``PEAK_OPS_PER_S``), whichever is larger) and its roofline share: a
+call's time with its wrapper (CUDA events over back-to-back calls,
+``ms``) and its device-only time (the same calls captured in one CUDA
+graph and replayed, ``device_ms``, which the share is taken of).  The
 line before the last is a JSON object describing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
 
@@ -144,8 +154,10 @@ prepared bench frames (segment decode and dense tail),
 damaged (on the register lookahead too where the checkout has that
 route), ``pixels_to_zz`` on the 8-frame bench pixels, and
 ``encode_scan`` on their blocks at restart intervals 4 and 7 and with
-one segment per frame (20 back-to-back calls, CUDA events, three
-times), the end-to-end ``encode_batch`` of the 16 bench frames,
+one segment per frame, ``block_histogram`` on the ri=4 blocks and
+``fdct_exact`` on the 1080p Y plane of bench frame 0 (20 back-to-back
+calls, CUDA events, and device only: the 20 calls in one CUDA graph,
+three times each), the end-to-end ``encode_batch`` of the 16 bench frames,
 default and optimized, and where the checkout has the RST-less engine
 the end-to-end decode of phase 13's stream (host clock, median of 5,
 three times), each with
@@ -378,9 +390,14 @@ def segment_bound(plan: ScanPlan, nbits: torch.Tensor, coeffs: torch.Tensor,
                  + 4 * place_cuda._staged_ints(plan), int(nb.sum()), "int32")
 
 
-def log_bound(name: str, ms: float, b: dict, card: str) -> None:
+def log_bound(name: str, ms: float, b: dict, card: str,
+              dev_ms: float) -> None:
+    """Log a kernel's bound and its roofline share, of the device-only time
+    (``dev_ms``) and of the time per call with the wrapper (``ms``)."""
     log(f"bound {name}: {b['bound_ms']} ms by {b['bound_by']}, roofline "
-        f"share {b['bound_ms'] / ms} ({ms} ms) [{card}]")
+        f"share {b['bound_ms'] / dev_ms} of the device-only {dev_ms} ms, "
+        f"{b['bound_ms'] / ms} of {ms} ms a call (wrapper share "
+        f"{1 - dev_ms / ms}) [{card}]")
 
 
 def busy_us(intervals) -> float:
@@ -404,6 +421,55 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device-only milliseconds of one ``fn()``, the host time of the
+    wrapper that launches its work left out: ``reps`` calls captured in
+    one CUDA graph, whose replay is timed with CUDA events, over
+    ``reps``."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
+def kernel_ms(name: str, fn, reps: int, card: str) -> tuple:
+    """(ms a call from CUDA events over ``reps`` back-to-back calls, the
+    wrapper's host time included; device-only ms a call, ``device_ms``),
+    logged with the host ms a call to enqueue the same calls.  The
+    device-only time comes from a graph, not from torch.profiler: on the
+    H100 machine the profiler drops a growing share of device events as a
+    run goes on (all of phase 6's kept, ~90% of phase 12's, none of K9's
+    in phase 13)."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    dev_ms = device_ms(fn, reps)
+    log(f"wrapper {name}: {ms} ms a call (CUDA events), device-only "
+        f"{dev_ms} ms (CUDA graph of {reps} calls), host {host} ms a call "
+        f"to enqueue [{card}]")
+    return ms, dev_ms
 
 
 def profile_window(run, span_prefix: str, card: str, what: str,
@@ -666,6 +732,36 @@ def compare_scan(label: str, enc: DeviceEncoder, zz: torch.Tensor,
     return err, hist_err
 
 
+def compare_hist_hostile(dev: torch.device) -> int:
+    """``block_histogram`` against ``hist_from_blocks_ref`` on every case
+    of ``synth.hostile_hist`` (INT_MIN and +-32767, no EOB, zero runs of
+    16, 31 and 47, eight tables; a short last group of blocks), exactly,
+    and once added into a caller's histogram (``out=``).  -> max |diff|
+    (0)."""
+    err = 0
+    for case in synth.HIST_CASES:
+        zz, dc_tab, ac_tab, T = synth.hostile_hist(case)
+        zz, dc_tab, ac_tab = (torch.from_numpy(a).to(dev)
+                              for a in (zz, dc_tab, ac_tab))
+        ref = hist_from_blocks_ref(zz, dc_tab, ac_tab, T)
+        acc = torch.randint(0, 1000, (T, 256), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(3)
+                            ).to(dev)
+        want = acc + ref
+        got = block_histogram(zz, dc_tab, ac_tab, T)
+        into = block_histogram(zz, dc_tab, ac_tab, T, out=acc)
+        torch.cuda.synchronize()
+        err = max(err, int((got.to(torch.int64) - ref).abs().max()),
+                  int((into.to(torch.int64) - want).abs().max()))
+        if err or into is not acc:
+            raise AssertionError(f"block_histogram hostile {case}: differs "
+                                 f"from its plain version by {err}")
+        log(f"kernel-vs-plain block_histogram hostile {case}: "
+            f"{zz.shape[0]} blocks, T={T}, {int(ref.sum())} symbols; equal, "
+            f"and added into out=")
+    return err
+
+
 def check_no_sync(label: str, run) -> None:
     """A warm ``run()`` (its constants and chunk tables already on the
     card, whose first upload from pageable memory syncs by design) under
@@ -904,7 +1000,7 @@ def encode_phases(card: str, streams: dict, decs: dict,
         "worst-case blocks (1 frame, category 16, 16-bit codes)", enc, worst,
         *long_codes(T, dev), False))
     scan_err = max(e[0] for e in errs)
-    hist_err = max(e[1] for e in errs)
+    hist_err = max(max(e[1] for e in errs), compare_hist_hostile(dev))
     order, seg_of, dc_tab, ac_tab = enc.chunk_tables(CHUNK)
     sargs = (zz, order, seg_of, dc_tab, ac_tab,
              torch.from_numpy(enc.ehufco).to(dev),
@@ -995,16 +1091,18 @@ def encode_phases(card: str, streams: dict, decs: dict,
         f"per {STREAM_FRAMES} frames, dense stage + segment encode, words "
         f"left on the card, mean of {reps}) [{card}]")
 
-    times = {
-        "pixels_to_zz": (
-            cuda_ms(lambda: pixels_to_zz(chunk, qt, prev, geom), 20),
-            cuda_ms(lambda: pixels_to_zz_ref(chunk, qt, prev, geom), 2)),
-        "encode_scan": (cuda_ms(lambda: encode_scan(*sargs), 20),
-                        cuda_ms(lambda: encode_scan_ref(*sargs), 2)),
+    calls = {
+        "pixels_to_zz": (lambda: pixels_to_zz(chunk, qt, prev, geom),
+                         lambda: pixels_to_zz_ref(chunk, qt, prev, geom)),
+        "encode_scan": (lambda: encode_scan(*sargs),
+                        lambda: encode_scan_ref(*sargs)),
         "block_histogram": (
-            cuda_ms(lambda: block_histogram(zz, dc_tab, ac_tab, T), 20),
-            cuda_ms(lambda: hist_from_blocks_ref(zz, dc_tab, ac_tab, T), 2)),
+            lambda: block_histogram(zz, dc_tab, ac_tab, T),
+            lambda: hist_from_blocks_ref(zz, dc_tab, ac_tab, T)),
     }
+    # name -> (ms a call, device-only ms, plain ms)
+    times = {name: (*kernel_ms(name, kern, 20, card), cuda_ms(plain, 2))
+             for name, (kern, plain) in calls.items()}
     scan_out = encode_scan(*sargs)
     hist = block_histogram(zz, dc_tab, ac_tab, T)
     bounds = {
@@ -1018,10 +1116,10 @@ def encode_phases(card: str, streams: dict, decs: dict,
         "block_histogram": bound(nbytes(zz, dc_tab, ac_tab, hist),
                                  zz.numel(), "int32"),
     }
-    for name, (k_ms, p_ms) in times.items():
-        log(f"time {name}_ms={k_ms} plain_ms={p_ms} per {CHUNK}-frame 1080p "
-            f"chunk [{card}]")
-        log_bound(name, k_ms, bounds[name], card)
+    for name, (k_ms, d_ms, p_ms) in times.items():
+        log(f"time {name}_ms={k_ms} device_ms={d_ms} plain_ms={p_ms} per "
+            f"{CHUNK}-frame 1080p chunk [{card}]")
+        log_bound(name, k_ms, bounds[name], card, d_ms)
     profile_window(
         lambda: enc.encode_batch(px, optimize=False, chunk=CHUNK),
         "device_encode.", card, f"{STREAM_FRAMES}-frame encode")
@@ -1039,7 +1137,8 @@ def encode_phases(card: str, streams: dict, decs: dict,
     return [{"name": name, "route": "cuda",
              "source": f"jpeg_tpu_torch/csrc/{src}", "replaces": replaces,
              "launches": n, "max_abs_err": err, "ms": times[name][0],
-             "plain_ms": times[name][1], **bounds[name]}
+             "device_ms": times[name][1], "plain_ms": times[name][2],
+             **bounds[name]}
             for name, src, replaces, n, err in rows]
 
 def bench_pixels(dev: torch.device) -> torch.Tensor:
@@ -1131,20 +1230,24 @@ def general_phase(card: str, dev: torch.device, corpus_err: int,
             f"equal to lane_layout + contested_rows")
         if tag == "intact" and n_rows:
             raise AssertionError("intact ri=7 chunk has contested MCUs")
-    l_ms = cuda_ms(lambda: place_cuda.boundary_layout(*largs), 20)
+    l_ms, ld_ms = kernel_ms("boundary_layout",
+                            lambda: place_cuda.boundary_layout(*largs), 20,
+                            card)
     lp_ms = cuda_ms(lambda: (place_cuda.lane_layout(counts, CHUNK, spf),
                              place_cuda.contested_rows(*largs)), 20)
     lb = bound(nbytes(counts, partial, *got), counts.numel(), "int32")
-    log(f"time boundary_layout_ms={l_ms} plain_ms={lp_ms} per {CHUNK}-frame "
-        f"ri=7 chunk [{card}]")
-    log_bound("boundary_layout", l_ms, lb, card)
-    k_ms = cuda_ms(lambda: decode_segments_general(*args), 20)
+    log(f"time boundary_layout_ms={l_ms} device_ms={ld_ms} plain_ms={lp_ms} "
+        f"per {CHUNK}-frame ri=7 chunk [{card}]")
+    log_bound("boundary_layout", l_ms, lb, card, ld_ms)
+    k_ms, kd_ms = kernel_ms("decode_segments_general",
+                            lambda: decode_segments_general(*args), 20, card)
     p_ms = cuda_ms(lambda: decode_segments_general_ref(*args), 2)
-    log(f"time decode_segments_general_ms={k_ms} plain_ms={p_ms} per "
+    log(f"time decode_segments_general_ms={k_ms} device_ms={kd_ms} "
+        f"plain_ms={p_ms} per "
         f"{CHUNK}-frame ri=7 1080p chunk ({words.shape[0]} lanes); "
         f"decode_segments_ms={region_ms} on the ri=4 bench chunk [{card}]")
     b = segment_bound(dec.plan, nbits, *decode_segments_general(*args))
-    log_bound("decode_segments_general", k_ms, b, card)
+    log_bound("decode_segments_general", k_ms, b, card, kd_ms)
     mpix = STREAM_FRAMES * synth.WIDTH * synth.HEIGHT / 1e6
     med, runs = median_s(lambda: jpeg_tpu_torch.mjpeg.decode_stream_device(
         stream, dev, chunk=CHUNK), E2E_RUNS)
@@ -1156,12 +1259,12 @@ def general_phase(card: str, dev: torch.device, corpus_err: int,
              "replaces": "jpeg_tpu/entropy/lockstep_jax.py:568",
              "launches": launches,
              "max_abs_err": max(corpus_err, errs["decode_segments_general"]),
-             "ms": k_ms, "plain_ms": p_ms, **b},
+             "ms": k_ms, "device_ms": kd_ms, "plain_ms": p_ms, **b},
             {"name": "boundary_layout", "route": "cuda",
              "source": "jpeg_tpu_torch/csrc/decode_segments.cu",
              "replaces": "jpeg_tpu/entropy/lockstep_jax.py:595",
              "launches": layout_launches, "max_abs_err": layout_err,
-             "ms": l_ms, "plain_ms": lp_ms, **lb}]
+             "ms": l_ms, "device_ms": ld_ms, "plain_ms": lp_ms, **lb}]
 
 
 def bitwise(name: str, label: str, got: torch.Tensor,
@@ -1284,10 +1387,21 @@ def single_image_phase(card: str, dev: torch.device, streams: dict) -> list:
     y_blocks = plane_to_blocks(ycc[..., 0], 135, 240).reshape(-1, 64)
     cb_blocks = plane_to_blocks(downsample_box(ycc[:1072, :, 1], 2, 2), 67,
                                 120).reshape(-1, 64)
+    # the hostile cases of the CPU tests, and the Y plane at an address 4
+    # bytes past a 16-byte boundary (the kernel's scalar loads and stores)
+    hostile = []
+    for case in synth.FDCT_CASES:
+        samples, q, bits = synth.hostile_fdct(case)
+        hostile.append((f"hostile {case}", torch.from_numpy(samples).to(dev),
+                        torch.from_numpy(q).to(dev), bits))
+    shifted = torch.empty(y_blocks.numel() + 1, dtype=torch.float32,
+                          device=dev)[1:].view(-1, 64)
+    shifted.copy_(y_blocks)
     for label, blocks, q, prec in (
             ("1080p Y plane", y_blocks, qt[0], 8),
             ("1080p Cb plane (box 2x2)", cb_blocks, qt[1], 8),
-            ("random 12-bit samples", rnd_s, rnd_q, 12)):
+            ("random 12-bit samples", rnd_s, rnd_q, 12),
+            ("1080p Y plane 4 bytes off 16", shifted, qt[0], 8), *hostile):
         args = (blocks.contiguous(), q, prec)
         errs["fdct_exact"] = max(errs["fdct_exact"], bitwise(
             "fdct_exact", f"{label} {tuple(blocks.shape)}",
@@ -1330,15 +1444,17 @@ def single_image_phase(card: str, dev: torch.device, streams: dict) -> list:
 
     c_y = torch.from_numpy(planes[cs.geometry.components[0].cid]).to(dev)
     y_in = y_blocks.contiguous()
-    times = {
-        "idct_exact": (cuda_ms(lambda: idct_exact(c_y, qt[0], 8), 20),
-                       cuda_ms(lambda: idct_exact_ref(c_y, qt[0], 8), 2)),
-        "fdct_exact": (cuda_ms(lambda: fdct_exact(y_in, qt[0], 8), 20),
-                       cuda_ms(lambda: fdct_exact_ref(y_in, qt[0], 8), 2)),
-        "color_exact": (cuda_ms(lambda: color_exact(ycc, 8, "to_rgb"), 20),
-                        cuda_ms(lambda: color_exact_ref(ycc, 8, "to_rgb"),
-                                2)),
+    calls = {
+        "idct_exact": (lambda: idct_exact(c_y, qt[0], 8),
+                       lambda: idct_exact_ref(c_y, qt[0], 8)),
+        "fdct_exact": (lambda: fdct_exact(y_in, qt[0], 8),
+                       lambda: fdct_exact_ref(y_in, qt[0], 8)),
+        "color_exact": (lambda: color_exact(ycc, 8, "to_rgb"),
+                        lambda: color_exact_ref(ycc, 8, "to_rgb")),
     }
+    # name -> (ms a call, device-only ms, plain ms)
+    times = {name: (*kernel_ms(name, kern, 20, card), cuda_ms(plain, 2))
+             for name, (kern, plain) in calls.items()}
     what = {"idct_exact": f"1080p Y plane, {c_y.shape[0]} blocks",
             "fdct_exact": f"1080p Y plane, {y_in.shape[0]} blocks",
             "color_exact": "1080p frame, YCbCr -> RGB"}
@@ -1352,15 +1468,16 @@ def single_image_phase(card: str, dev: torch.device, streams: dict) -> list:
         "color_exact": bound(nbytes(ycc, color_exact(ycc, 8, "to_rgb")),
                              ycc.shape[0] * ycc.shape[1] * 10, "float64"),
     }
-    for name, (k_ms, p_ms) in times.items():
-        log(f"time {name}_ms={k_ms} plain_ms={p_ms} per {what[name]} "
-            f"[{card}]")
-        log_bound(name, k_ms, bounds[name], card)
+    for name, (k_ms, d_ms, p_ms) in times.items():
+        log(f"time {name}_ms={k_ms} device_ms={d_ms} plain_ms={p_ms} per "
+            f"{what[name]} [{card}]")
+        log_bound(name, k_ms, bounds[name], card, d_ms)
     return [{"name": name, "route": "cuda",
              "source": "jpeg_tpu_torch/csrc/dense_exact.cu",
              "replaces": replaces, "launches": launches[name],
              "max_abs_err": errs[name], "ms": times[name][0],
-             "plain_ms": times[name][1], **bounds[name]}
+             "device_ms": times[name][1], "plain_ms": times[name][2],
+             **bounds[name]}
             for name, replaces in (
                 ("idct_exact", "jpeg_tpu/ops/dct.py:70"),
                 ("fdct_exact", "jpeg_tpu/ops/dct.py:81"),
@@ -1700,10 +1817,11 @@ def rstless_phase(card: str, dev: torch.device) -> list:
     }
     times = {}
     for name, (kern, plain) in calls.items():
-        times[name] = (cuda_ms(kern, 10), cuda_ms(plain, 1))
-        log(f"time {name}_ms={times[name][0]} plain_ms={times[name][1]} per "
-            f"{CHUNK}-frame 1080p ri=0 batch ({rows.R} rows) [{card}]")
-        log_bound(name, times[name][0], bounds[name], card)
+        times[name] = (*kernel_ms(name, kern, 10, card), cuda_ms(plain, 1))
+        log(f"time {name}_ms={times[name][0]} device_ms={times[name][1]} "
+            f"plain_ms={times[name][2]} per {CHUNK}-frame 1080p ri=0 batch "
+            f"({rows.R} rows) [{card}]")
+        log_bound(name, times[name][0], bounds[name], card, times[name][1])
 
     mpix = STREAM_FRAMES * synth.WIDTH * synth.HEIGHT / 1e6
     med, runs = median_s(lambda: jpeg_tpu_torch.mjpeg.decode_stream_device(
@@ -1749,7 +1867,8 @@ def rstless_phase(card: str, dev: torch.device) -> list:
              "source": "jpeg_tpu_torch/csrc/decode_rstless.cu",
              "replaces": replaces[name], "launches": launches[name],
              "max_abs_err": errs[name], "ms": times[name][0],
-             "plain_ms": times[name][1], **bounds[name]}
+             "device_ms": times[name][1], "plain_ms": times[name][2],
+             **bounds[name]}
             for name in calls]
 
 
@@ -1828,6 +1947,14 @@ def time_tree(tree: str) -> dict:
                     torch.from_numpy(e.ehufsi).to(dev),
                     CHUNK * e.n_segments) for e in (enc4, enc, enc1)}
     px16 = bench_pixels(dev)
+    # K7 on the plain dense stage's blocks of the 8 bench frames; K4's
+    # FDCT on the 1080p Y plane of the exact encode (bench frame 0)
+    _, _, dc4, ac4 = enc4.chunk_tables(CHUNK)
+    hargs = (sargs[4][0], dc4, ac4, len(enc4.table_keys))
+    ycc = color_exact_ref(torch.from_numpy(synth.make_frame(0)).to(dev)
+                          .to(torch.float32), 8, "to_ycc")
+    fargs = (plane_to_blocks(ycc[..., 0], 135, 240).reshape(-1, 64)
+             .contiguous(), torch.from_numpy(enc4.qtables[0]).to(dev), 8)
     # name -> (one call, its digest, timing: "routed" (each word route,
     # CUDA events), "device" (CUDA events) or "host" (host clock))
     cases = {
@@ -1851,6 +1978,9 @@ def time_tree(tree: str) -> dict:
                              "device"),
         f"encode_scan ri={enc1.ri}": (lambda: encode_scan(*sargs[enc1.ri]),
                                       scan_digest, "device"),
+        "block_histogram ri=4": (lambda: block_histogram(*hargs), digest,
+                                 "device"),
+        "fdct_exact 1080p Y": (lambda: fdct_exact(*fargs), digest, "device"),
         "encode_batch ri=4 x16": (
             lambda: enc4.encode_batch(px16, optimize=False, chunk=CHUNK),
             jpegs_digest, "host"),
@@ -1874,7 +2004,7 @@ def time_tree(tree: str) -> dict:
     out = {"tree": tree, "card": card, "torch": torch.__version__,
            "cases": {}}
     for name, (call, dig, timing) in cases.items():
-        rec = {"sha256": dig(call()), "ms": {}}
+        rec = {"sha256": dig(call()), "ms": {}, "device_ms": {}}
         # Device memory allocated at the peak of one call, in MiB, and
         # what was held when it started (inputs, cached buffers).
         torch.cuda.synchronize()
@@ -1894,10 +2024,14 @@ def time_tree(tree: str) -> dict:
                 rec["ms"][label] = [
                     median_s(call, 5)[0] * 1e3 if timing == "host"
                     else cuda_ms(call, 20) for _ in range(3)]
+                if timing != "host":  # device-only: a graph of 20 calls
+                    rec["device_ms"][label] = [device_ms(call, 20)
+                                               for _ in range(3)]
             finally:
                 if budget is not None:
                     place_cuda.STAGE_BYTES = saved
-        log(f"compare {tree} {name}: ms {rec['ms']}, peak "
+        log(f"compare {tree} {name}: ms {rec['ms']}, device-only ms "
+            f"{rec['device_ms']}, peak "
             f"{rec['peak_MiB']} MiB (held {rec['held_MiB']}) [{card}]")
         profile_window(call, "device_", card, f"one {name} call of {tree}",
                        top=16)
@@ -2062,16 +2196,21 @@ def main() -> None:
     words, nbits, qt = prepared[0]
     args = (dec.plan, words, nbits, CHUNK, dec.segs_per_frame, dec.ri,
             dec.total_blocks)
-    k_ms = cuda_ms(lambda: decode_segments(*args), 20)
+    k_ms, kd_ms = kernel_ms("decode_segments",
+                            lambda: decode_segments(*args), 20, card)
     p_ms = cuda_ms(lambda: decode_segments_ref(*args), 2)
-    log(f"time decode_segments_ms={k_ms} decode_segments_ref_ms={p_ms} "
+    log(f"time decode_segments_ms={k_ms} device_ms={kd_ms} "
+        f"decode_segments_ref_ms={p_ms} "
         f"per {CHUNK}-frame 1080p chunk ({words.shape[0]} lanes) [{card}]")
     region_bound = segment_bound(dec.plan, nbits, *decode_segments(*args))
-    log_bound("decode_segments", k_ms, region_bound, card)
+    log_bound("decode_segments", k_ms, region_bound, card, kd_ms)
     coeffs, _ = dec.decode_prepared(words, nbits, CHUNK)
-    d_ms = cuda_ms(lambda: _dense_from_coeffs(coeffs, dec.geom, qt), 20)
+    d_ms, dd_ms = kernel_ms(
+        "coeffs_to_pixels", lambda: _dense_from_coeffs(coeffs, dec.geom, qt),
+        20, card)
     dp_ms = cuda_ms(lambda: coeffs_to_pixels_ref(coeffs, qt, dec.geom), 3)
-    log(f"time dense_tail_ms={d_ms} plain_ms={dp_ms} per {CHUNK}-frame "
+    log(f"time dense_tail_ms={d_ms} device_ms={dd_ms} plain_ms={dp_ms} per "
+        f"{CHUNK}-frame "
         f"1080p chunk (coeffs_to_pixels kernel; plain version) [{card}]")
     # K3, the dense decode tail: coefficients and the chunk's one set of
     # tables (frame stride 0) in, pixels out; a separable IDCT per block,
@@ -2080,7 +2219,7 @@ def main() -> None:
     tail_bound = bound(nbytes(coeffs, qt[:1], tail_px),
                        coeffs.shape[0] * coeffs.shape[1] * 2 * 64 * 8 * 2,
                        "float32")
-    log_bound("dense_tail", d_ms, tail_bound, card)
+    log_bound("dense_tail", d_ms, tail_bound, card, dd_ms)
 
     # Card busy share of one stream decode.  The decoder's spans (prepare
     # / dispatch) are recorded as host events.
@@ -2097,6 +2236,7 @@ def main() -> None:
         "launches": launches,
         "max_abs_err": max_err,
         "ms": k_ms,
+        "device_ms": kd_ms,
         "plain_ms": p_ms,
         **region_bound,
     }, {
@@ -2107,6 +2247,7 @@ def main() -> None:
         "launches": tail_launches,
         "max_abs_err": tail_err,
         "ms": d_ms,
+        "device_ms": dd_ms,
         "plain_ms": dp_ms,
         **tail_bound,
     }]

@@ -81,8 +81,8 @@
 #include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
-#include <mutex>
-#include <vector>
+
+#include "resident.cuh"
 
 namespace {
 
@@ -526,51 +526,6 @@ coeffs_to_pixels_kernel(const int32_t* __restrict__ coeffs,  // [F, tb, 64]
   }
 }
 
-struct Resident {
-  const void* kernel;
-  int device;
-  size_t shared;
-  int ctas;
-};
-
-// The CTAs of `kernel` (THREADS each, `shared` bytes of dynamic shared
-// memory) that fit on the current device at once, its shared-memory
-// opt-in raised to `shared` where needed: found once per (kernel, device,
-// shared size) and kept, so a launch makes one host call (cudaGetDevice)
-// before its own.
-cudaError_t resident_ctas(const void* kernel, size_t shared, int* ctas) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  static std::mutex mu;
-  static std::vector<Resident> known;
-  std::lock_guard<std::mutex> lock(mu);
-  size_t opted = 0;
-  for (const Resident& r : known) {
-    if (r.kernel != kernel || r.device != device) continue;
-    if (r.shared == shared) {
-      *ctas = r.ctas;
-      return cudaSuccess;
-    }
-    opted = std::max(opted, r.shared);
-  }
-  if (shared > opted &&
-      (err = cudaFuncSetAttribute(kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  static_cast<int>(shared))) != cudaSuccess)
-    return err;
-  int per_sm = 0, sms = 0;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, THREADS, shared)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    device)) != cudaSuccess)
-    return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  known.push_back({kernel, device, shared, per_sm * sms});
-  *ctas = per_sm * sms;
-  return cudaSuccess;
-}
-
 template <typename T, int NC>
 cudaError_t launch_kernel(const int32_t* coeffs, const int32_t* qtables,
                          const float* lut, const int32_t* plan, T* out,
@@ -584,7 +539,8 @@ cudaError_t launch_kernel(const int32_t* coeffs, const int32_t* qtables,
   if (tiles > 0x7fffffff - (1 << 24)) return cudaErrorInvalidConfiguration;
   int ctas = 0;
   const cudaError_t err =
-      resident_ctas(reinterpret_cast<const void*>(kernel), shared, &ctas);
+      resident_ctas(reinterpret_cast<const void*>(kernel), THREADS, shared,
+                    &ctas);
   if (err != cudaSuccess) return err;
   const int64_t grid = std::min<int64_t>(tiles, ctas);
   kernel<<<static_cast<unsigned>(grid), THREADS, shared, s>>>(

@@ -10,8 +10,10 @@
 // ycck_to_rgb).  The JAX package runs those EAGERLY, one XLA executable
 // per elementwise op, because inside a jitted fusion XLA contracts mul+add
 // into FMAs and the result is no longer the C code's; that is its exact
-// mode's whole cost (VERDICT "weak" #4).  Here each 8x8 block is one
-// 64-thread group and each pixel one thread, and the arithmetic is
+// mode's whole cost (VERDICT "weak" #4).  Here the inverse DCT runs an
+// 8x8 block on a 64-thread group, the forward DCT a block on 8 lanes of a
+// warp (below), each pixel of a colour conversion one thread, and the
+// arithmetic is
 // written with the round-to-nearest intrinsics (__fmul_rn, __fadd_rn,
 // __fsub_rn, __fdiv_rn, __dmul_rn, __dadd_rn, __dsub_rn), which nvcc never
 // contracts, in exactly the order of the plain versions
@@ -35,11 +37,18 @@
 // What bounds it on the H100: a 1080p 4:2:0 frame is ~49k blocks, 2 x 512
 // dependent multiply-adds each, and ~2M pixels of a few double operations
 // (the H100 runs double at half its float rate outside the tensor cores);
-// about 25 MB moved per frame.  All of it is far below the card's limits,
-// so the simple one-thread-per-coefficient design stays.
+// about 25 MB moved per frame, so bytes bound each kernel (~5 us for the
+// 1080p Y plane's 32,640 blocks in and out).  The FDCT's first design
+// (8,160 CTAs of 256 threads, each reloading the LUT and crossing two
+// CTA barriers, one scalar load and store a thread) took ~2.6x that on
+// the device; the one below keeps a block in a group of 8 lanes.  The
+// IDCT keeps the one-thread-per-coefficient design.
 
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
+
+#include "resident.cuh"
 
 namespace {
 
@@ -85,36 +94,107 @@ idct_exact_kernel(const int32_t* __restrict__ coeffs,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-fdct_exact_kernel(const float* __restrict__ samples,
-                  const int32_t* __restrict__ qtable,
-                  const float* __restrict__ lut, int32_t* __restrict__ out,
-                  int64_t n_blocks, float shift) {
-  __shared__ float a[64];
-  __shared__ float in[BLOCKS_PER_CTA][64];
-  __shared__ float rows[BLOCKS_PER_CTA][64];
-  const int t = threadIdx.x & 63;
-  const int b = threadIdx.x >> 6;
-  if (threadIdx.x < 64) a[threadIdx.x] = lut[threadIdx.x];
-  const int64_t blk = static_cast<int64_t>(blockIdx.x) * BLOCKS_PER_CTA + b;
-  const bool live = blk < n_blocks;
-  if (live) in[b][t] = __fsub_rn(samples[blk * 64 + t], shift);
-  __syncthreads();
-  const int y = t >> 3, u = t & 7;
-  if (live) {
-    float s = __fmul_rn(in[b][y * 8], a[u]);
-    for (int x = 1; x < 8; ++x)
-      s = __fadd_rn(s, __fmul_rn(in[b][y * 8 + x], a[x * 8 + u]));
-    rows[b][t] = s;
+// fdct_exact: eight lanes own a block, lane y its row y, so a warp step
+// is 4 blocks (1 KB of contiguous samples, two 16-byte loads a lane).  The
+// row pass runs in registers with A from the kernel's parameters (the
+// constant bank: every lane reads the same entry at the same step); the
+// rows go through a warp-private shared tile under __syncwarp only; each
+// lane then sums its output row v = y from the 8 rows with its own column
+// of A (held in registers, as are its row's 8 quantizers) and stores it
+// as two 16-byte stores.  A persistent grid, no CTA barrier.
+struct Lut {
+  float a[64];  // A[x][u] at x * 8 + u
+};
+
+constexpr int FDCT_WARPS = 8;  // warps a CTA
+constexpr int FDCT_PITCH = 72;  // floats of a block's tile: 8 rows of 8,
+                                // padded so the 4 blocks' rows of a warp
+                                // load fall on distinct banks
+
+__device__ __forceinline__ void load8(const float* p, bool vec, float* v) {
+  if (vec) {
+    const float4 lo = reinterpret_cast<const float4*>(p)[0];
+    const float4 hi = reinterpret_cast<const float4*>(p)[1];
+    v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+    v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = p[k];
   }
-  __syncthreads();
-  if (live) {
-    const int v = y;  // output row: vertical frequency
-    float s = __fmul_rn(rows[b][u], a[v]);
-    for (int yy = 1; yy < 8; ++yy)
-      s = __fadd_rn(s, __fmul_rn(rows[b][yy * 8 + u], a[yy * 8 + v]));
-    const float q = static_cast<float>(qtable[t]);
-    out[blk * 64 + t] = static_cast<int32_t>(roundf(__fdiv_rn(s, q)));
+}
+
+__global__ void __launch_bounds__(FDCT_WARPS * 32)
+fdct_exact_kernel(const float* __restrict__ samples,
+                  const int32_t* __restrict__ qtable, const Lut lut,
+                  int32_t* __restrict__ out, int64_t n_blocks, float shift) {
+  __shared__ __align__(16) float tile[FDCT_WARPS][4 * FDCT_PITCH];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int y = lane & 7;  // the lane's input row and output row v
+  float* rows = tile[warp] + (lane >> 3) * FDCT_PITCH;
+  // A[k][v] for this lane's output row v = y, and its row's quantizers.
+  float acol[8], q[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    float c = 0.0f;
+#pragma unroll
+    for (int v = 0; v < 8; ++v)
+      if (y == v) c = lut.a[k * 8 + v];
+    acol[k] = c;
+    q[k] = static_cast<float>(qtable[y * 8 + k]);
+  }
+  const bool vec = ((reinterpret_cast<uintptr_t>(samples) |
+                     reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  const int64_t steps = (n_blocks + 3) / 4;
+  for (int64_t st = static_cast<int64_t>(blockIdx.x) * FDCT_WARPS + warp;
+       st < steps; st += static_cast<int64_t>(gridDim.x) * FDCT_WARPS) {
+    const int64_t blk = st * 4 + (lane >> 3);
+    const bool live = blk < n_blocks;
+    float x[8] = {};
+    if (live) load8(samples + blk * 64 + y * 8, vec, x);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) x[k] = __fsub_rn(x[k], shift);
+    // Row pass: r[y][u] = sum_x in[y][x] * A[x][u], ascending x.
+    float r[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      float s = __fmul_rn(x[0], lut.a[u]);
+#pragma unroll
+      for (int k = 1; k < 8; ++k)
+        s = __fadd_rn(s, __fmul_rn(x[k], lut.a[k * 8 + u]));
+      r[u] = s;
+    }
+    reinterpret_cast<float4*>(rows + y * 8)[0] =
+        make_float4(r[0], r[1], r[2], r[3]);
+    reinterpret_cast<float4*>(rows + y * 8)[1] =
+        make_float4(r[4], r[5], r[6], r[7]);
+    __syncwarp();
+    // Column pass: out[v][u] = sum_y r[y][u] * A[y][v], ascending y.
+    float o[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      float rk[8];
+      load8(rows + k * 8, true, rk);
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        o[u] = k == 0 ? __fmul_rn(rk[u], acol[0])
+                      : __fadd_rn(o[u], __fmul_rn(rk[u], acol[k]));
+    }
+    __syncwarp();  // the tile is free for the next step
+    if (live) {
+      int32_t c[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        c[u] = static_cast<int32_t>(roundf(__fdiv_rn(o[u], q[u])));
+      int32_t* dst = out + blk * 64 + y * 8;
+      if (vec) {
+        reinterpret_cast<int4*>(dst)[0] = make_int4(c[0], c[1], c[2], c[3]);
+        reinterpret_cast<int4*>(dst)[1] = make_int4(c[4], c[5], c[6], c[7]);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 8; ++u) dst[u] = c[u];
+      }
+    }
   }
 }
 
@@ -185,14 +265,26 @@ extern "C" int jt_idct_exact(const void* coeffs, const void* qtable,
   return static_cast<int>(cudaGetLastError());
 }
 
+// `lut` is a host pointer to the 64 floats of A[x][u], passed to the
+// kernel by value.
 extern "C" int jt_fdct_exact(const void* samples, const void* qtable,
                              const void* lut, void* out, long long n_blocks,
                              int precision, void* stream) {
   if (n_blocks <= 0) return 0;
-  fdct_exact_kernel<<<grid_for(n_blocks, BLOCKS_PER_CTA), THREADS, 0,
+  Lut a;
+  memcpy(a.a, lut, sizeof(a.a));
+  int ctas = 0;
+  const cudaError_t err = resident_ctas(
+      reinterpret_cast<const void*>(fdct_exact_kernel), FDCT_WARPS * 32, 0,
+      &ctas);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long warps = (n_blocks + 3) / 4;
+  const long long want = (warps + FDCT_WARPS - 1) / FDCT_WARPS;
+  fdct_exact_kernel<<<static_cast<unsigned>(want < ctas ? want : ctas),
+                      FDCT_WARPS * 32, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(samples), static_cast<const int32_t*>(qtable),
-      static_cast<const float*>(lut), static_cast<int32_t*>(out), n_blocks,
+      a, static_cast<int32_t*>(out), n_blocks,
       static_cast<float>(1 << (precision - 1)));
   return static_cast<int>(cudaGetLastError());
 }

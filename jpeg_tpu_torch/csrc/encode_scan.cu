@@ -41,11 +41,19 @@
 //      size, coalesced); the last segment's warp writes the stream's word
 //      count and the missing flag;
 //   5. hist_blocks (the optimize=True dry pass, encoder.c:525-558): one
-//      thread per block counts its block's symbols (walk_block) with
-//      integer atomics into a per-CTA shared-memory histogram [T, 256],
-//      and each CTA adds its nonzero bins into the global int32
-//      histogram.  Exact in int32 at any size, where the TPU's float32
-//      one-hot sums are exact only below 2^24 per bin.
+//      warp per block, read by the encode walk's for_each_block (two
+//      coalesced loads, UNROLL blocks in flight, two ballots for the
+//      nonzero mask):
+//      each lane finds its positions' symbols from the mask (the run with
+//      __clzll, its ZRLs, the (run, cat) symbol; the DC category on lane
+//      0, EOB on lane 31 unless position 63 is nonzero), so no lane loops
+//      over positions, and adds them with shared-memory atomics into its
+//      CTA's one [T, 256] histogram.  A persistent grid
+//      walks groups of 32 blocks, and each CTA adds its nonzero bins into
+//      the global int32 histogram once: integer adds, so the result is
+//      exact and the same in any order.  Exact in int32 at any size,
+//      where the TPU's float32 one-hot sums are exact only below 2^24 per
+//      bin.
 //
 // The symbol rules are those of encode_scan_device3 bit for bit, missing
 // codes included: an item is (ehufco[s] << cat) | extra over
@@ -59,7 +67,11 @@
 //
 // What bounds it on the H100: an 8-frame 1080p chunk is 391,680 blocks
 // (100 MB of int32 coefficients, read once) and ~1.6 MB of output, so
-// bytes bound it at ~30 us.  The earlier design (one thread per block)
+// bytes bound it at ~30 us; the histogram reads the same 100 MB and
+// writes 2-8 KB.  Its earlier design ran one thread per block, so every
+// warp load touched 32 block rows (32 L1 wavefronts a load), each thread
+// looped over its 64 positions with divergent branches, and it took ~4x
+// its bound.  The encode walk's earlier design (one thread per block)
 // read each block row with 32 rows per warp load, read the blocks twice,
 // stalled on a host sync between its passes and ORed every word with a
 // global atomic into a zeroed buffer; here every block load is two
@@ -73,14 +85,20 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "resident.cuh"
+
 namespace {
 
 constexpr int T_MAX = 8;  // stacked code tables
-constexpr int THREADS = 128;  // hist_blocks
+constexpr int HIST_WARPS = 16;  // warps a CTA of hist_blocks
 constexpr int SEG_WARPS = 8;  // segments (warps) per CTA
 constexpr int RING = 256;  // words of each warp's shared-memory ring
 constexpr int BLOCK_WORDS = 64;  // 2048 bits: the most one block takes
-constexpr int UNROLL = 4;  // blocks whose loads a warp keeps in flight
+// Blocks whose loads a warp keeps in flight.  For hist_blocks on an
+// 8-frame 1080p chunk (H100 80GB HBM3, 700 W; tools/hist_probe.py): 4 took
+// 0.0463 ms, 2 0.0475, 8 0.0530 (53 registers: fewer warps an SM), 16
+// 0.0774.
+constexpr int UNROLL = 4;
 // A warp's piece of a long segment: PIECE blocks, the first of a segment
 // at least HALF (below).
 constexpr int PIECE = 256;
@@ -105,37 +123,6 @@ __device__ __forceinline__ uint32_t extra_bits(int v, int cat) {
   const uint32_t adj = static_cast<uint32_t>(v < 0 ? v - 1 : v);
   return adj & ((1u << cat) - 1u);
 }
-
-// ---- block_histogram: one thread per block ------------------------------
-
-// Walks one block's Huffman items in bitstream order, calling
-// sink(sym, cat, extra) for each: `sym` indexes the stacked [T, 256] code
-// tables (table * 256 + symbol value), and `cat` extra bits `extra`
-// follow its code.
-template <typename Sink>
-__device__ __forceinline__ void walk_block(const int32_t* __restrict__ row,
-                                           int dct, int act, Sink& sink) {
-  const int dc = row[0];
-  const int dcat = category(dc);
-  sink(dct * 256 + dcat, dcat, extra_bits(dc, dcat));
-  const int a = act * 256;
-  int last = 0;
-  for (int p = 1; p < 64; ++p) {
-    const int v = row[p];
-    if (v == 0) continue;
-    const int gap = p - last - 1;
-    for (int z = 0; z < (gap >> 4); ++z) sink(a + 0xF0, 0, 0u);
-    const int cat = category(v);
-    sink(a + (((gap & 15) << 4) | cat), cat, extra_bits(v, cat));
-    last = p;
-  }
-  if (last != 63) sink(a, 0, 0u);
-}
-
-struct HistSink {
-  int32_t* h;  // the CTA's shared [T, 256] histogram
-  __device__ void operator()(int sym, int, uint32_t) { atomicAdd(h + sym, 1); }
-};
 
 // ---- encode_scan: one warp per restart segment --------------------------
 
@@ -191,10 +178,12 @@ __device__ __forceinline__ int run_before(uint64_t mask, int p) {
 
 // Calls fn(lo_val, hi_val, dc table, ac table) for each block of
 // bitstream positions [lo, hi), in order, on the whole warp: lane l holds
-// the block's coefficients at positions l and l + 32.  The rows and
-// table ids of 32 blocks come in one coalesced load, and the coefficient
-// loads of UNROLL blocks are in flight together.
-template <typename Fn>
+// the block's coefficients at positions l and l + 32.  Position i is row
+// order[i] of zz with LISTED (the encode walk), else row i (the
+// histogram, which took 14% longer with its rows shuffled as well).
+// The rows and table ids of 32 blocks come in one coalesced load, and the
+// coefficient loads of UNROLL blocks are in flight together.
+template <bool LISTED, typename Fn>
 __device__ __forceinline__ void for_each_block(
     const int32_t* __restrict__ zz, const int32_t* __restrict__ order,
     const int32_t* __restrict__ dc_tab, const int32_t* __restrict__ ac_tab,
@@ -203,7 +192,7 @@ __device__ __forceinline__ void for_each_block(
     const int n = min(32, hi - base);
     int row = 0, dct = 0, act = 0;
     if (lane < n) {
-      row = order[base + lane];
+      row = LISTED ? order[base + lane] : base + lane;
       dct = dc_tab[row];
       act = ac_tab[row];
     }
@@ -211,7 +200,8 @@ __device__ __forceinline__ void for_each_block(
       int va[UNROLL], vb[UNROLL];
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
-        const int r = __shfl_sync(FULL, row, (j + u) & 31);
+        int r = base + j + u;
+        if constexpr (LISTED) r = __shfl_sync(FULL, row, (j + u) & 31);
         va[u] = vb[u] = 0;
         if (j + u < n) {
           const int32_t* p = zz + static_cast<int64_t>(r) * 64;
@@ -413,7 +403,7 @@ encode_segments_kernel(const int32_t* __restrict__ zz,
   __syncwarp();
   Pack pk{tab, ring, scratch + static_cast<int64_t>(start) * BLOCK_WORDS,
           lane};
-  for_each_block(zz, order, dc_tab, ac_tab, start, end, lane, pk);
+  for_each_block<true>(zz, order, dc_tab, ac_tab, start, end, lane, pk);
   pk.flush((pk.bit + 31) >> 5);
   const bool missing = __any_sync(FULL, pk.missing);
   if (lane == 0) {
@@ -529,20 +519,66 @@ compact_segments_kernel(const uint32_t* __restrict__ scratch,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+// ---- block_histogram: one warp per block ------------------------------
+
+// Counts one block's symbols into its CTA's histogram `h` on the whole
+// warp: lane l holds the coefficients at positions l (va) and l + 32 (vb);
+// the block's tables are dct and act.  The symbols are the encode walk's
+// (ac_items): the DC category, per nonzero AC its ZRLs and its (run, cat)
+// symbol, EOB unless position 63 is nonzero.  A lane adds its symbols
+// with shared-memory atomics: a histogram a warp took 4% longer on the
+// H100, and electing one lane a bin (__match_any_sync) 25% longer
+// (tools/hist_probe.py): same-bin lanes of one block are few.
+struct Count {
+  int32_t* h;
+  int lane;
+
+  __device__ void operator()(int va, int vb, int dct, int act) {
+    const uint64_t mask = nz_mask(va, vb);
+    const int a = act * 256;
+    int sa = -1, sb = -1, zrl = 0;
+    if (lane == 0) {
+      sa = dct * 256 + category(va);
+    } else if (va != 0) {
+      const int gap = run_before(mask, lane);
+      sa = a + (((gap & 15) << 4) | category(va));
+      zrl = gap >> 4;
+    }
+    if (vb != 0) {
+      const int gap = run_before(mask, lane + 32);
+      sb = a + (((gap & 15) << 4) | category(vb));
+      zrl += gap >> 4;
+    } else if (lane == 31) {
+      sb = a;  // position 63 is zero: EOB
+    }
+    if (sa >= 0) atomicAdd(h + sa, 1);
+    if (sb >= 0) atomicAdd(h + sb, 1);
+    if (zrl) atomicAdd(h + a + 0xF0, zrl);
+  }
+};
+
+// A persistent grid: warp w takes the groups of 32 blocks from w on, every
+// (grid warps)-th, and walks each with for_each_block.
+__global__ void __launch_bounds__(HIST_WARPS * 32)
 hist_blocks_kernel(const int32_t* __restrict__ zz,
                    const int32_t* __restrict__ dc_tab,
-                   const int32_t* __restrict__ ac_tab, int T, int64_t B,
+                   const int32_t* __restrict__ ac_tab, int T, int B,
                    int32_t* __restrict__ hist) {
-  __shared__ int32_t h[T_MAX * 256];
-  for (int i = threadIdx.x; i < T * 256; i += THREADS) h[i] = 0;
+  extern __shared__ int32_t h[];  // [T, 256]
+  const int bins = T * 256;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < bins; i += blockDim.x) h[i] = 0;
   __syncthreads();
-  HistSink sink{h};
-  for (int64_t b = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
-       b < B; b += static_cast<int64_t>(gridDim.x) * THREADS)
-    walk_block(zz + b * 64, dc_tab[b], ac_tab[b], sink);
+  Count count{h, lane};
+  const int64_t step = static_cast<int64_t>(gridDim.x) * HIST_WARPS * 32;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * HIST_WARPS + warp;
+  for (int64_t lo = first * 32; lo < B; lo += step) {
+    const int hi = static_cast<int>(lo + 32 < B ? lo + 32 : B);
+    for_each_block<false>(zz, nullptr, dc_tab, ac_tab, static_cast<int>(lo),
+                          hi, lane, count);
+  }
   __syncthreads();
-  for (int i = threadIdx.x; i < T * 256; i += THREADS)
+  for (int i = threadIdx.x; i < bins; i += blockDim.x)
     if (h[i]) atomicAdd(&hist[i], h[i]);
 }
 
@@ -624,26 +660,26 @@ extern "C" int jt_compact_segments(const void* scratch, const void* seg_of,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Adds into the zeroed `hist` [T, 256] on `stream`; returns the first CUDA
-// error (cudaGetLastError() after the launch).
+// Adds the symbol counts of the B blocks into `hist` [T, 256] on
+// `stream`; returns the first CUDA error (cudaGetLastError() after the
+// launch).
 extern "C" int jt_hist_blocks(const void* zz, const void* dc_tab,
-                              const void* ac_tab, int T, long long B,
-                              void* hist, void* stream) {
+                              const void* ac_tab, int T, int B, void* hist,
+                              void* stream) {
   if (B <= 0) return 0;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (T < 1 || T > T_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t shared = static_cast<size_t>(T) * 256 * sizeof(int32_t);
+  int ctas = 0;
+  const cudaError_t err = resident_ctas(
+      reinterpret_cast<const void*>(hist_blocks_kernel), HIST_WARPS * 32,
+      shared, &ctas);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long want = (B + THREADS - 1) / THREADS;
-  // 4 CTAs per SM: each CTA adds its bins into the same hot global bins,
-  // so more CTAs cost more than they hide (8 per SM took 1.7x as long
-  // on an H100 80GB HBM3 at 700 W).
-  const long long cap = 4LL * sms;
-  const int grid = static_cast<int>(want < cap ? want : cap);
-  hist_blocks_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int groups = static_cast<int>((B + 32LL * HIST_WARPS - 1) /
+                                      (32LL * HIST_WARPS));
+  const int grid = groups < ctas ? groups : ctas;
+  hist_blocks_kernel<<<grid, HIST_WARPS * 32, shared,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(zz), static_cast<const int32_t*>(dc_tab),
-      static_cast<const int32_t*>(ac_tab), T, static_cast<int64_t>(B),
-      static_cast<int32_t*>(hist));
+      static_cast<const int32_t*>(ac_tab), T, B, static_cast<int32_t*>(hist));
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,14 +16,17 @@ stream's length stays on the device until the caller pulls it.
 
 ``block_histogram`` is the port of ``encode_jax.hist_from_blocks`` (the
 optimize=True dry pass): the histogram kernel of ``csrc/encode_scan.cu``
-(one thread per block) on a CUDA tensor,
-``encode_torch.hist_from_blocks_ref`` on a CPU tensor.
+(one warp per block, a persistent grid) on a CUDA tensor,
+``encode_torch.hist_from_blocks_ref`` on a CPU tensor; either adds into a
+caller's histogram (``out=``), so a batch keeps one accumulator.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches`` and
 raises on anything the kernel does not take, and on any CUDA error.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -153,27 +156,34 @@ def _scratch(dev: torch.device, n: int) -> torch.Tensor:
 
 
 def block_histogram(zz: torch.Tensor, dc_tab: torch.Tensor,
-                    ac_tab: torch.Tensor, T: int) -> torch.Tensor:
-    """Per-table symbol counts of ``zz`` [B, 64] -> [T, 256] int32."""
+                    ac_tab: torch.Tensor, T: int,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-table symbol counts of ``zz`` [B, 64] -> [T, 256] int32: a new
+    histogram, or ``out`` (int32 [T, 256] on ``zz``'s device) with the
+    counts added into it."""
+    if out is not None:
+        check_tensor("out", out, I32, (T, 256), zz.device)
     if zz.device.type == "cpu":
-        return hist_from_blocks_ref(zz, dc_tab, ac_tab, T)
+        hist = hist_from_blocks_ref(zz, dc_tab, ac_tab, T)
+        return hist if out is None else out.add_(hist)
     dev = _check_blocks(zz, T)
     b = int(zz.shape[0])
     check_tensor("dc_tab", dc_tab, I32, (b,), dev)
     check_tensor("ac_tab", ac_tab, I32, (b,), dev)
+    if out is None:
+        out = torch.zeros(T, 256, dtype=torch.int32, device=dev)
 
     from ..kernels import load_library
 
     lib = load_library().lib
-    hist = torch.zeros(T, 256, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.jt_hist_blocks(zz.data_ptr(), dc_tab.data_ptr(),
-                                ac_tab.data_ptr(), T, b, hist.data_ptr(),
+                                ac_tab.data_ptr(), T, b, out.data_ptr(),
                                 cuda_stream(dev))
     if rc != 0:
         raise RuntimeError(f"block_histogram launch failed: CUDA error {rc}")
     block_histogram.launches += 1
-    return hist
+    return out
 
 
 block_histogram.launches = 0

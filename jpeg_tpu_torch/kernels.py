@@ -5,7 +5,8 @@ Hopper (``sm_90a``), one nvcc process per source, all started together,
 links the objects into one shared library with a plain ``extern "C"``
 interface, and loads it with ``ctypes``.  The library lands in
 ``build/jpeg_tpu_torch/`` under the repository root, named by a hash of
-the sources and flags, so an unchanged source is never rebuilt.  A
+the sources, their ``csrc/*.cuh`` headers and the flags, so an unchanged
+source is never rebuilt.  A
 failed build raises; nothing falls back to the plain versions.
 
 The build runs at first use, inside the first call that launches a
@@ -73,7 +74,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         "jt_compact_segments": [p] * 7 + [i] * 2 + [p] * 5,
         "jt_encode_scan_t_max": [],
         "jt_encode_scan_block_words": [],
-        "jt_hist_blocks": [p, p, p, i, ll, p, p],
+        "jt_hist_blocks": [p, p, p, i, i, p, p],
         "jt_idct_exact": [p, p, p, p, ll, i, p],
         "jt_fdct_exact": [p, p, p, p, ll, i, p],
         "jt_color_exact": [p, p, ll, i, i, p],
@@ -138,7 +139,7 @@ def load_library() -> KernelLibrary:
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):  # and their headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     so = BUILD_DIR / f"libjpeg_tpu_torch_{h.hexdigest()[:16]}.so"

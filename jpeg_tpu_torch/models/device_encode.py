@@ -336,11 +336,14 @@ class DeviceEncoder:
                             self._on_device("prev_idx", self.prev_idx),
                             self.geom)
 
-    def histogram(self, zz: torch.Tensor) -> torch.Tensor:
-        """Symbol counts [T, 256] int32 of a chunk's blocks (the dry pass)."""
+    def histogram(self, zz: torch.Tensor,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Symbol counts [T, 256] int32 of a chunk's blocks (the dry pass),
+        added into ``out`` where one is given."""
         frames = zz.shape[0] // self.blocks_per_frame
         _, _, dc_tab, ac_tab = self.chunk_tables(frames)
-        return block_histogram(zz, dc_tab, ac_tab, len(self.table_keys))
+        return block_histogram(zz, dc_tab, ac_tab, len(self.table_keys),
+                               out=out)
 
     def scan(self, zz: torch.Tensor, ehufco=None, ehufsi=None):
         """Entropy-code a chunk's blocks with the given (default: the
@@ -417,14 +420,16 @@ class DeviceEncoder:
                         zz = self.dense(px[lo:hi])
                     out.extend(self.pack(zz))
                 return out
-            blocks, hist = [], None
+            # One accumulator a batch: each chunk's counts are added in.
+            blocks = []
+            hist = torch.zeros(len(self.table_keys), 256, dtype=torch.int32,
+                               device=self.device)
             for lo, hi in spans:
                 with trace("device_encode.dense"):
                     zz = self.dense(px[lo:hi])
                 with trace("device_encode.histogram"):
-                    h = self.histogram(zz)
+                    self.histogram(zz, out=hist)
                 blocks.append(zz)
-                hist = h if hist is None else hist + h
             with trace("device_encode.tables"):
                 ehufco, ehufsi, header = self.optimized_tables(
                     hist.cpu().numpy())

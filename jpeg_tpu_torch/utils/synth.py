@@ -8,11 +8,16 @@ is a chunk of quantized blocks that holds every kind of Huffman symbol,
 for holding the entropy kernels against their plain versions;
 ``tie_frame`` is a grayscale frame whose quantization meets exact
 rounding ties, for holding the dense encode stage to round-half-away.
+``hostile_hist`` and ``hostile_fdct`` are the edge cases of the symbol
+histogram and of the exact FDCT + quantizer, by name (``HIST_CASES``,
+``FDCT_CASES``), for the CPU tests and the chip check alike.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from ..ops.dct import dct_lut_f32
 
 WIDTH, HEIGHT = 1920, 1080
 
@@ -124,3 +129,97 @@ def tie_frame(fdct: np.ndarray, qtable: np.ndarray, shift: int = 128):
     rr = r[ti, ii].astype(np.float64)
     want = (np.sign(rr) * np.floor(np.abs(rr) + 0.5)).astype(np.int32)
     return frame.astype(np.uint8), want
+
+
+HIST_CASES = ("int_extremes", "no_eob", "zero_runs", "tables8")
+
+
+def hostile_hist(case: str, n_blocks: int = 1000, seed: int = 17):
+    """(zz [n_blocks, 64] int32, dc_tab, ac_tab [n_blocks] int32, T): the
+    symbol histogram's edge cases on seeded sparse blocks.
+
+    ``int_extremes``: INT_MIN (category 0: its absolute value wraps) and
+    +-32767 coefficients, DC included; ``no_eob``: all 63 ACs nonzero;
+    ``zero_runs``: runs of exactly 16, 31 and 47 zeros before a nonzero,
+    every other block's at position 63; ``tables8``: table ids 0..7 (T =
+    8; the others 0..1, T = 2).  The default ``n_blocks`` is not a
+    multiple of 32, so a kernel's last group of blocks is short.
+    """
+    if case not in HIST_CASES:
+        raise ValueError(f"unknown histogram case {case!r}")
+    rng = np.random.default_rng(seed)
+    n = n_blocks
+    zz = np.zeros((n, 64), np.int32)
+    sparse = rng.random((n, 64)) < 0.2
+    zz[sparse] = rng.integers(-60, 61, int(sparse.sum()))
+    zz[:, 0] = rng.integers(-300, 301, n)
+    if case == "int_extremes":
+        pick = rng.random((n, 64)) < 0.3
+        extremes = np.array([np.iinfo(np.int32).min, 32767, -32767],
+                            np.int32)
+        zz[pick] = rng.choice(extremes, int(pick.sum()))
+    elif case == "no_eob":
+        zz[:, 1:] = rng.integers(1, 200, (n, 63)) * rng.choice([-1, 1],
+                                                               (n, 63))
+    elif case == "zero_runs":
+        for i in range(n):
+            run = (16, 31, 47)[i % 3]
+            end = 63 if i % 2 == 0 else int(rng.integers(run + 1, 63))
+            zz[i, end - run:end] = 0
+            zz[i, end] = rng.integers(1, 100) * rng.choice([-1, 1])
+            if end - run - 1 >= 1:  # the run starts right after a nonzero
+                zz[i, end - run - 1] = rng.integers(1, 100)
+    T = 8 if case == "tables8" else 2
+    dc_tab = rng.integers(0, T, n).astype(np.int32)
+    ac_tab = rng.integers(0, T, n).astype(np.int32)
+    return zz, dc_tab, ac_tab, T
+
+
+FDCT_CASES = ("12bit", "ties_8bit", "ties_12bit", "q1", "q255")
+
+
+def hostile_fdct(case: str, seed: int = 19):
+    """(samples [n, 64] float32 raster blocks, qtable [64] int32,
+    precision): the exact FDCT + quantizer's edge cases.
+
+    ``12bit``: random 12-bit samples, a random table; ``ties_8bit`` and
+    ``ties_12bit``: under a table of powers of two (1..32), blocks flat
+    at the level shift but for one sample ``shift + t``, each chosen so
+    that some quotient ``c / Q`` is, in float32, exactly an integer + 0.5
+    (``roundf`` rounds it away from zero); ``q1`` and ``q255``: random 8-bit samples under a table of all
+    1 and of all 255.  With one nonzero sample at row y, column x, the
+    exact FDCT's coefficient (v, u) is the float32 product ``(t *
+    A[x][u]) * A[y][v]`` of the cosine LUT ``A`` (``ops.dct.dct_lut_f32``)
+    in any order of the zero terms, so the ties are found here without
+    the transform.
+    """
+    if case not in FDCT_CASES:
+        raise ValueError(f"unknown FDCT case {case!r}")
+    rng = np.random.default_rng(seed)
+    if case in ("12bit", "q1", "q255"):
+        bits = 12 if case == "12bit" else 8
+        samples = rng.integers(0, 1 << bits, (512, 64)).astype(np.float32)
+        q = {"12bit": rng.integers(1, 256, 64), "q1": np.ones(64),
+             "q255": np.full(64, 255)}[case]
+        return samples, q.astype(np.int32), bits
+    bits = 8 if case == "ties_8bit" else 12
+    shift = 1 << (bits - 1)
+    # powers of two keep some quotients exact: t = 4 makes the DC
+    # (4 A[0][0]) A[0][0] = 0.5 in float32, a tie under Q = 1
+    q = (1 << rng.integers(0, 6, 64)).astype(np.int32)
+    a = dct_lut_f32()  # A[x][u]
+    ts = np.arange(1 - shift, shift, dtype=np.float32)
+    ts = ts[ts != 0]
+    qf = q.reshape(8, 8).astype(np.float32)
+    tie = []
+    for lo in range(0, ts.size, 256):
+        # c[t, y, x, v, u] = (t * A[x][u]) * A[y][v], float32 throughout
+        row = ts[lo:lo + 256, None, None] * a[None]  # [t, x, u]
+        c = row[:, None, :, None, :] * a[None, :, None, :, None]
+        mag = np.abs((c / qf).astype(np.float64))
+        tie.append((mag - np.floor(mag) == 0.5).reshape(-1, 64, 64)
+                   .any(axis=2))
+    ti, pos = np.nonzero(np.concatenate(tie))
+    samples = np.full((ti.size, 64), shift, np.float32)
+    samples[np.arange(ti.size), pos] += ts[ti]
+    return samples, q, bits

@@ -31,12 +31,14 @@ from jpeg_tpu.geometry import with_block_grid
 from jpeg_tpu.models.device_encode import DeviceEncoder as JaxEncoder
 from jpeg_tpu.ops import color as jcolor
 from jpeg_tpu.ops import dct as jdct
+from jpeg_tpu.ops import quant as jquant
 from jpeg_tpu.tables import HuffSpec, derive_table
 
 import jpeg_tpu_torch as jt
 from jpeg_tpu_torch.encoder import EncodeParams
 from jpeg_tpu_torch.models import dense_exact
 from jpeg_tpu_torch.ops import color, dct
+from jpeg_tpu_torch.utils import synth
 from refbin import make_pgm, make_ppm
 
 CORPUS = Path(__file__).resolve().parent / "data" / "torch_port"
@@ -212,6 +214,28 @@ def test_exact_plain_ops_match_jax_bitwise():
     np.testing.assert_allclose(
         dct.fdct8x8_matmul(torch.from_numpy(blocks)).numpy(),
         np.asarray(jdct.fdct8x8_matmul(blocks)), atol=1e-3)
+
+
+@pytest.mark.parametrize("case", synth.FDCT_CASES)
+def test_fdct_exact_ref_matches_jax_hostile(case):
+    """The exact FDCT + quantizer's plain version equals jpeg_tpu's
+    ``fdct8x8_exact`` + ``quantize`` bit for bit on ``synth.hostile_fdct``:
+    12-bit samples, quotients on exact .5 ties (rounded away from zero)
+    and tables of all 1 and all 255."""
+    samples, q, bits = synth.hostile_fdct(case)
+    assert samples.shape[0] > 0
+    got = dense_exact.fdct_exact_ref(torch.from_numpy(samples),
+                                     torch.from_numpy(q), bits)
+    x = (samples - np.float32(1 << (bits - 1))).reshape(-1, 8, 8)
+    want = np.asarray(jquant.quantize(
+        np.asarray(jdct.fdct8x8_exact(x)).reshape(-1, 64), q))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    if case.startswith("ties"):
+        # every block holds a quotient exactly on .5 in float32
+        c = dct.fdct8x8_exact(torch.from_numpy(x)).reshape(-1, 64).numpy()
+        mag = np.abs((c / q.astype(np.float32)).astype(np.float64))
+        assert ((mag - np.floor(mag)) == 0.5).any(axis=1).all()
 
 
 def test_exact_wrappers_on_cpu_and_other_devices(frames):

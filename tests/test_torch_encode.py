@@ -212,13 +212,20 @@ def test_encode_scan_ref_matches_jax(kind):
         assert int(sym["cat"][5].max()) == 14
 
 
-@pytest.mark.parametrize("kind", ["frames", "symbols"])
+@pytest.mark.parametrize("kind", ["frames", "symbols", *synth.HIST_CASES])
 def test_hist_from_blocks_ref_matches_jax(kind):
-    enc, zz, _, _ = _scan_inputs(kind)
-    frames = zz.shape[0] // enc.blocks_per_frame
-    dc_tab = np.tile(enc.dc_tab, frames)
-    ac_tab = np.tile(enc.ac_tab, frames)
-    T = len(enc.table_keys)
+    """The plain histogram equals jpeg_tpu's on encoder blocks, on a chunk
+    of every symbol kind, and on the hostile cases of
+    ``synth.hostile_hist`` (INT_MIN and +-32767, no EOB, zero runs of 16,
+    31 and 47, eight tables)."""
+    if kind in synth.HIST_CASES:
+        zz, dc_tab, ac_tab, T = synth.hostile_hist(kind)
+    else:
+        enc, zz, _, _ = _scan_inputs(kind)
+        frames = zz.shape[0] // enc.blocks_per_frame
+        dc_tab = np.tile(enc.dc_tab, frames)
+        ac_tab = np.tile(enc.ac_tab, frames)
+        T = len(enc.table_keys)
     got = hist_from_blocks_ref(torch.from_numpy(zz), torch.from_numpy(dc_tab),
                                torch.from_numpy(ac_tab), T)
     want = np.asarray(_jit_hist(jnp.asarray(zz), jnp.asarray(dc_tab),
@@ -229,6 +236,38 @@ def test_hist_from_blocks_ref_matches_jax(kind):
         torch.from_numpy(zz), torch.from_numpy(dc_tab),
         torch.from_numpy(ac_tab), T).equal(got)
     assert encode_cuda.block_histogram.launches == 0
+
+
+def test_block_histogram_adds_into_out():
+    """``out=`` adds the counts into the caller's histogram and returns
+    it: what ``encode_batch(optimize=True)`` keeps as its one accumulator
+    a batch."""
+    zz, dc_tab, ac_tab, T = synth.hostile_hist("tables8")
+    args = (torch.from_numpy(zz), torch.from_numpy(dc_tab),
+            torch.from_numpy(ac_tab), T)
+    acc = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 1000, (T, 256)).astype(np.int32))
+    want = acc + hist_from_blocks_ref(*args)
+    got = encode_cuda.block_histogram(*args, out=acc)
+    assert got is acc and got.dtype == torch.int32
+    assert got.equal(want)
+    assert encode_cuda.block_histogram.launches == 0
+
+
+@pytest.mark.parametrize("bad", ["int64", "shape", "strided"])
+def test_block_histogram_rejects_bad_out(bad):
+    """The plain path checks ``out=`` as the kernel's does: an int32
+    [T, 256] contiguous tensor on ``zz``'s device, else ``ValueError``,
+    and ``out`` is left as it was."""
+    zz, dc_tab, ac_tab, T = synth.hostile_hist("tables8")
+    out = {"int64": torch.zeros(T, 256, dtype=torch.int64),
+           "shape": torch.zeros(1, 256, dtype=torch.int32),
+           "strided": torch.zeros(256, T, dtype=torch.int32).t()}[bad]
+    with pytest.raises(ValueError):
+        encode_cuda.block_histogram(torch.from_numpy(zz),
+                                    torch.from_numpy(dc_tab),
+                                    torch.from_numpy(ac_tab), T, out=out)
+    assert not out.any()
 
 
 # ---- the whole encoder --------------------------------------------------
