@@ -87,25 +87,38 @@ process exits non-zero without printing the result line:
     general kernel alone (and the dense tail kernel), to exactly the
     encoder's blocks and within +-1 of the CPU decode; the kernel equals
     its plain version on an 8-frame
-    chunk of it, intact, damaged and under hostile tables; the intact and
-    damaged chunk's contested MCUs (from the plain scan), with the
-    ``boundary_layout`` kernel equal to its plain version on both; times,
-    bounds and roofline shares of the general kernel and the layout
-    kernel against their plain versions, the one-pass kernel's time on
+    chunk of it, intact, damaged and under hostile tables; three kernel
+    launches a general call (count walk with the layout, place, resolve:
+    the library's own count, ``jt_decode_segments_launches``); the intact
+    and damaged chunk's contested MCUs (from the plain scan), with the
+    count walk's counts, partial flags and layout (its launch alone,
+    ``place_cuda._general_layout``) equal to the plain scan's,
+    ``lane_layout`` and ``contested_rows`` on both; times, bounds and
+    roofline shares of the general kernel and of the count walk with its
+    layout against their plain versions, the one-pass kernel's time on
     the ri=4 bench chunk, and the stream's end-to-end rate;
 12. single image: ``decode_jpeg(..., exact=True)`` of the 1080p bench frame
     and of every small corpus frame on the card, hashed against
-    jpeg_tpu's exact ``to_pnm()`` digests (``exact.json``);
+    jpeg_tpu's exact ``to_pnm()`` digests (``exact.json``); the device
+    entropy path, ``decode_jpeg(..., exact=True, entropy="lockstep-jax")``
+    of bench frame 0 (ri=4) and of phase 11's frame 0 (ri=7) with every
+    plain version and host engine made to raise, to jpeg_tpu's digest
+    (frame 0) and to ``entropy="lockstep"``'s coefficients, MCU counts
+    and pixels, each decode one ``decode_segments_general`` call (three
+    kernel launches), ``idct_exact`` a component and ``color_exact``
+    once; a damaged ri=7 frame (an invalid code in every 37th segment)
+    to equal coefficients on the card and on the CPU;
     ``decode_frame_device`` on the multi-scan frames within +-1 of its CPU
     run; ``encode_jpeg(..., exact=True)`` of the 1080p bench frame
     byte-identical to jpeg_tpu's committed digests; a mixed stream falls
     back frame by frame and counts it; each exact kernel (``idct_exact``,
     ``fdct_exact``, ``color_exact``) bitwise equal to its plain version
-    on 1080p planes and on seeded random inputs (``fdct_exact`` also on
-    every case of ``synth.hostile_fdct``: 12-bit samples, exact .5
-    ties, Q = 1 and 255, and on the Y plane 4 bytes past a 16-byte
-    boundary), with times and the host time of each step of its
-    wrapper;
+    on 1080p planes and on seeded random inputs (``idct_exact`` also on
+    the Y plane 4 bytes past a 16-byte boundary and on block counts that
+    are not a multiple of 4; ``fdct_exact`` also on every case of
+    ``synth.hostile_fdct``: 12-bit samples, exact .5 ties, Q = 1 and
+    255, and on the Y plane 4 bytes past a 16-byte boundary), with
+    times, and ``exact_decode_ms`` with host and with device entropy;
 13. RST-less: 16 frames of 1080p 4:2:0 q75 encoded on the card with no
     restart markers (bench.py's ``p_rl``) decode through
     ``mjpeg.decode_stream_device`` on the speculative engine (the
@@ -154,15 +167,18 @@ prepared bench frames (segment decode and dense tail),
 damaged (on the register lookahead too where the checkout has that
 route), ``pixels_to_zz`` on the 8-frame bench pixels, and
 ``encode_scan`` on their blocks at restart intervals 4 and 7 and with
-one segment per frame, ``block_histogram`` on the ri=4 blocks and
-``fdct_exact`` on the 1080p Y plane of bench frame 0 (20 back-to-back
+one segment per frame, ``block_histogram`` on the ri=4 blocks,
+``fdct_exact`` on the 1080p Y plane of bench frame 0 and ``idct_exact``
+on its coefficients (20 back-to-back
 calls, CUDA events, and device only: the 20 calls in one CUDA graph,
 three times each), the end-to-end ``encode_batch`` of the 16 bench frames,
 default and optimized, and where the checkout has the RST-less engine
 the end-to-end decode of phase 13's stream (host clock, median of 5,
 three times), each with
 the peak of device memory allocated during one call and a per-kernel
-device profile of one call.  Every checkout's outputs must be equal (the
+device profile of one call (the record keeps its launches by kernel)
+and, for device cases, the host time a call to enqueue 20 calls.  Every
+checkout's outputs must be equal (the
 encode stream hashed up to its word count, whichever return form the
 checkout has), the dense tail's and the device-resident decode's
 included: a checkout's dense tail kernel must give the pixels of every
@@ -172,6 +188,7 @@ result line.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import importlib.util
 import json
@@ -421,6 +438,19 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def enqueue_ms(fn, reps: int) -> float:
+    """Host milliseconds a call to enqueue ``reps`` back-to-back runs of
+    ``fn()`` (the wrapper's host time while the card is busy)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
 
 
 def device_ms(fn, reps: int) -> float:
@@ -1147,11 +1177,19 @@ def bench_pixels(dev: torch.device) -> torch.Tensor:
     return torch.stack([uniq[i % 2] for i in range(STREAM_FRAMES)]).to(dev)
 
 
+def general_launches() -> int:
+    """Kernel launches ``csrc/decode_segments.cu`` has made so far (the
+    library's own count, kept where it launches)."""
+    return int(kernels.load_library().lib.jt_decode_segments_launches())
+
+
 def general_phase(card: str, dev: torch.device, corpus_err: int,
-                  region_ms: float) -> list:
-    """Phase 11 (general shape at full width); -> the JSON entries of the
-    general kernel and its layout kernel.  ``corpus_err`` is its max |diff| on the corpus (phase 3),
-    ``region_ms`` the one-pass kernel's time on the ri=4 bench chunk."""
+                  region_ms: float) -> tuple:
+    """Phase 11 (general shape at full width); -> (the JSON entries of the
+    general kernel and of its layout, which runs in its count walk; frame
+    0 of the ri=7 stream).  ``corpus_err`` is the general kernel's max
+    |diff| on the corpus (phase 3), ``region_ms`` the one-pass kernel's
+    time on the ri=4 bench chunk."""
     mark("11")
     enc = DeviceEncoder.for_config(synth.HEIGHT, synth.WIDTH, 3,
                                    GENERAL_PARAMS, device=dev)
@@ -1163,19 +1201,23 @@ def general_phase(card: str, dev: torch.device, corpus_err: int,
     frames = enc.encode_batch(px, optimize=False, chunk=CHUNK)
     stream = b"".join(frames)
     decode_segments.launches = decode_segments_general.launches = 0
-    place_cuda.boundary_layout.launches = coeffs_to_pixels.launches = 0
+    coeffs_to_pixels.launches = 0
+    walks0 = general_launches()
     out = jpeg_tpu_torch.mjpeg.decode_stream_device(stream, dev,
                                                     chunk=CHUNK)
     torch.cuda.synchronize()
     launches = decode_segments_general.launches
-    layout_launches = place_cuda.boundary_layout.launches
+    # The general path's device launches, each counted where the library
+    # launches it: count (with the layout), place, resolve.
+    walks = general_launches() - walks0
     tail_launches = coeffs_to_pixels.launches
-    if launches <= 0 or layout_launches <= 0 or tail_launches <= 0 or \
+    if launches <= 0 or walks != 3 * launches or tail_launches <= 0 or \
             decode_segments.launches:
         raise AssertionError(
             f"ri=7 stream: decode_segments_general launched {launches} "
-            f"times, boundary_layout {layout_launches}, coeffs_to_pixels "
-            f"{tail_launches}, decode_segments {decode_segments.launches}")
+            f"times ({walks} kernel launches, want 3 a call), "
+            f"coeffs_to_pixels {tail_launches}, decode_segments "
+            f"{decode_segments.launches}")
     want = (STREAM_FRAMES, synth.HEIGHT, synth.WIDTH, 3)
     if tuple(out.shape) != want or out.dtype != torch.uint8 or \
             out.device.type != dev.type:
@@ -1196,8 +1238,9 @@ def general_phase(card: str, dev: torch.device, corpus_err: int,
                              f"{diff}")
     log(f"general: decode_stream_device of {STREAM_FRAMES} ri=7 frames "
         f"({dec.segs_per_frame} segments per frame) -> {want} uint8, "
-        f"decode_segments_general launches {launches}, coeffs_to_pixels "
-        f"{tail_launches}, decode_segments 0; "
+        f"decode_segments_general launches {launches} ({walks} kernel "
+        f"launches: count with the layout, place, resolve), "
+        f"coeffs_to_pixels {tail_launches}, decode_segments 0; "
         f"blocks equal to the encoder's, frame 0 vs CPU max diff {diff}")
 
     chunk = frames[:CHUNK]
@@ -1206,39 +1249,73 @@ def general_phase(card: str, dev: torch.device, corpus_err: int,
     spf = dec.segs_per_frame
     args = (dec.plan, words, nbits, CHUNK, spf, dec.total_blocks)
     # Contested MCUs (two lanes write them; only these take owner keys),
-    # from the plain scan: none on the intact chunk.  The layout kernel
-    # against its plain version on the same counts and partial flags.
+    # from the plain scan: none on the intact chunk.  The layout the count
+    # walk computes (its launch alone, ``_general_layout``) against the
+    # plain scan's counts and partial flags, ``lane_layout`` and
+    # ``contested_rows``, integer for integer.
     layout_err = 0
-    for tag, (w, n) in (("intact", (words, nbits)),
-                        ("damaged", damage(words, nbits, 0))):
+    names = ("counts", "partial", "lane_off", "lane_first", "contested")
+    for tag, (w, n) in (("damaged", damage(words, nbits, 0)),
+                        ("intact", (words, nbits))):
+        largs = (dec.plan, w, n, CHUNK, spf, dec.total_blocks)
+        got = place_cuda._general_layout(*largs)
         counts, key, _, _ = scan_lanes(dec.plan, w, n)
         partial = place_cuda.partial_lanes(counts, key)
-        largs = (counts, partial, CHUNK, spf, dec.plan.n_mcus)
-        got = place_cuda.boundary_layout(*largs)
-        want = (*place_cuda.lane_layout(counts, CHUNK, spf),
-                place_cuda.contested_rows(*largs))
+        want = (counts, partial, *place_cuda.lane_layout(counts, CHUNK, spf),
+                place_cuda.contested_rows(counts, partial, CHUNK, spf,
+                                          dec.plan.n_mcus))
         torch.cuda.synchronize()
-        for a, b in zip(got, want):
-            layout_err = max(layout_err, int((a.to(torch.int64) - b)
-                                             .abs().max()))
-        if layout_err:
-            raise AssertionError(f"boundary_layout differs from its plain "
-                                 f"version on the {tag} chunk")
-        n_rows = int(want[2].sum())
+        for name, a, b in zip(names, got, want):
+            if a.dtype != torch.int32 or not torch.equal(a, b):
+                raise AssertionError(
+                    f"the count walk's {name} differs from the plain "
+                    f"version on the {tag} chunk (max |diff| "
+                    f"{int((a.to(torch.int64) - b).abs().max())})")
+        n_rows = int(want[4].sum())
         log(f"general: {tag} ri=7 chunk x{CHUNK}: {int(partial.sum())} "
-            f"lanes died mid-MCU, {n_rows} contested MCUs; boundary_layout "
-            f"equal to lane_layout + contested_rows")
+            f"lanes died mid-MCU, {n_rows} contested MCUs; the count walk's "
+            f"counts, partial flags and layout equal to the plain scan's, "
+            f"lane_layout and contested_rows")
         if tag == "intact" and n_rows:
             raise AssertionError("intact ri=7 chunk has contested MCUs")
-    l_ms, ld_ms = kernel_ms("boundary_layout",
-                            lambda: place_cuda.boundary_layout(*largs), 20,
+        if tag == "damaged" and not n_rows:
+            raise AssertionError("damaged ri=7 chunk contests no MCU")
+    walks0 = general_launches()
+    decode_segments_general(*args)
+    torch.cuda.synchronize()
+    if general_launches() - walks0 != 3:
+        raise AssertionError(f"decode_segments_general made "
+                             f"{general_launches() - walks0} kernel "
+                             f"launches, want 3")
+    # The layout has no launch of its own: time the count walk it rides
+    # (ms and device-only) on the intact chunk, against the plain scan and
+    # layout, with the count walk's bound (the coded bits, tables and bit
+    # counts in; the counts, flags and layout out; an operation a coded
+    # bit).
+    l_ms, ld_ms = kernel_ms("count walk with its layout",
+                            lambda: place_cuda._general_layout(*largs), 20,
                             card)
     lp_ms = cuda_ms(lambda: (place_cuda.lane_layout(counts, CHUNK, spf),
-                             place_cuda.contested_rows(*largs)), 20)
-    lb = bound(nbytes(counts, partial, *got), counts.numel(), "int32")
-    log(f"time boundary_layout_ms={l_ms} device_ms={ld_ms} plain_ms={lp_ms} "
-        f"per {CHUNK}-frame ri=7 chunk [{card}]")
-    log_bound("boundary_layout", l_ms, lb, card, ld_ms)
+                             place_cuda.contested_rows(
+                                 counts, partial, CHUNK, spf,
+                                 dec.plan.n_mcus)), 20)
+
+    def plain_layout():
+        c, k, _, _ = scan_lanes(dec.plan, w, n)
+        pl = place_cuda.partial_lanes(c, k)
+        return (place_cuda.lane_layout(c, CHUNK, spf),
+                place_cuda.contested_rows(c, pl, CHUNK, spf,
+                                          dec.plan.n_mcus))
+    sp_ms = cuda_ms(plain_layout, 1)
+    nb64 = n.to(torch.int64)
+    lb = bound(int(((nb64 + 7) // 8).sum()) + nbytes(n, *got)
+               + 4 * place_cuda._staged_ints(dec.plan), int(nb64.sum()),
+               "int32")
+    log(f"time boundary_layout_ms={l_ms} device_ms={ld_ms} (the count walk "
+        f"with the layout folded in) plain_ms={sp_ms} (plain scan and "
+        f"layout), plain layout alone {lp_ms} ms, per "
+        f"{CHUNK}-frame ri=7 chunk [{card}]")
+    log_bound("boundary_layout (count walk)", l_ms, lb, card, ld_ms)
     k_ms, kd_ms = kernel_ms("decode_segments_general",
                             lambda: decode_segments_general(*args), 20, card)
     p_ms = cuda_ms(lambda: decode_segments_general_ref(*args), 2)
@@ -1261,10 +1338,12 @@ def general_phase(card: str, dev: torch.device, corpus_err: int,
              "max_abs_err": max(corpus_err, errs["decode_segments_general"]),
              "ms": k_ms, "device_ms": kd_ms, "plain_ms": p_ms, **b},
             {"name": "boundary_layout", "route": "cuda",
-             "source": "jpeg_tpu_torch/csrc/decode_segments.cu",
+             "source": "jpeg_tpu_torch/csrc/decode_segments.cu (frame_layout,"
+                       " in the count walk of decode_segments_general)",
              "replaces": "jpeg_tpu/entropy/lockstep_jax.py:595",
-             "launches": layout_launches, "max_abs_err": layout_err,
-             "ms": l_ms, "device_ms": ld_ms, "plain_ms": lp_ms, **lb}]
+             "launches": launches, "max_abs_err": layout_err,
+             "ms": l_ms, "device_ms": ld_ms, "plain_ms": sp_ms, **lb}], \
+        frames[0]
 
 
 def bitwise(name: str, label: str, got: torch.Tensor,
@@ -1286,9 +1365,141 @@ def bitwise(name: str, label: str, got: torch.Tensor,
     return err
 
 
-def single_image_phase(card: str, dev: torch.device, streams: dict) -> list:
-    """Phase 12 (the single-image API, exact mode); -> the K4 kernels'
-    JSON entries."""
+def plain_versions():
+    """(module, name) of every plain version the single-image device
+    entropy path could reach instead of a kernel: the segment decodes' and
+    the exact dense kernels' plain versions, and the host engines."""
+    from jpeg_tpu_torch.entropy import lockstep, lockstep_jax, serial
+    from jpeg_tpu_torch.entropy import lockstep_torch
+    from jpeg_tpu_torch.models import dense_exact
+
+    return ((place_cuda, "decode_segments_general_ref"),
+            (place_cuda, "decode_segments_ref"),
+            (place_cuda, "scan_lanes"), (place_cuda, "place_emissions"),
+            (lockstep_torch, "scan_lanes"),
+            (lockstep_jax, "decode_segments_general_ref"),
+            (dense_exact, "idct_exact_ref"), (dense_exact, "color_exact_ref"),
+            (serial, "decode_scan_serial"),
+            (lockstep, "decode_scan_lockstep"))
+
+
+@contextlib.contextmanager
+def no_plain_version():
+    """Every ``plain_versions()`` entry raises while the block runs."""
+    saved = [(mod, name, getattr(mod, name))
+             for mod, name in plain_versions()]
+
+    def trap(name):
+        def run(*args, **kwargs):
+            raise AssertionError(f"{name} (a plain version or host engine) "
+                                 "ran on the device entropy path")
+        return run
+
+    for mod, name, _ in saved:
+        setattr(mod, name, trap(name))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def damage_frame(frame: bytes, every: int) -> bytes:
+    """A JPEG frame with two stuffed 0xFF bytes (16 one-bits, no code of
+    the K.3 tables) in the middle of every ``every``-th restart segment
+    from the second on, each lane dying there; segments whose middle
+    follows a 0xFF byte are skipped, so no marker is made."""
+    out = bytearray(frame)
+    ranges = parse_codestream(frame).scans[0].ecs_ranges
+    for s, e in ranges[1::every]:
+        mid = (s + e) // 2
+        if e - s > 8 and out[mid - 1] != 0xFF:
+            out[mid : mid + 4] = b"\xff\x00\xff\x00"
+    return bytes(out)
+
+
+def device_entropy_checks(dev: torch.device, bench0: bytes, ri7: bytes,
+                          want_pnm: str) -> dict:
+    """The single-image device entropy path (``entropy="lockstep-jax"``):
+    the exact decode of bench frame 0 (ri=4) and of a ri=7 frame on
+    ``dev``, with every plain version trapped, to jpeg_tpu's digest
+    (``want_pnm``, frame 0) and to the host lockstep engine's
+    coefficients and pixels; each decode's launches (one general decode,
+    3 kernel launches, ``idct_exact`` a component, ``color_exact`` once);
+    a damaged ri=7 frame to the same coefficients on ``dev`` and on the
+    CPU.  -> {kernel: launches over the two decodes}."""
+    total = {"decode_segments_general": 0, "general kernel launches": 0,
+             "idct_exact": 0, "color_exact": 0}
+    serial_scans = default_metrics.counters.get("lockstep_jax.serial_scans",
+                                                0)
+    for label, frame in (("bench frame 0, ri=4", bench0),
+                         ("ri=7 frame 0", ri7)):
+        host = jpeg_tpu_torch.decode_jpeg(frame, dev, exact=True,
+                                          entropy="lockstep")
+        decode_segments.launches = decode_segments_general.launches = 0
+        idct_exact.launches = color_exact.launches = 0
+        walks0 = general_launches()
+        with no_plain_version():
+            img = jpeg_tpu_torch.decode_jpeg(frame, dev, exact=True,
+                                             entropy="lockstep-jax")
+            torch.cuda.synchronize()
+        got = {"decode_segments_general": decode_segments_general.launches,
+               "general kernel launches": general_launches() - walks0,
+               "idct_exact": idct_exact.launches,
+               "color_exact": color_exact.launches}
+        want = {"decode_segments_general": 1, "general kernel launches": 3,
+                "idct_exact": len(img.geometry.components),
+                "color_exact": 1}
+        if got != want or decode_segments.launches:
+            raise AssertionError(f"lockstep-jax {label}: launches {got}, "
+                                 f"want {want} and no decode_segments")
+        for k, v in got.items():
+            total[k] += v
+        pnm = img.to_pnm()
+        if pnm != host.to_pnm() or img.codestream.mcus_decoded != \
+                host.codestream.mcus_decoded:
+            raise AssertionError(f"lockstep-jax {label}: pixels or MCU "
+                                 f"counts differ from entropy='lockstep'")
+        for cid, plane in host.coefficients.items():
+            if not np.array_equal(img.coefficients[cid], plane):
+                raise AssertionError(f"lockstep-jax {label}: component "
+                                     f"{cid} differs from entropy="
+                                     f"'lockstep'")
+        if frame is bench0 and hashlib.sha256(pnm).hexdigest() != want_pnm:
+            raise AssertionError("lockstep-jax exact 1080p decode differs "
+                                 "from jpeg_tpu's to_pnm() digest")
+        log(f"single: decode_jpeg({label}, {dev}, exact=True, "
+            f"entropy='lockstep-jax'): coefficients, MCU counts and "
+            f"to_pnm() equal to entropy='lockstep'"
+            f"{' and to jpeg_tpu digest' if frame is bench0 else ''}; "
+            f"launches {got}; no plain version ran")
+    if default_metrics.counters.get("lockstep_jax.serial_scans", 0) != \
+            serial_scans:
+        raise AssertionError("lockstep-jax sent a 1080p scan to the serial "
+                             "oracle")
+    bad = damage_frame(ri7, 37)
+    cs_d, planes_d = jpeg_tpu_torch.decode_coefficients(
+        bad, entropy="lockstep-jax", device=dev)
+    cs_c, planes_c = jpeg_tpu_torch.decode_coefficients(
+        bad, entropy="lockstep-jax", device="cpu")
+    n_mcus = cs_d.geometry.n_mcus
+    if cs_d.mcus_decoded != cs_c.mcus_decoded or any(
+            not np.array_equal(planes_d[c], planes_c[c]) for c in planes_c):
+        raise AssertionError("lockstep-jax: the damaged ri=7 frame decodes "
+                             "differently on the card and on the CPU")
+    if cs_d.mcus_decoded[0] >= n_mcus:
+        raise AssertionError("the damaged ri=7 frame lost no MCU")
+    log(f"single: damaged ri=7 frame ({cs_d.mcus_decoded[0]} of {n_mcus} "
+        f"MCUs decoded): lockstep-jax coefficients equal on {dev} and on "
+        f"the CPU (plain versions)")
+    return total
+
+
+def single_image_phase(card: str, dev: torch.device, streams: dict,
+                       ri7: bytes) -> list:
+    """Phase 12 (the single-image API, exact mode, host and device
+    entropy); -> the K4 kernels' JSON entries.  ``ri7`` is frame 0 of
+    phase 11's ri=7 stream."""
     mark("12")
     exact = json.loads((CORPUS / "exact.json").read_text())
     bench0 = streams["bench"][0]
@@ -1317,6 +1528,8 @@ def single_image_phase(card: str, dev: torch.device, streams: dict) -> list:
                                  "jpeg_tpu's to_pnm() digests")
     log(f"single: exact to_pnm() of {len(exact['pnm']) - 1} small corpus "
         f"streams equal to jpeg_tpu's digests")
+    lj_launches = device_entropy_checks(dev, bench0, ri7,
+                                        exact["pnm"]["bench"][0])
     for name in MULTISCAN:
         frame = frames_of(name)[0]
         got = jpeg_tpu_torch.decode_frame_device(frame, dev)
@@ -1384,6 +1597,21 @@ def single_image_phase(card: str, dev: torch.device, streams: dict) -> list:
         errs["idct_exact"] = max(errs["idct_exact"], bitwise(
             "idct_exact", f"random {prec}-bit blocks", idct_exact(*args),
             idct_exact_ref(*args)))
+    # The Y plane at an address 4 bytes past a 16-byte boundary (the
+    # kernel's scalar loads and stores), and block counts that leave a
+    # warp step part empty.
+    c_y = torch.from_numpy(planes[cs.geometry.components[0].cid]).to(dev)
+    c_off = torch.empty(c_y.numel() + 1, dtype=torch.int32,
+                        device=dev)[1:].view(-1, 64)
+    c_off.copy_(c_y)
+    for label, c, q, prec in (
+            ("1080p Y plane 4 bytes off 16", c_off, qt[0], 8),
+            ("1080p Y plane less 3 blocks", c_y[:-3], qt[0], 8),
+            ("random 12-bit blocks less 1", rnd_c[:-1], rnd_q, 12)):
+        args = (c, q, prec)
+        errs["idct_exact"] = max(errs["idct_exact"], bitwise(
+            "idct_exact", f"{label} {tuple(c.shape)}", idct_exact(*args),
+            idct_exact_ref(*args)))
     y_blocks = plane_to_blocks(ycc[..., 0], 135, 240).reshape(-1, 64)
     cb_blocks = plane_to_blocks(downsample_box(ycc[:1072, :, 1], 2, 2), 67,
                                 120).reshape(-1, 64)
@@ -1433,6 +1661,12 @@ def single_image_phase(card: str, dev: torch.device, streams: dict) -> list:
              lambda: jpeg_tpu_torch.decode_jpeg(bench0, dev, exact=True),
              lambda: jpeg_tpu_torch.decode_coefficients(bench0),
              "host entropy decode (decode_coefficients)"),
+            ("exact_decode_ms[lockstep-jax]",
+             lambda: jpeg_tpu_torch.decode_jpeg(bench0, dev, exact=True,
+                                                entropy="lockstep-jax"),
+             lambda: jpeg_tpu_torch.decode_coefficients(
+                 bench0, entropy="lockstep-jax", device=dev),
+             f"device entropy decode on {dev} (decode_coefficients)"),
             ("exact_encode_ms",
              lambda: jpeg_tpu_torch.encode_jpeg(ppm, params0, dev),
              lambda: encode_frame(padded, enc_geom, enc_qt, True),
@@ -1442,7 +1676,6 @@ def single_image_phase(card: str, dev: torch.device, streams: dict) -> list:
         log(f"time {key}={med * 1e3} (1080p, median of {len(runs)} runs, "
             f"host clock; {what} {med_p * 1e3} ms) [{card}]")
 
-    c_y = torch.from_numpy(planes[cs.geometry.components[0].cid]).to(dev)
     y_in = y_blocks.contiguous()
     calls = {
         "idct_exact": (lambda: idct_exact(c_y, qt[0], 8),
@@ -1472,6 +1705,7 @@ def single_image_phase(card: str, dev: torch.device, streams: dict) -> list:
         log(f"time {name}_ms={k_ms} device_ms={d_ms} plain_ms={p_ms} per "
             f"{what[name]} [{card}]")
         log_bound(name, k_ms, bounds[name], card, d_ms)
+    log(f"single: launches of the two lockstep-jax decodes {lj_launches}")
     return [{"name": name, "route": "cuda",
              "source": "jpeg_tpu_torch/csrc/dense_exact.cu",
              "replaces": replaces, "launches": launches[name],
@@ -1955,6 +2189,12 @@ def time_tree(tree: str) -> dict:
                           .to(torch.float32), 8, "to_ycc")
     fargs = (plane_to_blocks(ycc[..., 0], 135, 240).reshape(-1, 64)
              .contiguous(), torch.from_numpy(enc4.qtables[0]).to(dev), 8)
+    # K4's IDCT on the 1080p Y plane of the exact decode (bench frame 0)
+    cs0, planes0 = jpeg_tpu_torch.decode_coefficients(bench[0])
+    y0 = cs0.geometry.components[0]
+    iargs = (torch.from_numpy(planes0[y0.cid]).to(dev),
+             torch.from_numpy(cs0.qtables[y0.tq].astype(np.int32)).to(dev),
+             8)
     # name -> (one call, its digest, timing: "routed" (each word route,
     # CUDA events), "device" (CUDA events) or "host" (host clock))
     cases = {
@@ -1981,6 +2221,7 @@ def time_tree(tree: str) -> dict:
         "block_histogram ri=4": (lambda: block_histogram(*hargs), digest,
                                  "device"),
         "fdct_exact 1080p Y": (lambda: fdct_exact(*fargs), digest, "device"),
+        "idct_exact 1080p Y": (lambda: idct_exact(*iargs), digest, "device"),
         "encode_batch ri=4 x16": (
             lambda: enc4.encode_batch(px16, optimize=False, chunk=CHUNK),
             jpegs_digest, "host"),
@@ -2004,7 +2245,8 @@ def time_tree(tree: str) -> dict:
     out = {"tree": tree, "card": card, "torch": torch.__version__,
            "cases": {}}
     for name, (call, dig, timing) in cases.items():
-        rec = {"sha256": dig(call()), "ms": {}, "device_ms": {}}
+        rec = {"sha256": dig(call()), "ms": {}, "device_ms": {},
+               "host_ms": {}}
         # Device memory allocated at the peak of one call, in MiB, and
         # what was held when it started (inputs, cached buffers).
         torch.cuda.synchronize()
@@ -2027,14 +2269,19 @@ def time_tree(tree: str) -> dict:
                 if timing != "host":  # device-only: a graph of 20 calls
                     rec["device_ms"][label] = [device_ms(call, 20)
                                                for _ in range(3)]
+                    rec["host_ms"][label] = [enqueue_ms(call, 20)
+                                             for _ in range(3)]
             finally:
                 if budget is not None:
                     place_cuda.STAGE_BYTES = saved
         log(f"compare {tree} {name}: ms {rec['ms']}, device-only ms "
-            f"{rec['device_ms']}, peak "
+            f"{rec['device_ms']}, host ms a call to enqueue "
+            f"{rec['host_ms']}, peak "
             f"{rec['peak_MiB']} MiB (held {rec['held_MiB']}) [{card}]")
-        profile_window(call, "device_", card, f"one {name} call of {tree}",
-                       top=16)
+        by_kernel = profile_window(call, "device_", card,
+                                   f"one {name} call of {tree}", top=16)
+        # device launches of one call, by kernel (as the profiler saw them)
+        rec["launches"] = {k[:80]: n for k, (n, _) in by_kernel.items()}
         out["cases"][name] = rec
     return out
 
@@ -2254,9 +2501,10 @@ def main() -> None:
     dev = torch.device("cuda")
     encode_streams = {name: streams[name] for name in STREAMS}
     entries += encode_phases(card, encode_streams, decs, dev)
-    entries += general_phase(card, dev, errs["decode_segments_general"],
-                             k_ms)
-    entries += single_image_phase(card, dev, streams)
+    general, ri7 = general_phase(card, dev, errs["decode_segments_general"],
+                                 k_ms)
+    entries += general
+    entries += single_image_phase(card, dev, streams, ri7)
     entries += rstless_phase(card, dev)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 

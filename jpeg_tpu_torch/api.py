@@ -11,12 +11,17 @@ codec).  ``DecodedImage``, ``expected_mcus``, ``checks_enabled`` and
 Entropy backends: ``"auto"`` takes the NumPy lockstep engine for scans
 of 16 or more restart segments and the serial oracle otherwise, which is
 the JAX package's own choice when its native library is absent;
-``"serial"`` and ``"lockstep"`` force one.  ``"speculative"`` runs the
-RST-less engine (``entropy/speculative.py``: kernels K8-K10) on the
-decode's device for a scan without restart markers, routes a scan with
+``"serial"`` and ``"lockstep"`` force one.  Two backends decode on the
+``device`` they are given (required): ``"lockstep-jax"`` decodes every
+scan with the general segment decode (``entropy/lockstep_jax.py``: the
+kernels of ``csrc/decode_segments.cu``, or their plain versions on the
+CPU), as the JAX package's backend of that name does on its device;
+``"speculative"`` runs the RST-less engine (``entropy/speculative.py``:
+kernels K8-K10) for a scan without restart markers, routes a scan with
 them to the lockstep engine, and decodes a scan the engine refuses with
-the serial oracle.  The native C++ engine is not ported yet (the port's
-native host layer), so ``"native"`` raises.
+the serial oracle.  ``"auto"`` never picks either.  The native C++
+engine is not ported yet (the port's native host layer), so
+``"native"`` raises.
 """
 
 from __future__ import annotations
@@ -106,8 +111,12 @@ def checks_enabled() -> bool:
 
 
 def checks_level() -> int:
-    """JPEG_TPU_CHECKS tiers: 0 off, 1 host-side invariants (the JAX
-    package's tier 2, in-kernel checkify checks, has no port)."""
+    """JPEG_TPU_CHECKS tiers: 0 off, 1 host-side invariants, 2 (a test
+    tier) also the JAX package's in-scan checks for ``"lockstep-jax"``:
+    the plain scan and placement rerun on the decode's tensors with the
+    checks of ``lockstep_torch.scan_lanes`` and
+    ``place_cuda.place_emissions``, raising ``CorruptStream("sanitizer:
+    ...")``."""
     v = os.environ.get("JPEG_TPU_CHECKS", "")
     if not v or v == "0":
         return 0
@@ -118,8 +127,8 @@ def decode_coefficients(
     data: bytes, entropy: str = "auto", device=None
 ) -> tuple[Codestream, Dict[int, np.ndarray]]:
     """Parse + entropy-decode only: JPEG bytes -> coefficient planes (host
-    numpy).  Every backend decodes on the host except ``"speculative"``,
-    which runs on ``device`` (required for it)."""
+    numpy).  Every backend decodes on the host except ``"lockstep-jax"``
+    and ``"speculative"``, which run on ``device`` (required for them)."""
     try:
         return _decode_coefficients(data, entropy, device)
     except JpegError:
@@ -138,11 +147,12 @@ def _decode_coefficients(
 ) -> tuple[Codestream, Dict[int, np.ndarray]]:
     if entropy in _NOT_PORTED:
         raise UnsupportedError(_NOT_PORTED[entropy])
-    if entropy not in ("auto", "serial", "lockstep", "speculative"):
+    if entropy not in ("auto", "serial", "lockstep", "lockstep-jax",
+                       "speculative"):
         raise UnsupportedError(f"unknown entropy backend {entropy!r}")
-    if entropy == "speculative":
+    if entropy in ("lockstep-jax", "speculative"):
         if device is None:
-            raise ValueError("entropy='speculative' decodes on a device: "
+            raise ValueError(f"entropy={entropy!r} decodes on a device: "
                              "pass device")
         from .device import resolve
 
@@ -183,6 +193,12 @@ def _decode_coefficients(
             n = decode_scan_speculative(
                 geom, scan.info, tables, tuple(sorted(scan.htables.items())),
                 segments, planes, device)
+        elif backend == "lockstep-jax":
+            from .entropy.lockstep_jax import decode_scan_lockstep_jax
+
+            n = decode_scan_lockstep_jax(
+                geom, scan.info, tables, tuple(sorted(scan.htables.items())),
+                segments, planes, device)
         else:
             from .entropy.lockstep import decode_scan_lockstep
 
@@ -206,9 +222,9 @@ def decode_jpeg(
 ) -> DecodedImage:
     """Full decode: JPEG bytes -> RGB float frame (+ coefficients).
 
-    Entropy decode runs on the host (``entropy="speculative"``: on
-    ``device``), the dense pipeline on ``device``; ``frame`` comes back as
-    a float32 numpy array.
+    Entropy decode runs on the host (``entropy="lockstep-jax"`` and
+    ``"speculative"``: on ``device``), the dense pipeline on ``device``;
+    ``frame`` comes back as a float32 numpy array.
     """
     from .device import resolve
     from .models.pipeline import decode_frame

@@ -28,11 +28,16 @@
 //                 are dropped.
 //   MODE_COUNT    general pass 1: decode to the end, store the MCU count
 //                 and whether the lane wrote into the MCU it died in
-//                 ("partial").  boundary_layout_kernel (one CTA per frame)
-//                 then gives each lane its first MCU (lane_off, the
-//                 per-frame exclusive sum of the counts) and marks the
-//                 lane-boundary MCUs that two lanes write ("contested";
-//                 plain version place_cuda.lane_layout + contested_rows).
+//                 ("partial").  Then the frame's layout, in the same
+//                 launch: each CTA adds its lanes of a frame to the
+//                 frame's ticket, and the CTA that completes the frame
+//                 gives each lane its first MCU (lane_off, the per-frame
+//                 exclusive sum of the counts), marks the lane-boundary
+//                 MCUs that two lanes write ("contested"; plain version
+//                 place_cuda.lane_layout + contested_rows) and resets the
+//                 ticket for the next call.  Their owner keys are zeroed
+//                 by each CTA for the rows its partial lanes end in, and
+//                 by the layout for the rest.
 //   MODE_PLACE    general pass 2: a write of lane-local MCU m goes to
 //                 block(lane_off + m, slot), dropped unless m < n_mcus and
 //                 the block lies inside its component (slot_nblocks).
@@ -43,11 +48,11 @@
 // wins (XLA applies updates in order).  So MODE_PLACE writes every MCU
 // directly except contested ones, where it only raises a per-coefficient
 // owner key ((step + 1) << 32 | lane) with atomicMax (zeroed beforehand
-// by zero_contested_rows, contested rows only); MODE_RESOLVE walks again,
+// by the count walk's layout, contested rows only); MODE_RESOLVE walks again,
 // only in lanes that touch a contested MCU and only as far as it, and
 // writes the coefficients whose owner key is its own.  On an intact
-// stream nothing is contested and passes 3 and the key zeroing return at
-// once.
+// stream nothing is contested and pass 3 returns at once.  The general
+// path is three launches: count (with the layout), place, resolve.
 //
 // Semantics are integer-exact with the JAX paths, corrupt input included
 // (see entropy/lockstep_torch.py and entropy/place_cuda.py, the plain
@@ -94,8 +99,13 @@
 //     finished tile leaves by one cp.async.bulk copy while the thread
 //     fills the other, and the output needs no memset; the place walk
 //     stores each coefficient into a zeroed output, which measured faster
-//     than tiles there; owner keys only in contested MCUs.
+//     than tiles there; owner keys only in contested MCUs;
+//   * the general layout rides the count walk: a separate layout launch
+//     (one CTA a frame over a few KB) cost more in launch and wrapper
+//     than in work, so the CTA that finishes a frame's last lanes lays
+//     the frame out while the other CTAs still decode.
 
+#include <atomic>
 #include <cstdint>
 #include <cub/block/block_scan.cuh>
 #include <cuda_runtime.h>
@@ -130,7 +140,6 @@ static_assert(OFF_LUT % 4 == 0 && TABLE_INTS % 4 == 0,
 constexpr int CTA_LANES = 64;  // place_cuda.CTA_LANES sizes the staged slab
 constexpr int WARP_LANES = 8;
 constexpr int THREADS = CTA_LANES / WARP_LANES * 32;
-constexpr int LAYOUT_THREADS = 1024;
 constexpr int TILE_STRIDE = 68;  // ints per block tile: 16-byte rows that
                                  // start 4 banks apart
 constexpr int TILES_PER_THREAD = 2;  // one filling, one being copied out
@@ -155,16 +164,155 @@ struct Params {
   int tab_ints;      // ints of `tables` to stage (the used LUTs only)
 };
 
-// Per-lane inputs and outputs of the general passes (null in region mode).
+// Per-lane inputs and outputs of the general passes (null in region mode);
+// the count walk writes partial and the layout, the others read them.
 struct General {
   const int32_t* counts;     // [S] lane MCU counts (pass 1)
-  const int32_t* lane_off;   // [S] frame-local first MCU of each lane
-  const int32_t* lane_first; // [S] first lane of the frame with that offset
+  int32_t* lane_off;         // [S] frame-local first MCU of each lane
+  int32_t* lane_first;       // [S] first lane of the frame with that offset
   int32_t* partial;          // [S] 1: the lane wrote into MCU `count`
-  const int32_t* contested;  // [frames * (spf + 1)] boundary rows, 1 = two
+  int32_t* contested;        // [frames * (spf + 1)] boundary rows, 1 = two
                              // lanes write that MCU
   unsigned long long* bkey;  // [frames, spf + 1, bpm, 64] owner keys
+  unsigned int* tickets;     // [frames] count walk: lanes stored so far, 0
+                             // between calls
 };
+
+// Kernel launches of this file since the library loaded (a host count).
+std::atomic<long long> g_launches{0};
+
+struct MaxOp {
+  __device__ int operator()(int a, int b) const { return a > b ? a : b; }
+};
+
+using SumScan = cub::BlockScan<long long, THREADS>;
+using MaxScan = cub::BlockScan<int, THREADS>;
+struct LayoutSmem {
+  union {
+    typename SumScan::TempStorage sum;
+    typename MaxScan::TempStorage max;
+  } scan;
+  int last_whole;  // the frame's last lane with a nonzero count
+  int n_done;      // frames this CTA completed
+  int done[CTA_LANES];
+  int n_cand;      // the CTA's partial lanes with a whole MCU decoded ...
+  int64_t cand[CTA_LANES];  // ... and the owner-key row each ends in
+  int n_zero;      // contested rows of a frame the layout zeroes ...
+  int zero[THREADS];  // ... (those past THREADS, their finder alone)
+};
+
+// A partial lane wrote into the MCU it died in, so its end row may be
+// contested.  The layout counts a row's partial writers in its low bits
+// and sets this bit for one that decoded no whole MCU (its end row is its
+// first row, which only the layout knows).
+constexpr int ZERO_COUNT_WRITER = 1 << 30;
+
+// Zero the owner keys of `n` rows (row indices `rows[i] + add`, bkey rows
+// of `row_len` keys) with `threads` threads from `t` on, 16-byte stores.
+template <typename Row>
+__device__ __forceinline__ void zero_key_rows(unsigned long long* bkey,
+                                              const Row* rows, int n,
+                                              int64_t add, int row_len,
+                                              int t, int threads) {
+  const int per_row = row_len / 2;
+  for (int i = t; i < n * per_row; i += threads) {
+    const int c = i / per_row;
+    reinterpret_cast<ulonglong2*>(bkey + (rows[c] + add) * row_len)
+        [i - c * per_row] = make_ulonglong2(0ull, 0ull);
+  }
+}
+
+// The general walks' layout of frame `f`, run by the whole CTA of the
+// count walk that stored the frame's last lanes (plain version:
+// place_cuda.lane_layout + contested_rows): each lane's first MCU (the
+// exclusive sum of the counts before it), the first lane of the frame with
+// that first MCU, and the contested boundary rows.  Row r (the MCU where
+// lane r starts; row spf: where the last lane ends) is contested when it
+// lies in the frame and has two writers: the first lane from r on with a
+// nonzero count, and each partial lane ending there (row k + 1, or its
+// own first row when its count is 0).  Thread t takes lanes and rows
+// [k0, k1), ceil(spf / THREADS) of them (thread 0 also row spf), so one
+// pair of block scans covers the frame and each thread's loads are
+// independent.  Other CTAs' counts and partial flags, and the writer
+// counts the atomics leave in L2, are read through L2 (__ldcg): L1 does
+// not see those stores.  The owner keys of a contested row whose only
+// partial writers decoded no whole MCU are zeroed here; every other
+// contested row's were zeroed by the count walk CTA of its partial lane.
+__device__ void frame_layout(int f, const int32_t* counts,
+                             const int32_t* partial, const Params& p,
+                             const General& g, LayoutSmem& sm) {
+  const int spf = p.spf;
+  const int64_t base = static_cast<int64_t>(f) * spf;
+  const int64_t frow = base + f;  // the frame's first row: f * (spf + 1)
+  int32_t* row = g.contested + frow;
+  const int per = (spf + THREADS - 1) / THREADS;
+  const int k0 = min(spf, static_cast<int>(threadIdx.x) * per);
+  const int k1 = min(spf, k0 + per);
+  for (int r = k0; r < k1; ++r) row[r] = 0;
+  if (threadIdx.x == 0) {
+    row[spf] = 0;
+    sm.last_whole = -1;
+    sm.n_zero = 0;
+  }
+  __syncthreads();
+  const int before = k0 > 0 ? __ldcg(counts + base + k0 - 1) : 0;
+  long long sum = 0;
+  int last_start = -1, last_whole = -1, prev = before;
+#pragma unroll 4
+  for (int k = k0; k < k1; ++k) {
+    const int c = __ldcg(counts + base + k);
+    if (k == 0 || prev > 0) last_start = k;
+    if (c > 0) last_whole = k;
+    sum += c;
+    prev = c;
+  }
+  if (last_whole >= 0) atomicMax(&sm.last_whole, last_whole);
+  long long off, total;
+  SumScan(sm.scan.sum).ExclusiveSum(sum, off, total);
+  __syncthreads();
+  int first;
+  MaxScan(sm.scan.max).ExclusiveScan(last_start, first, -1, MaxOp());
+  // Each lane's first MCU and first lane, and each partial lane's mark on
+  // the row it ends in.
+  prev = before;
+#pragma unroll 4
+  for (int k = k0; k < k1; ++k) {
+    const int c = __ldcg(counts + base + k);
+    if (k == 0 || prev > 0) first = k;
+    g.lane_off[base + k] = static_cast<int32_t>(off);
+    g.lane_first[base + k] = first;
+    if (__ldcg(partial + base + k)) {
+      atomicAdd(row + (c == 0 ? first : k + 1), 1);
+      if (c == 0) atomicOr(row + first, ZERO_COUNT_WRITER);
+    }
+    off += c;
+    prev = c;
+  }
+  __syncthreads();
+  const int row_len = p.bpm * 64;
+  auto contest = [&](int r) {
+    const long long start = r < spf ? g.lane_off[base + r] : total;
+    const int marks = __ldcg(row + r);
+    const int writers =
+        (marks & (ZERO_COUNT_WRITER - 1)) + (r <= sm.last_whole ? 1 : 0);
+    const bool hit = start < p.n_mcus && writers >= 2;
+    row[r] = hit ? 1 : 0;
+    if (hit && (marks & ZERO_COUNT_WRITER)) {
+      const int i = atomicAdd(&sm.n_zero, 1);
+      if (i < THREADS)
+        sm.zero[i] = r;
+      else
+        zero_key_rows(g.bkey, &r, 1, frow, row_len, 0, 1);
+    }
+  };
+#pragma unroll 4
+  for (int r = k0; r < k1; ++r) contest(r);
+  if (threadIdx.x == 0) contest(spf);
+  __syncthreads();
+  zero_key_rows(g.bkey, sm.zero, min(sm.n_zero, THREADS), frow, row_len,
+                threadIdx.x, THREADS);
+  __syncthreads();  // the shared scratch is free for the next frame
+}
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -239,6 +387,8 @@ decode_segments_kernel(const int32_t* __restrict__ tables,
                  src + static_cast<int64_t>(i) * p.wn + 4 * j);
     }
   }
+  __shared__ LayoutSmem sm;  // the count walk's layout (unused otherwise)
+  if (MODE == MODE_COUNT && threadIdx.x == 0) sm.n_cand = 0;
   int32_t* tile = tiles + idx * TILE_STRIDE * TILES_PER_THREAD;
   int32_t* spare = tile + TILE_STRIDE;  // the thread's second tile
   if (TILES && mine) {
@@ -249,286 +399,253 @@ decode_segments_kernel(const int32_t* __restrict__ tables,
   cp_async_wait_all();
   __syncthreads();
   // A resolve lane without a contested MCU writes nothing: it only helped
-  // stage.
-  if (!mine || (MODE == MODE_RESOLVE && !c_first && !c_end)) return;
-  const uint16_t* lut = reinterpret_cast<const uint16_t*>(tab + OFF_LUT);
+  // stage.  The count walk's threads that decode no lane stay for its
+  // layout.
+  const bool walks = mine && !(MODE == MODE_RESOLVE && !c_first && !c_end);
+  if (MODE != MODE_COUNT && !walks) return;
+  if (walks) {
+    const uint16_t* lut = reinterpret_cast<const uint16_t*>(tab + OFF_LUT);
 
-  const uint32_t* grow = words + static_cast<int64_t>(lane) * p.wn;
-  const uint32_t* srow = slab + idx * stride;
-  auto word = [&](int i) -> uint32_t {
-    if (i >= p.wn) return 0u;
-    return STAGED ? srow[i] : __ldg(grow + i);
-  };
+    const uint32_t* grow = words + static_cast<int64_t>(lane) * p.wn;
+    const uint32_t* srow = slab + idx * stride;
+    auto word = [&](int i) -> uint32_t {
+      if (i >= p.wn) return 0u;
+      return STAGED ? srow[i] : __ldg(grow + i);
+    };
 
-  const int nb = nbits[lane];
-  const int64_t frame_base = static_cast<int64_t>(frame) * p.total_blocks;
-  // Position of the current frame-local MCU in its MCU row (Ns=1 scans:
-  // one row holds every MCU, so mx never wraps), advanced per MCU.
-  int64_t my = 0, mx = MODE == MODE_REGION ? k * p.ri : off;
-  if (p.interleaved) {
-    my = mx / p.m_x;
-    mx -= my * p.m_x;
-  }
-  auto next_mcu = [&]() {
-    if (++mx == p.m_x && p.interleaved) {
-      mx = 0;
-      ++my;
+    const int nb = nbits[lane];
+    const int64_t frame_base = static_cast<int64_t>(frame) * p.total_blocks;
+    // Position of the current frame-local MCU in its MCU row (Ns=1 scans:
+    // one row holds every MCU, so mx never wraps), advanced per MCU.
+    int64_t my = 0, mx = MODE == MODE_REGION ? k * p.ri : off;
+    if (p.interleaved) {
+      my = mx / p.m_x;
+      mx -= my * p.m_x;
     }
-  };
-  // Store the current tile whole at `d` by one bulk asynchronous copy
-  // (cp.async.bulk, 256 bytes) and start the next block on the other,
-  // cleared tile.
-  auto flush = [&](int32_t* d) {
-    // The tile's generic-proxy stores must be visible to the bulk copy.
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    const unsigned src =
-        static_cast<unsigned>(__cvta_generic_to_shared(tile));
-    asm volatile(
-        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], 256;\n"
-        ::"l"(d), "r"(src) : "memory");
-    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-    int32_t* t = tile;
-    tile = spare;
-    spare = t;
-    // The copy that last read the tile we switch to is done with it.
-    asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
-    int4* z = reinterpret_cast<int4*>(tile);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) z[i] = make_int4(0, 0, 0, 0);
-  };
-  auto block_dst = [&](int s) -> int64_t {  // -1: outside the frame
-    const int64_t rel = tab[OFF_C0 + s] + my * tab[OFF_C1 + s] +
-                        mx * tab[OFF_C2 + s];
-    // region_path: the lanes' regions tile the frame's blocks exactly.
-    if (MODE == MODE_REGION) return (frame_base + rel) * 64;
-    return rel < tab[OFF_BLK_END + s] ? (frame_base + rel) * 64 : -1;
-  };
-
-  int bitpos = 0, mcu = 0, slot = 0, coeff = 0, cur_diff = 0, step = 0;
-  int pred0 = 0, pred1 = 0, pred2 = 0, pred3 = 0;  // DC predictors
-  int widx = 0;  // buf holds words widx and widx + 1
-  uint64_t buf = (static_cast<uint64_t>(word(0)) << 32) | word(1);
-  uint32_t ahead = STAGED ? 0u : word(2);  // lookahead: word widx + 2
-  bool wrote = false;  // count walk: a write landed in MCU `mcu`
-  bool alive = nb > 0;
-
-  // State of the block (mcu, slot), set when it starts: its tables and
-  // component, whether the scan emits its writes (block_ok), its first
-  // coefficient (dst, -1: writes are dropped) and, for a contested MCU of
-  // the general walks, its owner keys at bkey[kbase + pos].
-  int t_dc = 0, t_ac = 0, comp = 0;
-  bool block_ok = false;
-  int64_t dst = -1, kbase = -1;
-  auto begin_block = [&]() {
-    t_dc = tab[OFF_SLOT_DC + slot];
-    t_ac = tab[OFF_SLOT_AC + slot];
-    comp = tab[OFF_SLOT_COMP + slot];
-    block_ok = mcu < p.n_mcus;
-    dst = -1;
-    kbase = -1;
-    if (MODE == MODE_REGION) {
-      if (mcu < p.ri) dst = block_dst(slot);  // inside the lane's region
-    } else if (MODE != MODE_COUNT && block_ok) {
-      dst = block_dst(slot);
-      if (dst >= 0 && ((mcu == 0 && c_first) || (mcu == count && c_end))) {
-        const int brow = mcu == 0 ? first : k + 1;
-        kbase = ((static_cast<int64_t>(frame) * (p.spf + 1) + brow) *
-                 p.bpm + slot) * 64;
+    auto next_mcu = [&]() {
+      if (++mx == p.m_x && p.interleaved) {
+        mx = 0;
+        ++my;
       }
-    }
-  };
-  begin_block();
+    };
+    // Store the current tile whole at `d` by one bulk asynchronous copy
+    // (cp.async.bulk, 256 bytes) and start the next block on the other,
+    // cleared tile.
+    auto flush = [&](int32_t* d) {
+      // The tile's generic-proxy stores must be visible to the bulk copy.
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      const unsigned src =
+          static_cast<unsigned>(__cvta_generic_to_shared(tile));
+      asm volatile(
+          "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], 256;\n"
+          ::"l"(d), "r"(src) : "memory");
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      int32_t* t = tile;
+      tile = spare;
+      spare = t;
+      // The copy that last read the tile we switch to is done with it.
+      asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+      int4* z = reinterpret_cast<int4*>(tile);
+  #pragma unroll
+      for (int i = 0; i < 16; ++i) z[i] = make_int4(0, 0, 0, 0);
+    };
+    auto block_dst = [&](int s) -> int64_t {  // -1: outside the frame
+      const int64_t rel = tab[OFF_C0 + s] + my * tab[OFF_C1 + s] +
+                          mx * tab[OFF_C2 + s];
+      // region_path: the lanes' regions tile the frame's blocks exactly.
+      if (MODE == MODE_REGION) return (frame_base + rel) * 64;
+      return rel < tab[OFF_BLK_END + s] ? (frame_base + rel) * 64 : -1;
+    };
 
-  for (; alive; ++step) {
-    if (MODE == MODE_RESOLVE && !c_end && mcu > 0) break;  // past MCU 0
-    const uint32_t win = static_cast<uint32_t>((buf << (bitpos & 31)) >> 32);
-    const bool is_dc = coeff == 0;
-    const int t = is_dc ? t_dc : t_ac;
+    int bitpos = 0, mcu = 0, slot = 0, coeff = 0, cur_diff = 0, step = 0;
+    int pred0 = 0, pred1 = 0, pred2 = 0, pred3 = 0;  // DC predictors
+    int widx = 0;  // buf holds words widx and widx + 1
+    uint64_t buf = (static_cast<uint64_t>(word(0)) << 32) | word(1);
+    uint32_t ahead = STAGED ? 0u : word(2);  // lookahead: word widx + 2
+    bool wrote = false;  // count walk: a write landed in MCU `mcu`
+    bool alive = nb > 0;
 
-    // Codes of up to LUT_BITS bits: one lookup.  Longer ones: the
-    // canonical compare from LUT_BITS + 1 on (the first length l with
-    // prefix <= maxcode[t][l]), its compares independent of each other.
-    const int e = lut[t * LUT_SIZE + (win >> (32 - LUT_BITS))];
-    int length, value;
-    if (e != 0) {
-      length = e >> 8;
-      value = e & 0xFF;
-    } else {
-      const int code16 = static_cast<int>(win >> 16);
-      const int* maxcode = tab + OFF_MAXCODE + t * 17;
-      length = 0;
-#pragma unroll
-      for (int l = 16; l > LUT_BITS; --l)
-        if ((code16 >> (16 - l)) <= maxcode[l]) length = l;
-      if (length == 0) break;  // no code matches: the lane dies
-      const int vidx = tab[OFF_VALPTR + t * 17 + length] +
-                       (code16 >> (16 - length)) -
-                       tab[OFF_MINCODE + t * 17 + length];
-      value = tab[OFF_HUFFVAL + t * 256 + min(max(vidx, 0), p.vpad - 1)];
-    }
-    if (is_dc && value > 16) break;  // DC category past 16
-    const int cat = is_dc ? value : (value & 15);
-    const int need = length + cat;  // 1..32 bits
-    if (bitpos + need > nb) break;  // symbol overruns the segment
-
-    const int extra =
-        static_cast<int>((win >> (32 - need)) & ((1u << cat) - 1u));
-    const int coef_val =
-        cat == 0 ? 0
-                 : ((extra >> (cat - 1)) ? extra : extra - (1 << cat) + 1);
-
-    if (is_dc && !block_ok && p.interleaved) break;  // NULL-block DC
-    const bool is_eob = !is_dc && value == 0;
-    const int new_coeff = is_dc ? 1 : coeff + (value >> 4);
-    if (!is_dc && !is_eob && new_coeff > 63) break;  // AC run past 63
-
-    // The symbol is live.  Store `v` at position `pos` of the block,
-    // emitted at lockstep step `at`.
-    auto put = [&](int pos, int v, int at) {
-      if (MODE == MODE_COUNT) {
-        wrote = wrote || block_ok;
-      } else if (dst >= 0) {
-        if (TILES) {
-          tile[pos] = v;
-        } else if (kbase < 0) {
-          if (MODE != MODE_RESOLVE) coeffs[dst + pos] = v;
-        } else {
-          const unsigned long long key =
-              (static_cast<unsigned long long>(at + 1) << 32) |
-              static_cast<unsigned int>(lane);
-          if (MODE == MODE_PLACE) {
-            atomicMax(g.bkey + kbase + pos, key);
-          } else if (g.bkey[kbase + pos] == key) {
-            coeffs[dst + pos] = v;
-          }
+    // State of the block (mcu, slot), set when it starts: its tables and
+    // component, whether the scan emits its writes (block_ok), its first
+    // coefficient (dst, -1: writes are dropped) and, for a contested MCU of
+    // the general walks, its owner keys at bkey[kbase + pos].
+    int t_dc = 0, t_ac = 0, comp = 0;
+    bool block_ok = false;
+    int64_t dst = -1, kbase = -1;
+    auto begin_block = [&]() {
+      t_dc = tab[OFF_SLOT_DC + slot];
+      t_ac = tab[OFF_SLOT_AC + slot];
+      comp = tab[OFF_SLOT_COMP + slot];
+      block_ok = mcu < p.n_mcus;
+      dst = -1;
+      kbase = -1;
+      if (MODE == MODE_REGION) {
+        if (mcu < p.ri) dst = block_dst(slot);  // inside the lane's region
+      } else if (MODE != MODE_COUNT && block_ok) {
+        dst = block_dst(slot);
+        if (dst >= 0 && ((mcu == 0 && c_first) || (mcu == count && c_end))) {
+          const int brow = mcu == 0 ? first : k + 1;
+          kbase = ((static_cast<int64_t>(frame) * (p.spf + 1) + brow) *
+                   p.bpm + slot) * 64;
         }
       }
     };
-    if (!is_dc && !is_eob) put(tab[OFF_ZIGZAG + new_coeff], coef_val, step);
-    if (is_dc) cur_diff = coef_val;
-    const int after = is_dc ? 1 : new_coeff + 1;
-    if (is_eob || after >= 64) {
-      // int32 wrap-around, as the JAX engine's int32 arithmetic
-      const int pred = comp == 0 ? pred0
-                     : comp == 1 ? pred1
-                     : comp == 2 ? pred2 : pred3;
-      const int dc = static_cast<int>(static_cast<uint32_t>(pred) +
-                                      static_cast<uint32_t>(cur_diff));
-      put(0, dc, step + 1);  // the scan emits it a step later
-      if (TILES && dst >= 0) flush(coeffs + dst);
-      pred0 = comp == 0 ? dc : pred0;
-      pred1 = comp == 1 ? dc : pred1;
-      pred2 = comp == 2 ? dc : pred2;
-      pred3 = comp == 3 ? dc : pred3;
-      coeff = 0;
-      if (++slot >= p.bpm) {
-        slot = 0;
-        ++mcu;
-        next_mcu();
-        wrote = false;
-      }
-      begin_block();
-    } else {
-      coeff = after;
-    }
-    bitpos += need;
-    const int nw = bitpos >> 5;  // a symbol crosses at most one word
-    if (nw != widx) {
-      widx = nw;
-      if (STAGED) {
-        buf = (buf << 32) | word(widx + 1);
+    begin_block();
+
+    for (; alive; ++step) {
+      if (MODE == MODE_RESOLVE && !c_end && mcu > 0) break;  // past MCU 0
+      const uint32_t win = static_cast<uint32_t>((buf << (bitpos & 31)) >> 32);
+      const bool is_dc = coeff == 0;
+      const int t = is_dc ? t_dc : t_ac;
+
+      // Codes of up to LUT_BITS bits: one lookup.  Longer ones: the
+      // canonical compare from LUT_BITS + 1 on (the first length l with
+      // prefix <= maxcode[t][l]), its compares independent of each other.
+      const int e = lut[t * LUT_SIZE + (win >> (32 - LUT_BITS))];
+      int length, value;
+      if (e != 0) {
+        length = e >> 8;
+        value = e & 0xFF;
       } else {
-        buf = (buf << 32) | ahead;
-        ahead = word(widx + 2);
+        const int code16 = static_cast<int>(win >> 16);
+        const int* maxcode = tab + OFF_MAXCODE + t * 17;
+        length = 0;
+  #pragma unroll
+        for (int l = 16; l > LUT_BITS; --l)
+          if ((code16 >> (16 - l)) <= maxcode[l]) length = l;
+        if (length == 0) break;  // no code matches: the lane dies
+        const int vidx = tab[OFF_VALPTR + t * 17 + length] +
+                         (code16 >> (16 - length)) -
+                         tab[OFF_MINCODE + t * 17 + length];
+        value = tab[OFF_HUFFVAL + t * 256 + min(max(vidx, 0), p.vpad - 1)];
+      }
+      if (is_dc && value > 16) break;  // DC category past 16
+      const int cat = is_dc ? value : (value & 15);
+      const int need = length + cat;  // 1..32 bits
+      if (bitpos + need > nb) break;  // symbol overruns the segment
+
+      const int extra =
+          static_cast<int>((win >> (32 - need)) & ((1u << cat) - 1u));
+      const int coef_val =
+          cat == 0 ? 0
+                   : ((extra >> (cat - 1)) ? extra : extra - (1 << cat) + 1);
+
+      if (is_dc && !block_ok && p.interleaved) break;  // NULL-block DC
+      const bool is_eob = !is_dc && value == 0;
+      const int new_coeff = is_dc ? 1 : coeff + (value >> 4);
+      if (!is_dc && !is_eob && new_coeff > 63) break;  // AC run past 63
+
+      // The symbol is live.  Store `v` at position `pos` of the block,
+      // emitted at lockstep step `at`.
+      auto put = [&](int pos, int v, int at) {
+        if (MODE == MODE_COUNT) {
+          wrote = wrote || block_ok;
+        } else if (dst >= 0) {
+          if (TILES) {
+            tile[pos] = v;
+          } else if (kbase < 0) {
+            if (MODE != MODE_RESOLVE) coeffs[dst + pos] = v;
+          } else {
+            const unsigned long long key =
+                (static_cast<unsigned long long>(at + 1) << 32) |
+                static_cast<unsigned int>(lane);
+            if (MODE == MODE_PLACE) {
+              atomicMax(g.bkey + kbase + pos, key);
+            } else if (g.bkey[kbase + pos] == key) {
+              coeffs[dst + pos] = v;
+            }
+          }
+        }
+      };
+      if (!is_dc && !is_eob) put(tab[OFF_ZIGZAG + new_coeff], coef_val, step);
+      if (is_dc) cur_diff = coef_val;
+      const int after = is_dc ? 1 : new_coeff + 1;
+      if (is_eob || after >= 64) {
+        // int32 wrap-around, as the JAX engine's int32 arithmetic
+        const int pred = comp == 0 ? pred0
+                       : comp == 1 ? pred1
+                       : comp == 2 ? pred2 : pred3;
+        const int dc = static_cast<int>(static_cast<uint32_t>(pred) +
+                                        static_cast<uint32_t>(cur_diff));
+        put(0, dc, step + 1);  // the scan emits it a step later
+        if (TILES && dst >= 0) flush(coeffs + dst);
+        pred0 = comp == 0 ? dc : pred0;
+        pred1 = comp == 1 ? dc : pred1;
+        pred2 = comp == 2 ? dc : pred2;
+        pred3 = comp == 3 ? dc : pred3;
+        coeff = 0;
+        if (++slot >= p.bpm) {
+          slot = 0;
+          ++mcu;
+          next_mcu();
+          wrote = false;
+        }
+        begin_block();
+      } else {
+        coeff = after;
+      }
+      bitpos += need;
+      const int nw = bitpos >> 5;  // a symbol crosses at most one word
+      if (nw != widx) {
+        widx = nw;
+        if (STAGED) {
+          buf = (buf << 32) | word(widx + 1);
+        } else {
+          buf = (buf << 32) | ahead;
+          ahead = word(widx + 2);
+        }
       }
     }
-  }
-  if (TILES && mcu < p.ri) {
-    // The block the lane died in keeps what it decoded (ACs, DC 0); the
-    // rest of its region is zero.
-    flush(coeffs + dst);
-    for (int s = slot + 1; s < p.bpm; ++s) zero_block(coeffs + block_dst(s));
-    next_mcu();
-    for (int m = mcu + 1; m < p.ri; ++m, next_mcu())
-      for (int s = 0; s < p.bpm; ++s) zero_block(coeffs + block_dst(s));
-  }
-  if (TILES)  // the tiles stay allocated until copied out
-    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-  if (MODE == MODE_REGION || MODE == MODE_COUNT) mcu_counts[lane] = mcu;
-  if (MODE == MODE_COUNT) g.partial[lane] = wrote ? 1 : 0;
-}
-
-struct MaxOp {
-  __device__ int operator()(int a, int b) const { return a > b ? a : b; }
-};
-
-// The general walks' lane layout, one CTA per frame (the plain version is
-// place_cuda.lane_layout + contested_rows): each lane's first MCU (the
-// exclusive sum of the counts before it), the first lane of the frame
-// with that first MCU, and the contested boundary rows.  Row r (the MCU
-// where lane r starts; row spf: where the last lane ends) is contested
-// when it lies in the frame and has two writers: the first lane from r
-// on with a nonzero count, and each partial lane ending there (row k + 1,
-// or its own first row when its count is 0).
-__global__ void __launch_bounds__(LAYOUT_THREADS)
-boundary_layout_kernel(const int32_t* __restrict__ counts,
-                       const int32_t* __restrict__ partial, int spf,
-                       int n_mcus, int32_t* __restrict__ lane_off,
-                       int32_t* __restrict__ lane_first,
-                       int32_t* __restrict__ contested) {
-  using SumScan = cub::BlockScan<long long, LAYOUT_THREADS>;
-  using MaxScan = cub::BlockScan<int, LAYOUT_THREADS>;
-  __shared__ union {
-    typename SumScan::TempStorage sum;
-    typename MaxScan::TempStorage max;
-  } tmp;
-  __shared__ int last_whole;  // the frame's last lane with a nonzero count
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * spf;
-  int32_t* row = contested + static_cast<int64_t>(blockIdx.x) * (spf + 1);
-  if (threadIdx.x == 0) last_whole = -1;
-  for (int r = threadIdx.x; r <= spf; r += blockDim.x) row[r] = 0;
-  long long carry = 0;  // MCUs of the chunks of lanes before
-  int carry_first = 0;
-  for (int c0 = 0; c0 < spf; c0 += LAYOUT_THREADS) {
-    const int k = c0 + threadIdx.x;
-    const bool in = k < spf;
-    const long long per = in ? counts[base + k] : 0;
-    const bool starts = in && (k == 0 || counts[base + k - 1] > 0);
-    long long off, total;
-    SumScan(tmp.sum).ExclusiveSum(per, off, total);
-    __syncthreads();
-    int first, top;
-    MaxScan(tmp.max).InclusiveScan(starts ? k : -1, first, MaxOp(), top);
-    __syncthreads();
-    if (in) {
-      lane_off[base + k] = static_cast<int32_t>(carry + off);
-      lane_first[base + k] = max(first, carry_first);
-      if (per > 0) atomicMax(&last_whole, k);
+    if (TILES && mcu < p.ri) {
+      // The block the lane died in keeps what it decoded (ACs, DC 0); the
+      // rest of its region is zero.
+      flush(coeffs + dst);
+      for (int s = slot + 1; s < p.bpm; ++s)
+        zero_block(coeffs + block_dst(s));
+      next_mcu();
+      for (int m = mcu + 1; m < p.ri; ++m, next_mcu())
+        for (int s = 0; s < p.bpm; ++s) zero_block(coeffs + block_dst(s));
     }
-    carry += total;
-    carry_first = max(carry_first, top);
+    if (TILES)  // the tiles stay allocated until copied out
+      asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+    if (MODE == MODE_REGION || MODE == MODE_COUNT) mcu_counts[lane] = mcu;
+    if (MODE == MODE_COUNT) {
+      g.partial[lane] = wrote ? 1 : 0;
+      if (wrote && mcu > 0)  // it ends in row k + 1 of its frame
+        sm.cand[atomicAdd(&sm.n_cand, 1)] =
+            static_cast<int64_t>(frame) * (p.spf + 1) + k + 1;
+    }
   }
-  __syncthreads();
-  for (int k = threadIdx.x; k < spf; k += blockDim.x)
-    if (partial[base + k])
-      atomicAdd(row + (counts[base + k] == 0 ? lane_first[base + k] : k + 1),
-                1);
-  __syncthreads();
-  for (int r = threadIdx.x; r <= spf; r += blockDim.x) {
-    const long long start = r < spf ? lane_off[base + r] : carry;
-    const int writers = row[r] + (r <= last_whole ? 1 : 0);
-    row[r] = start < n_mcus && writers >= 2 ? 1 : 0;
-  }
-}
+  if (MODE != MODE_COUNT) return;
 
-// Zero the owner keys of contested boundary rows (one warp per row).
-__global__ void zero_contested_rows(const int32_t* __restrict__ contested,
-                                    int rows, int row_len,
-                                    unsigned long long* __restrict__ bkey) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  if (row >= rows || !contested[row]) return;
-  unsigned long long* r = bkey + static_cast<int64_t>(row) * row_len;
-  for (int i = threadIdx.x & 31; i < row_len; i += 32) r[i] = 0ull;
+  // The end rows of this CTA's partial lanes may be contested: zero their
+  // owner keys here, every CTA its own, in 16-byte stores.  Then add this
+  // CTA's lanes of each frame it holds to the frame's ticket (each
+  // thread's stores fenced before); the CTA that brings a ticket to spf
+  // holds the frame's last stores, lays the frame out and resets the
+  // ticket.
+  __threadfence();
+  __syncthreads();
+  zero_key_rows(g.bkey, sm.cand, sm.n_cand, 0, p.bpm * 64, threadIdx.x,
+                THREADS);
+  if (threadIdx.x == 0) sm.n_done = 0;
+  __syncthreads();
+  const int rows = min(CTA_LANES, p.S - base);
+  const int f = base / p.spf + static_cast<int>(threadIdx.x);
+  if (f <= (base + rows - 1) / p.spf) {
+    const int lo = max(base, f * p.spf);
+    const int hi = min(base + rows, (f + 1) * p.spf);
+    const unsigned add = static_cast<unsigned>(hi - lo);
+    if (atomicAdd(g.tickets + f, add) + add == static_cast<unsigned>(p.spf)) {
+      g.tickets[f] = 0u;  // every other CTA of the frame has added
+      sm.done[atomicAdd(&sm.n_done, 1)] = f;
+    }
+  }
+  __syncthreads();
+  if (sm.n_done == 0) return;
+  __threadfence();
+  for (int i = 0; i < sm.n_done; ++i)
+    frame_layout(sm.done[i], mcu_counts, g.partial, p, g, sm);
 }
 
 template <int MODE, bool STAGED>
@@ -552,7 +669,9 @@ int launch_route(const void* tables, const void* words, const void* nbits,
       static_cast<const uint32_t*>(words),
       static_cast<const int32_t*>(nbits), static_cast<int32_t*>(coeffs),
       static_cast<int32_t*>(mcu_counts), p, g);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++g_launches;
+  return static_cast<int>(err);
 }
 
 template <int MODE>
@@ -591,66 +710,56 @@ extern "C" int jt_decode_segments(const void* tables, const void* words,
                              General{}, staged, stream);
 }
 
-// General shapes, pass 1: per-lane MCU counts and partial flags.
-extern "C" int jt_decode_segments_count(const void* tables, const void* words,
-                                        const void* nbits, void* mcu_counts,
-                                        void* partial, int S, int wn,
-                                        int spf, int bpm, int n_mcus,
-                                        int interleaved, int m_x, int vpad,
-                                        int tab_ints, int staged,
-                                        void* stream) {
+// Kernel launches of this file since the library loaded.
+extern "C" long long jt_decode_segments_launches() { return g_launches; }
+
+// General shapes, pass 1: per-lane MCU counts and partial flags, then each
+// frame's layout (lane_off, lane_first, the contested rows, their owner
+// keys in bkey zeroed) in the same launch.  `tickets` holds `frames`
+// zeros, and holds zeros again when the launch ends.
+extern "C" int jt_decode_segments_count(
+    const void* tables, const void* words, const void* nbits,
+    void* mcu_counts, void* partial, void* lane_off, void* lane_first,
+    void* contested, void* bkey, void* tickets, int S, int wn, int spf,
+    int bpm, int n_mcus, int interleaved, int m_x, int vpad, int tab_ints,
+    int staged, void* stream) {
+  if (spf <= 0 || S % spf) return static_cast<int>(cudaErrorInvalidValue);
   const Params p{S,      wn,          spf, 0,    0,       bpm,
                  n_mcus, interleaved, m_x, vpad, tab_ints};
   General g{};
   g.partial = static_cast<int32_t*>(partial);
+  g.lane_off = static_cast<int32_t*>(lane_off);
+  g.lane_first = static_cast<int32_t*>(lane_first);
+  g.contested = static_cast<int32_t*>(contested);
+  g.bkey = static_cast<unsigned long long*>(bkey);
+  g.tickets = static_cast<unsigned int*>(tickets);
   return launch<MODE_COUNT>(tables, words, nbits, nullptr, mcu_counts, p, g,
                             staged, stream);
 }
 
-// General shapes, between passes 1 and 2: the lane layout and contested
-// rows of `frames` frames of `spf` lanes, on `stream`.
-extern "C" int jt_boundary_layout(const void* counts, const void* partial,
-                                  void* lane_off, void* lane_first,
-                                  void* contested, int frames, int spf,
-                                  int n_mcus, void* stream) {
-  if (frames <= 0 || spf <= 0) return 0;
-  boundary_layout_kernel<<<frames, LAYOUT_THREADS, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(counts),
-      static_cast<const int32_t*>(partial), spf, n_mcus,
-      static_cast<int32_t*>(lane_off), static_cast<int32_t*>(lane_first),
-      static_cast<int32_t*>(contested));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// General shapes, passes 2 and 3 on `stream`: zero the contested rows'
-// owner keys, the place walk, then the resolve walk (its CTAs without a
-// contested lane return at once; it always reads words from device
-// memory).
+// General shapes, passes 2 and 3 on `stream`: the place walk, then the
+// resolve walk (its CTAs without a contested lane return at once; it
+// always reads words from device memory).
 extern "C" int jt_decode_segments_place(
     const void* tables, const void* words, const void* nbits,
     const void* counts, const void* lane_off, const void* lane_first,
     const void* partial, const void* contested, void* bkey, void* coeffs,
-    int S, int wn, int spf, int frames, int total_blocks, int bpm,
-    int n_mcus, int interleaved, int m_x, int vpad, int tab_ints,
-    int staged, void* stream) {
+    int S, int wn, int spf, int total_blocks, int bpm, int n_mcus,
+    int interleaved, int m_x, int vpad, int tab_ints, int staged,
+    void* stream) {
   if (S <= 0) return 0;
   const Params p{S,      wn,          spf, 0,    total_blocks, bpm,
                  n_mcus, interleaved, m_x, vpad, tab_ints};
-  const General g{static_cast<const int32_t*>(counts),
-                  static_cast<const int32_t*>(lane_off),
-                  static_cast<const int32_t*>(lane_first),
-                  const_cast<int32_t*>(static_cast<const int32_t*>(partial)),
-                  static_cast<const int32_t*>(contested),
-                  static_cast<unsigned long long*>(bkey)};
-  const int rows = frames * (spf + 1);
-  zero_contested_rows<<<(rows + 7) / 8, 256, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      g.contested, rows, bpm * 64, g.bkey);
-  int rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  rc = launch<MODE_PLACE>(tables, words, nbits, coeffs, nullptr, p, g,
-                          staged, stream);
+  General g{};
+  g.counts = static_cast<const int32_t*>(counts);
+  g.lane_off = const_cast<int32_t*>(static_cast<const int32_t*>(lane_off));
+  g.lane_first =
+      const_cast<int32_t*>(static_cast<const int32_t*>(lane_first));
+  g.partial = const_cast<int32_t*>(static_cast<const int32_t*>(partial));
+  g.contested = const_cast<int32_t*>(static_cast<const int32_t*>(contested));
+  g.bkey = static_cast<unsigned long long*>(bkey);
+  const int rc = launch<MODE_PLACE>(tables, words, nbits, coeffs, nullptr, p,
+                                    g, staged, stream);
   if (rc != 0) return rc;
   return launch<MODE_RESOLVE>(tables, words, nbits, coeffs, nullptr, p, g,
                               0, stream);

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..constants import ZIGZAG
+from ..errors import CorruptStream
 from ..tables import derive_table
 from .lockstep import ScanPlan, build_scan_plan
 
@@ -75,7 +76,8 @@ def _plan_tensors(plan: ScanPlan, device: torch.device):
     )
 
 
-def scan_lanes(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor):
+def scan_lanes(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
+               checks: bool = False):
     """Run the lockstep symbol scan over all lanes until every lane dies.
 
     ``words`` [S, Wn] int32 holding big-endian u32 segment words
@@ -84,6 +86,13 @@ def scan_lanes(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor):
     the JAX engine's key packing ``((mcu << 4 | slot) * 64 + pos) + 1``
     (0 = no emission) and ``nsteps`` the per-lane count of steps begun
     alive.
+
+    ``checks`` is the JAX scan's sanitizer tier (``JPEG_TPU_CHECKS=2``,
+    ``lockstep_jax.py:359-375``): a live lane that decodes an invalid
+    symbol (no matching code, a DC category above 16, an AC run past 63)
+    while at least 16 bits of its segment remain raises ``CorruptStream``
+    ("sanitizer: ...") once the scan ends, where the production scan only
+    kills the lane.
     """
     dev = words.device
     S = words.shape[0]
@@ -107,6 +116,7 @@ def scan_lanes(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor):
     cur_diff = z(torch.int32)
     pend_key, pend_val = z(torch.int32), z(torch.int32)
     nsteps = z(torch.int32)
+    bad = torch.zeros((), dtype=torch.bool, device=dev)
     keys, vals = [], []
     while bool(alive.any()):
         nsteps = nsteps + alive.to(torch.int32)
@@ -156,6 +166,11 @@ def scan_lanes(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor):
         zrl = torch.where(is_dc, 0, value >> 4)
         new_coeff = torch.where(is_dc, 1, coeff + zrl)
         ac_corrupt = (~die) & (~is_dc) & (~is_eob) & (new_coeff > 63)
+        if checks:
+            # Tail 1-padding legitimately fails the prefix match when
+            # fewer than 16 bits remain: only a symbol that fits counts.
+            fits = bitpos + 16 <= nb
+            bad = bad | (alive & fits & (corrupt | ac_corrupt)).any()
         die = die | dc_null | ac_corrupt
         live = (~die) & alive
 
@@ -188,6 +203,11 @@ def scan_lanes(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor):
         coeff = torch.where(live, torch.where(block_done, 0, after), coeff)
         bitpos = torch.where(live, bitpos + need, nb)
         alive = live
+    if checks and bool(bad):
+        raise CorruptStream(
+            "sanitizer: live lane hit an invalid Huffman symbol (bad "
+            "prefix, DC category > 16, or AC run past 63) -- corrupt stream "
+            "or kernel bug")
     if keys:
         em_key, em_val = torch.stack(keys), torch.stack(vals)
     else:

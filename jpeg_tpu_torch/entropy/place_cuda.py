@@ -17,12 +17,12 @@ chunk of restart segments.  It takes the shape the JAX package takes:
   does not tile the MCU rows, a short last segment, an RST-less frame as
   one lane) ports the scan followed by the prefix-sum scatter
   ``lockstep_jax._place_emissions``.  On a CUDA tensor the kernel walks
-  each segment twice (count its MCUs and whether it died mid-MCU; the
-  ``boundary_layout`` kernel gives each lane its first MCU and marks the
-  MCUs two lanes write, ``contested_rows``; place), and a third walk
-  resolves the contested MCUs only; on a CPU tensor the plain version
-  ``decode_segments_general_ref`` runs the eager scan and
-  ``place_emissions``.
+  each segment twice (count its MCUs and whether it died mid-MCU, and in
+  the same launch the layout: each lane's first MCU, ``lane_layout``, and
+  the MCUs two lanes write, ``contested_rows``; place), and a third walk
+  resolves the contested MCUs only: three launches a call.  On a CPU
+  tensor the plain version ``decode_segments_general_ref`` runs the eager
+  scan and ``place_emissions``.
 
 The kernels decode codes of up to ``LUT_BITS`` bits with one lookup in
 ``lookup_table`` and stage each CTA's segment words in shared memory when
@@ -43,7 +43,7 @@ import torch
 
 from ..constants import ZIGZAG
 from ..device import cuda_stream
-from ..errors import UnsupportedError
+from ..errors import CorruptStream, UnsupportedError
 from .lockstep import ScanPlan
 from .lockstep_torch import scan_lanes
 
@@ -188,7 +188,8 @@ def _slot_affinities(plan: ScanPlan):
 
 def place_emissions(plan: ScanPlan, mcu_counts: torch.Tensor,
                     em_key: torch.Tensor, em_val: torch.Tensor, frames: int,
-                    spf: int, total_blocks: int) -> torch.Tensor:
+                    spf: int, total_blocks: int,
+                    checks: bool = False) -> torch.Tensor:
     """Prefix-sum placement of one [steps, S] emission stream ->
     plane-major [frames*total_blocks, 64] int32.
 
@@ -201,6 +202,11 @@ def place_emissions(plan: ScanPlan, mcu_counts: torch.Tensor,
     partial MCU a damaged lane died in, and the next lane's first MCU),
     the emission latest in (step, lane) order wins, as XLA's scatter
     applies updates in order on the CPU.
+
+    ``checks`` is the JAX placement's sanitizer tier (``JPEG_TPU_CHECKS=2``,
+    ``lockstep_jax.py:665-680``): a valid-key emission whose coefficient
+    lands outside the output raises ``CorruptStream`` ("sanitizer: ...")
+    where the production scatter drops it.
     """
     dev = em_key.device
     S = mcu_counts.shape[0]
@@ -222,8 +228,11 @@ def place_emissions(plan: ScanPlan, mcu_counts: torch.Tensor,
         blk = c0[slot] + gmcu * c2[slot]
     good = blk - po[slot] < nb[slot]
     flat = ((lane // spf) * total_blocks + blk) * 64 + pos
-    flat, upd = flat[good], upd[good]
     n = frames * total_blocks * 64
+    if checks and bool((good & ((flat < 0) | (flat >= n))).any()):
+        raise CorruptStream("sanitizer: coefficient placement out of bounds "
+                            "(kernel bug)")
+    flat, upd = flat[good], upd[good]
     last = torch.full((n,), -1, dtype=torch.int64, device=dev)
     last.scatter_reduce_(0, flat, upd, "amax")
     win = last[flat] == upd
@@ -275,14 +284,15 @@ def decode_segments_ref(plan: ScanPlan, words: torch.Tensor,
 
 def decode_segments_general_ref(plan: ScanPlan, words: torch.Tensor,
                                 nbits: torch.Tensor, frames: int, spf: int,
-                                total_blocks: int):
+                                total_blocks: int, checks: bool = False):
     """Plain PyTorch version of the general kernel, on any device: the
-    eager scan, then ``place_emissions``.  -> (coeffs, mcu_counts) as
+    eager scan, then ``place_emissions`` (``checks``: both with the
+    sanitizer's checks).  -> (coeffs, mcu_counts) as
     ``decode_segments_ref``."""
     check_shape(plan, frames, spf, total_blocks)
-    counts, em_key, em_val, _ = scan_lanes(plan, words, nbits)
+    counts, em_key, em_val, _ = scan_lanes(plan, words, nbits, checks)
     return (place_emissions(plan, counts, em_key, em_val, frames, spf,
-                            total_blocks), counts)
+                            total_blocks, checks), counts)
 
 
 def huffval_pad(plan: ScanPlan) -> int:
@@ -514,48 +524,61 @@ def partial_lanes(counts: torch.Tensor, em_key: torch.Tensor) -> torch.Tensor:
     return hit.any(0).to(torch.int32)
 
 
-def boundary_layout(counts: torch.Tensor, partial: torch.Tensor,
-                    frames: int, spf: int, n_mcus: int):
-    """The general walks' placement inputs from pass 1's outputs.
-
-    ``counts``, ``partial`` [frames * spf] int32 -> (lane_off, lane_first
-    [S] int32 as ``lane_layout``, contested [frames * (spf + 1)] int32 as
-    ``contested_rows``).  A CUDA tensor launches one CTA per frame of
-    ``csrc/decode_segments.cu`` (counted in ``boundary_layout.launches``);
-    a CPU tensor runs ``lane_layout`` and ``contested_rows``.
-    """
-    if counts.device.type == "cpu":
-        off, first = lane_layout(counts, frames, spf)
-        return off, first, contested_rows(counts, partial, frames, spf,
-                                          n_mcus)
-    dev = counts.device
-    if dev.type != "cuda":
-        raise ValueError(f"boundary_layout: unsupported device {dev}")
-    for name, t in (("counts", counts), ("partial", partial)):
-        _check_tensor(name, t, 1, dev)
-        if t.shape[0] != frames * spf:
-            raise ValueError(f"{name} has {t.shape[0]} lanes, expected "
-                             f"{frames}x{spf}")
+def _count_walk(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
+                frames: int, spf: int, tickets: torch.Tensor, staged: int):
+    """The general path's first launch on a CUDA tensor: the count walk
+    with the layout folded in, on the word route ``staged`` (``_route``).
+    ``tickets`` holds ``frames`` int32 zeros (the walk's per-frame count of
+    lanes stored; zeros again when it ends).  -> (counts, partial,
+    lane_off, lane_first [S], contested [frames * (spf + 1)], all int32;
+    bkey, the owner keys with the contested rows zeroed).  The caller has
+    run ``_check_launch``."""
+    dev = words.device
+    S, wn = words.shape
 
     from ..kernels import load_library
 
     lib = load_library().lib
-    off = torch.empty(frames * spf, dtype=torch.int32, device=dev)
-    first = torch.empty_like(off)
+    bpm = plan.blocks_per_mcu
+    counts, partial, off, first = (
+        torch.empty(S, dtype=torch.int32, device=dev) for _ in range(4))
     contested = torch.empty(frames * (spf + 1), dtype=torch.int32,
                             device=dev)
+    # Owner keys; the walk zeroes the contested rows, the only ones used.
+    bkey = torch.empty(frames * (spf + 1) * bpm * 64, dtype=torch.int64,
+                       device=dev)
     with torch.cuda.device(dev):
-        rc = lib.jt_boundary_layout(
-            counts.data_ptr(), partial.data_ptr(), off.data_ptr(),
-            first.data_ptr(), contested.data_ptr(), frames, spf, n_mcus,
-            cuda_stream(dev))
+        rc = lib.jt_decode_segments_count(
+            _device_tables(plan, dev).data_ptr(), words.data_ptr(),
+            nbits.data_ptr(), counts.data_ptr(), partial.data_ptr(),
+            off.data_ptr(), first.data_ptr(), contested.data_ptr(),
+            bkey.data_ptr(), tickets.data_ptr(), S, wn, spf,
+            bpm, plan.n_mcus, int(plan.interleaved), kernel_m_x(plan),
+            huffval_pad(plan), _staged_ints(plan), staged, cuda_stream(dev))
     if rc != 0:
-        raise RuntimeError(f"boundary_layout launch failed: CUDA error {rc}")
-    boundary_layout.launches += 1
-    return off, first, contested
+        raise RuntimeError(
+            f"decode_segments_general pass 1 failed: CUDA error {rc}")
+    return counts, partial, off, first, contested, bkey
 
 
-boundary_layout.launches = 0
+def _general_layout(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
+                    frames: int, spf: int, total_blocks: int):
+    """The general path's placement inputs, for checks: (counts, partial,
+    lane_off, lane_first [S], contested [frames * (spf + 1)]), all int32.
+    A CUDA tensor runs the count walk alone (its layout folded in; no
+    launch counted); a CPU tensor the plain scan (``scan_lanes``,
+    ``partial_lanes``), ``lane_layout`` and ``contested_rows``.  Anything
+    else raises."""
+    if words.device.type == "cpu":
+        check_shape(plan, frames, spf, total_blocks)
+        counts, key, _, _ = scan_lanes(plan, words, nbits)
+        partial = partial_lanes(counts, key)
+        return (counts, partial, *lane_layout(counts, frames, spf),
+                contested_rows(counts, partial, frames, spf, plan.n_mcus))
+    dev = _check_launch(plan, words, nbits, frames, spf, total_blocks)
+    tickets = torch.zeros(frames, dtype=torch.int32, device=dev)
+    return _count_walk(plan, words, nbits, frames, spf, tickets,
+                       _route(words))[:5]
 
 
 def decode_segments_general(plan: ScanPlan, words: torch.Tensor,
@@ -566,8 +589,8 @@ def decode_segments_general(plan: ScanPlan, words: torch.Tensor,
     ``decode_segments``; the restart interval plays no part.
 
     A CUDA tensor launches the walks of ``csrc/decode_segments.cu`` (count
-    with partial flags; ``boundary_layout``; place; resolve the contested
-    MCUs), counted once per call in ``decode_segments_general.launches``;
+    with partial flags and the layout; place; resolve the contested MCUs),
+    counted once per call in ``decode_segments_general.launches``;
     a CPU tensor runs ``decode_segments_general_ref``.  Anything else
     raises.
     """
@@ -576,40 +599,26 @@ def decode_segments_general(plan: ScanPlan, words: torch.Tensor,
                                            total_blocks)
     dev = _check_launch(plan, words, nbits, frames, spf, total_blocks)
     S, wn = words.shape
+    staged = _route(words)
+    # One zero fill serves the coefficients (the place walk writes into
+    # zeros) and, past them, the count walk's per-frame tickets.
+    n = frames * total_blocks * 64
+    buf = torch.zeros(n + frames, dtype=torch.int32, device=dev)
+    counts, partial, off, first, contested, bkey = _count_walk(
+        plan, words, nbits, frames, spf, buf[n:], staged)
+    coeffs = buf[:n].view(frames * total_blocks, 64)
 
     from ..kernels import load_library
 
-    lib = load_library().lib
-    tables = _device_tables(plan, dev)
-    bpm = plan.blocks_per_mcu
-    args = (int(plan.interleaved), kernel_m_x(plan), huffval_pad(plan),
-            _staged_ints(plan))
-    staged = _route(words)
-    counts = torch.empty(S, dtype=torch.int32, device=dev)
-    partial = torch.empty(S, dtype=torch.int32, device=dev)
-    coeffs = torch.zeros(frames * total_blocks, 64, dtype=torch.int32,
-                         device=dev)
-    # Owner keys; the place launch zeroes the contested rows it uses.
-    bkey = torch.empty(frames * (spf + 1) * bpm * 64, dtype=torch.int64,
-                       device=dev)
-    stream = cuda_stream(dev)
     with torch.cuda.device(dev):
-        rc = lib.jt_decode_segments_count(
-            tables.data_ptr(), words.data_ptr(), nbits.data_ptr(),
-            counts.data_ptr(), partial.data_ptr(), S, wn, spf, bpm,
-            plan.n_mcus, *args, staged, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"decode_segments_general pass 1 failed: CUDA error {rc}")
-    off, first, contested = boundary_layout(counts, partial, frames, spf,
-                                            plan.n_mcus)
-    with torch.cuda.device(dev):
-        rc = lib.jt_decode_segments_place(
-            tables.data_ptr(), words.data_ptr(), nbits.data_ptr(),
-            counts.data_ptr(), off.data_ptr(), first.data_ptr(),
-            partial.data_ptr(), contested.data_ptr(), bkey.data_ptr(),
-            coeffs.data_ptr(), S, wn, spf, frames, total_blocks, bpm,
-            plan.n_mcus, *args, staged, stream)
+        rc = load_library().lib.jt_decode_segments_place(
+            _device_tables(plan, dev).data_ptr(), words.data_ptr(),
+            nbits.data_ptr(), counts.data_ptr(), off.data_ptr(),
+            first.data_ptr(), partial.data_ptr(), contested.data_ptr(),
+            bkey.data_ptr(), coeffs.data_ptr(), S, wn, spf, total_blocks,
+            plan.blocks_per_mcu, plan.n_mcus, int(plan.interleaved),
+            kernel_m_x(plan), huffval_pad(plan), _staged_ints(plan), staged,
+            cuda_stream(dev))
     if rc != 0:
         raise RuntimeError(
             f"decode_segments_general passes 2-3 failed: CUDA error {rc}")

@@ -61,9 +61,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     signatures = {
         "jt_decode_segments": [p] * 5 + [i] * 12 + [p],
-        "jt_decode_segments_count": [p] * 5 + [i] * 10 + [p],
-        "jt_decode_segments_place": [p] * 10 + [i] * 12 + [p],
-        "jt_boundary_layout": [p] * 5 + [i] * 3 + [p],
+        "jt_decode_segments_count": [p] * 10 + [i] * 10 + [p],
+        "jt_decode_segments_place": [p] * 10 + [i] * 11 + [p],
+        "jt_decode_segments_launches": [],
         "jt_decode_segments_table_ints": [],
         "jt_decode_segments_lut_bits": [],
         "jt_decode_segments_cta_lanes": [],
@@ -93,6 +93,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = i
+    lib.jt_decode_segments_launches.restype = ll
 
 
 def _check_layouts(lib: ctypes.CDLL) -> None:

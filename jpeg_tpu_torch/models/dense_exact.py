@@ -19,7 +19,7 @@ import torch
 
 from ..device import check_tensor, cuda_stream
 from ..ops.color import rgb_to_ycc, to_rgb
-from ..ops.dct import dct_lut_f32, fdct8x8_exact, idct8x8_exact, lut_on
+from ..ops.dct import dct_lut_f32, fdct8x8_exact, idct8x8_exact
 from ..ops.quant import dequantize, quantize
 
 # csrc/dense_exact.cu colour modes by (mode, channels)
@@ -75,8 +75,9 @@ def idct_exact(coeffs: torch.Tensor, qtable: torch.Tensor,
 
     out = torch.empty(n, 64, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        # The LUT goes to the kernel by value, from its host copy.
         rc = load_library().lib.jt_idct_exact(
-            coeffs.data_ptr(), qtable.data_ptr(), lut_on(dev).data_ptr(),
+            coeffs.data_ptr(), qtable.data_ptr(), dct_lut_f32().ctypes.data,
             out.data_ptr(), n, precision, cuda_stream(dev))
     if rc != 0:
         raise RuntimeError(f"idct_exact launch failed: CUDA error {rc}")

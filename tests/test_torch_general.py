@@ -220,26 +220,29 @@ def test_contested_rows_mark_the_two_writer_mcus(name, damaged):
 
 
 def test_boundary_layout_routes_by_device():
-    """On CPU tensors the layout kernel's wrapper runs its plain version
-    (``lane_layout`` and ``contested_rows``) and counts no launch; other
-    devices it cannot launch on raise."""
-    _, pplan, words, nbits, frames, spf, _, _ = _chunk("short_422_ri5")
+    """The layout rides the count walk now (``_general_layout``: one
+    launch with the count walk on a CUDA tensor).  On CPU tensors it runs
+    the plain scan, ``lane_layout`` and ``contested_rows`` and counts no
+    launch; other devices it cannot launch on raise."""
+    _, pplan, words, nbits, frames, spf, tb, _ = _chunk("short_422_ri5")
     words, nbits = damage(words, nbits, seed=3)
-    counts, key, _, _ = lockstep_torch.scan_lanes(
-        pplan, torch.from_numpy(words.view(np.int32)),
-        torch.from_numpy(nbits.astype(np.int32)))
+    w_t = torch.from_numpy(words.view(np.int32))
+    nb_t = torch.from_numpy(nbits.astype(np.int32))
+    counts, key, _, _ = lockstep_torch.scan_lanes(pplan, w_t, nb_t)
     partial = place_cuda.partial_lanes(counts, key)
-    before = place_cuda.boundary_layout.launches
-    off, first, rows = place_cuda.boundary_layout(counts, partial, frames,
-                                                  spf, pplan.n_mcus)
-    assert place_cuda.boundary_layout.launches == before
-    want_off, want_first = place_cuda.lane_layout(counts, frames, spf)
-    assert torch.equal(off, want_off) and torch.equal(first, want_first)
-    assert torch.equal(rows, place_cuda.contested_rows(
-        counts, partial, frames, spf, pplan.n_mcus))
+    before = place_cuda.decode_segments_general.launches
+    got = place_cuda._general_layout(pplan, w_t, nb_t, frames, spf, tb)
+    assert place_cuda.decode_segments_general.launches == before
+    want = (counts, partial, *place_cuda.lane_layout(counts, frames, spf),
+            place_cuda.contested_rows(counts, partial, frames, spf,
+                                      pplan.n_mcus))
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.int32 and torch.equal(a, b)
+    assert bool(got[1].any()) and bool(got[4].any())  # damage contests
     with pytest.raises(ValueError, match="device"):
-        place_cuda.boundary_layout(counts.to("meta"), partial.to("meta"),
-                                   frames, spf, pplan.n_mcus)
+        place_cuda._general_layout(pplan, w_t.to("meta"), nb_t.to("meta"),
+                                   frames, spf, tb)
 
 
 def test_damage_contests_boundary_mcus():
