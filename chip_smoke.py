@@ -143,7 +143,28 @@ process exits non-zero without printing the result line:
     ``rstless_device_resident_Mpix_s``, the card's busy share, the
     device time of K8's head and tail walks, K9, and K10's piece walk and
     DC pass apart, and K8's survivors (the distinct decodes that walk past
-    the strip) in the 8-frame batch.
+    the strip) in the 8-frame batch;
+14. fast mode: ``decode_frame_fast`` (K11) against ``decode_frame_fast_ref``
+    on bench frame 0, every frame of the small corpus streams and the
+    crafted frames of ``synth.CRAFTED`` (a sampling ratio that does not
+    divide, YCCK, SOF ids 3, 1, 2), each also with seeded +-40 noise on
+    its coefficients, and seeded coefficients of ``FAST_GEOMETRY``
+    (tiles below one MCU): the floats within ``fast_tol`` and their pixels
+    within +-1 with at most ``TAIL_DIFF_SHARE`` differing;
+    ``encode_frame_fast`` (K12) against ``encode_frame_fast_ref`` on bench
+    frame 0 and seeded noise in ``DENSE_SHAPES``, within +-1 under
+    ``DENSE_DIFF_SHARE``; a warm call of each under
+    ``torch.cuda.set_sync_debug_mode("error")``; the paths with their
+    launch counts: ``decode_jpeg(exact=False)`` of bench frame 0 (1, its
+    pixels within +-1 of the CPU run's) and of each crafted frame,
+    ``mjpeg.decode_stream`` of the 16-frame stream (16), phase 12's mixed
+    stream (one a fallback frame), ``encode_jpeg(exact=False)`` of bench
+    frame 0 (1: its coefficients within +-1 of the CPU encode's) and
+    ``DeviceEncoder.tables_for_stream`` (1); each kernel's times, bound
+    and share beside the plain eager chain's time and device launches,
+    and ``fast_decode_ms`` / ``fast_encode_ms`` (host clock, median of 2)
+    with their host entropy, dense stage and the decode's copy of the
+    float frame to the host timed apart.
 
 Every kernel's time is printed beside its bound (``bound``: the bytes it
 must move at 3.35 TB/s or its operations at the peak rate of their type
@@ -169,7 +190,8 @@ route), ``pixels_to_zz`` on the 8-frame bench pixels, and
 ``encode_scan`` on their blocks at restart intervals 4 and 7 and with
 one segment per frame, ``block_histogram`` on the ri=4 blocks,
 ``fdct_exact`` on the 1080p Y plane of bench frame 0 and ``idct_exact``
-on its coefficients (20 back-to-back
+on its coefficients, and where the checkout has them ``decode_frame_fast``
+and ``encode_frame_fast`` on bench frame 0 (20 back-to-back
 calls, CUDA events, and device only: the 20 calls in one CUDA graph,
 three times each), the end-to-end ``encode_batch`` of the 16 bench frames,
 default and optimized, and where the checkout has the RST-less engine
@@ -218,7 +240,11 @@ from jpeg_tpu_torch.constants import (
     scale_qtable,
 )
 from jpeg_tpu_torch.device import set_precision
-from jpeg_tpu_torch.encoder import EncodeParams, geometry_for_image
+from jpeg_tpu_torch.encoder import (
+    EncodeParams,
+    encode_jpeg_from_planes,
+    geometry_for_image,
+)
 from jpeg_tpu_torch.entropy.encode_cuda import block_histogram, encode_scan
 from jpeg_tpu_torch.entropy.encode_torch import (
     encode_scan_ref,
@@ -247,6 +273,18 @@ except ImportError:
     # tail kernel; it times that checkout's _dense_from_coeffs instead.
     if sys.argv[1:2] != ["--time-tree"]:
         raise
+try:
+    from jpeg_tpu_torch.models.dense_fast import (
+        decode_frame_fast,
+        decode_frame_fast_ref,
+        encode_frame_fast,
+        encode_frame_fast_ref,
+    )
+except ImportError:
+    # A --time-tree worker may import a checkout older than the fast
+    # mode's kernels; it skips their cases.
+    if sys.argv[1:2] != ["--time-tree"]:
+        raise
 from jpeg_tpu_torch.models.device_decode import (
     DeviceDecoder,
     _dense_from_coeffs,
@@ -260,7 +298,7 @@ from jpeg_tpu_torch.models.dense_exact import (
     idct_exact_ref,
 )
 from jpeg_tpu_torch.models.device_encode import DeviceEncoder
-from jpeg_tpu_torch.models.pipeline import encode_frame
+from jpeg_tpu_torch.models.pipeline import decode_frame, encode_frame
 from jpeg_tpu_torch.ops.blocks import plane_to_blocks
 from jpeg_tpu_torch.ops.dct import _kron_mats
 from jpeg_tpu_torch.ops.resample import downsample_box
@@ -270,6 +308,7 @@ from jpeg_tpu_torch.models.encode_dense import (
     raster_to_zz,
 )
 from jpeg_tpu_torch.utils import synth
+from jpeg_tpu_torch.utils.floatops import roundf
 from jpeg_tpu_torch.utils.metrics import default_metrics
 from jpeg_tpu_torch.utils.pnm import read_pnm, write_pnm
 
@@ -322,6 +361,10 @@ TAIL_GEOMETRIES = {
     "YCCK": ((1, 1, 1, 0), (2, 1, 1, 1), (3, 1, 1, 1), (4, 1, 1, 0)),
     "luma h=1 v=2": ((1, 1, 2, 0), (2, 1, 1, 1), (3, 1, 1, 1)),
 }
+# A geometry for K11 without a stream: the largest sampling a SOF holds
+# (YCCK, every component 15 x 15), whose MCU's 900 blocks overflow a CTA,
+# so K11's tiles shrink below one MCU; (id, h, v, tq), height, width.
+FAST_GEOMETRY = (tuple((i, 15, 15, i % 2) for i in (1, 2, 3, 4)), 130, 130)
 # The mixed-quality stream's frames: (bench content seed, quality).
 MIXED_QUALITY = ((0, 50), (1, 95), (0, 75), (1, 50))
 
@@ -674,17 +717,18 @@ def compare_all(cases) -> dict:
     return errs
 
 
-def check_dense(label: str, diff: torch.Tensor, share: float) -> int:
+def check_dense(label: str, diff: torch.Tensor, share: float,
+                name: str = "pixels_to_zz") -> int:
     """Hold a difference of quantized blocks to max |diff| <= 1 with at
     most ``share`` of its entries nonzero; -> max |diff|."""
     diff = diff.to(torch.int64).abs()
     err = int(diff.max()) if diff.numel() else 0
     n = int((diff != 0).sum())
     if err > 1 or n > share * diff.numel():
-        raise AssertionError(f"pixels_to_zz, {label}: max |diff| {err} "
+        raise AssertionError(f"{name}, {label}: max |diff| {err} "
                              f"(allowed 1), {n} of {diff.numel()} differ "
                              f"(allowed {share})")
-    log(f"kernel-vs-plain pixels_to_zz {label}: max |diff| {err}, {n} of "
+    log(f"kernel-vs-plain {name} {label}: max |diff| {err}, {n} of "
         f"{diff.numel()} coefficients differ (allowed {share})")
     return err
 
@@ -1543,12 +1587,17 @@ def single_image_phase(card: str, dev: torch.device, streams: dict,
             f"max diff {diff} against the CPU run")
     mixed = frames_of("mixed_420_ri2")
     before = default_metrics.counters.get("device_decode.mixed_fallbacks", 0)
+    decode_frame_fast.launches = 0
     px = DeviceDecoder.for_stream(mixed[0], dev).decode_batch(mixed, chunk=1)
     fell = default_metrics.counters["device_decode.mixed_fallbacks"] - before
-    if fell != 1 or px.device.type != dev.type or px.shape[0] != len(mixed):
-        raise AssertionError(f"mixed stream: {fell} fallbacks, want 1")
+    # chunk=1: a chunk that falls back is one frame, one K11 launch
+    if fell != 1 or px.device.type != dev.type or px.shape[0] != len(mixed) \
+            or decode_frame_fast.launches != fell:
+        raise AssertionError(f"mixed stream: {fell} fallbacks, want 1, and "
+                             f"{decode_frame_fast.launches} K11 launches")
     log(f"single: mixed stream {tuple(px.shape)} on {dev}, 1 chunk fell back "
-        f"to per-frame decode (device_decode.mixed_fallbacks)")
+        f"to per-frame decode (device_decode.mixed_fallbacks), "
+        f"{decode_frame_fast.launches} K11 launch")
 
     # -- the exact encode path, at 1080p
     ppm = synth.make_frame_ppm(0)
@@ -1650,12 +1699,7 @@ def single_image_phase(card: str, dev: torch.device, streams: dict,
     # one stage of it.
     params0 = EncodeParams(exact=True,
                            **next(iter(exact["encode"].values()))["params"])
-    enc_geom = geometry_for_image(read_pnm(ppm), params0)
-    padded = torch.from_numpy(read_pnm(ppm, pad_to=(
-        8 * enc_geom.max_v, 8 * enc_geom.max_h)).data).to(dev)
-    enc_qt = np.ones((4, 64), np.int32)
-    enc_qt[0] = scale_qtable(STD_LUMINANCE_QUANT, params0.quality)
-    enc_qt[1] = scale_qtable(STD_CHROMINANCE_QUANT, params0.quality)
+    enc_geom, padded, enc_qt = encode_inputs(ppm, params0, dev)
     for key, run, part, what in (
             ("exact_decode_ms",
              lambda: jpeg_tpu_torch.decode_jpeg(bench0, dev, exact=True),
@@ -2106,6 +2150,272 @@ def rstless_phase(card: str, dev: torch.device) -> list:
             for name in calls]
 
 
+def encode_inputs(ppm: bytes, params: EncodeParams,
+                  dev: torch.device) -> tuple:
+    """What ``encode_jpeg(ppm, params, dev)`` hands its dense stage: (the
+    geometry, the MCU-padded float32 frame on ``dev``, the [4, 64] int32
+    tables on the host)."""
+    geom = geometry_for_image(read_pnm(ppm), params)
+    img = read_pnm(ppm, pad_to=(8 * geom.max_v, 8 * geom.max_h))
+    qt = np.ones((4, 64), np.int32)
+    qt[0] = scale_qtable(STD_LUMINANCE_QUANT, params.quality)
+    qt[1] = scale_qtable(STD_CHROMINANCE_QUANT, params.quality)
+    return geom, torch.from_numpy(img.data).to(dev), qt
+
+
+def plane_major(frame: bytes, dev: torch.device) -> tuple:
+    """A frame's host-decoded coefficients as K11 takes them: (the
+    geometry, int32 [total_blocks, 64] plane-major on ``dev``, its [4, 64]
+    tables on ``dev``)."""
+    cs, planes = jpeg_tpu_torch.decode_coefficients(frame)
+    geom = cs.geometry
+    flat = np.concatenate([planes[c.cid] for c in geom.components])
+    return (geom, torch.from_numpy(flat).to(dev),
+            torch.from_numpy(cs.qtables.astype(np.int32)).to(dev))
+
+
+def fast_tol(ref: torch.Tensor) -> float:
+    """K11's float tolerance against its plain version: the two sum their
+    float32 IDCTs in their own order (and nvcc contracts the kernel's
+    into FMAs), ~1e-4 of the samples' magnitude apart."""
+    return 1e-3 + 1e-5 * float(ref.abs().max())
+
+
+def frame_pixels(frame: torch.Tensor, geom: FrameGeometry) -> torch.Tensor:
+    """``DecodedImage.pixels()`` of a float frame, on its device: the
+    [height, width] window of its first 3 (or 1) channels, rounded half
+    away from zero and clipped."""
+    nc = 3 if geom.nf >= 3 else 1
+    win = frame[:geom.height, :geom.width, :nc]
+    return roundf(win).clamp(0, (1 << geom.precision) - 1).to(torch.int32)
+
+
+def check_fast_decode(label: str, coeffs: torch.Tensor, qt: torch.Tensor,
+                      geom: FrameGeometry, share: float) -> float:
+    """``decode_frame_fast`` against ``decode_frame_fast_ref`` on the same
+    card tensors: the floats within ``fast_tol``, and their pixels within
+    +-1 with at most ``share`` of the samples differing; -> max |diff|."""
+    got = decode_frame_fast(coeffs, qt, geom)
+    want = decode_frame_fast_ref(coeffs, qt, geom)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != torch.float32:
+        raise AssertionError(f"decode_frame_fast, {label}: "
+                             f"{tuple(got.shape)} {got.dtype} vs plain "
+                             f"{tuple(want.shape)} {want.dtype}")
+    err, tol = float((got - want).abs().max()), fast_tol(want)
+    diff = (frame_pixels(got, geom) - frame_pixels(want, geom)).abs()
+    px_err, n = int(diff.max()), int((diff != 0).sum())
+    if not err <= tol or px_err > 1 or n > share * diff.numel():
+        raise AssertionError(f"decode_frame_fast, {label}: max |diff| {err}"
+                             f" (allowed {tol}); pixels max |diff| {px_err},"
+                             f" {n} of {diff.numel()} differ (allowed "
+                             f"{share})")
+    log(f"kernel-vs-plain decode_frame_fast {label}: {tuple(got.shape)}, "
+        f"max |diff| {err} (allowed {tol}); pixels max |diff| {px_err}, {n} "
+        f"of {diff.numel()} differ (allowed {share})")
+    return err
+
+
+def fast_phase(card: str, dev: torch.device, streams: dict) -> list:
+    """Phase 14 (the fast mode's dense stages, K11 ``decode_frame_fast``
+    and K12 ``encode_frame_fast``); -> their JSON entries."""
+    mark("14")
+    bench0 = streams["bench"][0]
+    # -- K11 against its plain version: bench frame 0, every frame of the
+    # small corpus streams and the crafted frames, each also with seeded
+    # +-40 noise on its coefficients
+    cases = [("bench frame 0", bench0, TAIL_DIFF_SHARE["chunk"])]
+    for name in STREAMS[1:]:
+        cases += [(f"{name} frame {i}", f, TAIL_DIFF_SHARE["small"])
+                  for i, f in enumerate(streams[name])]
+    cases += [(name, synth.crafted(name), TAIL_DIFF_SHARE["small"])
+              for name in synth.CRAFTED]
+    rng = np.random.default_rng(41)
+    err11 = 0.0
+    for label, frame, share in cases:
+        geom, coeffs, qt = plane_major(frame, dev)
+        noise = torch.from_numpy(rng.integers(-40, 41, tuple(coeffs.shape))
+                                 .astype(np.int32)).to(dev)
+        for lab, c in ((label, coeffs), (f"{label} + noise", coeffs + noise)):
+            err11 = max(err11, check_fast_decode(lab, c, qt, geom, share))
+    # seeded coefficients (DC up to +-60, AC up to +-8), tables 1..24
+    comps, height, width = FAST_GEOMETRY
+    geom = with_block_grid(FrameGeometry(8, height, width, tuple(
+        Component(cid=i, h=h, v=v, tq=tq) for i, h, v, tq in comps)))
+    tb = sum(c.n_blocks for c in geom.components)
+    c = rng.integers(-8, 9, (tb, 64)).astype(np.int32)
+    c[:, 0] = rng.integers(-60, 61, tb)
+    err11 = max(err11, check_fast_decode(
+        f"YCCK 15x15 sampling {height}x{width}, seeded",
+        torch.from_numpy(c).to(dev),
+        torch.from_numpy(rng.integers(1, 25, (4, 64)).astype(np.int32))
+        .to(dev), geom, TAIL_DIFF_SHARE["small"]))
+
+    # -- K12 against its plain version: bench frame 0 and seeded noise in
+    # the small shapes (gray, 12-bit 4:2:2, 4:4:4, padded 4:2:0, h=1 v=2)
+    ppm = synth.make_frame_ppm(0)
+    g_e, f_e, qt_host = encode_inputs(ppm, BENCH_PARAMS, dev)
+    q_e = torch.from_numpy(qt_host).to(dev)
+    err12 = check_dense("bench frame 0",
+                        encode_frame_fast(f_e, q_e, g_e)
+                        - encode_frame_fast_ref(f_e, q_e, g_e),
+                        DENSE_DIFF_SHARE["chunk"], "encode_frame_fast")
+    for comps, h, v, height, width, bits in DENSE_SHAPES:
+        px = rng.integers(0, 1 << bits, (height, width, comps))
+        g, f, q = encode_inputs(
+            write_pnm(px.astype(np.float32), width, height, bits),
+            EncodeParams(h=h, v=v, quality=80, exact=False), dev)
+        q = torch.from_numpy(q).to(dev)
+        err12 = max(err12, check_dense(
+            f"{comps} comps {height}x{width} {bits}-bit h={h} v={v} noise",
+            encode_frame_fast(f, q, g) - encode_frame_fast_ref(f, q, g),
+            DENSE_DIFF_SHARE["noise"], "encode_frame_fast"))
+    g0, c0, q0 = plane_major(bench0, dev)
+    check_no_sync("decode_frame_fast", lambda: decode_frame_fast(c0, q0, g0))
+    check_no_sync("encode_frame_fast",
+                  lambda: encode_frame_fast(f_e, q_e, g_e))
+
+    # -- the paths that reach the kernels, each launch counted
+    decode_frame_fast.launches = 0
+    img = jpeg_tpu_torch.decode_jpeg(bench0, dev, exact=False)
+    one = decode_frame_fast.launches
+    cpu = jpeg_tpu_torch.decode_jpeg(bench0, "cpu", exact=False)
+    diff = int(np.abs(img.pixels() - cpu.pixels()).max())
+    if one != 1 or diff > 1:
+        raise AssertionError(f"decode_jpeg(exact=False): {one} K11 "
+                             f"launches, pixels {diff} from the CPU run's")
+    log(f"fast: decode_jpeg(bench frame 0, {dev}, exact=False) 1 K11 "
+        f"launch, pixels max |diff| {diff} against its CPU run")
+    for name in synth.CRAFTED:
+        frame = synth.crafted(name)
+        decode_frame_fast.launches = 0
+        got = jpeg_tpu_torch.decode_jpeg(frame, dev, exact=False)
+        one = decode_frame_fast.launches
+        want = jpeg_tpu_torch.decode_jpeg(frame, "cpu", exact=False)
+        diff = int(np.abs(got.pixels() - want.pixels()).max())
+        if one != 1 or diff > 1 or got.frame.shape != want.frame.shape:
+            raise AssertionError(f"{name}: decode_jpeg(exact=False) on "
+                                 f"{dev}: {one} K11 launches, pixels "
+                                 f"{diff} from the CPU run's")
+        log(f"fast: {name} {got.frame.shape} decodes on {dev}, 1 K11 "
+            f"launch, pixels max |diff| {diff} against its CPU run")
+    stream = b"".join(streams["bench"][i % len(streams["bench"])]
+                      for i in range(STREAM_FRAMES))
+    decode_frame_fast.launches = 0
+    res = jpeg_tpu_torch.mjpeg.decode_stream(stream, dev)
+    stream_launches = decode_frame_fast.launches
+    if stream_launches != STREAM_FRAMES or res.ok_count != STREAM_FRAMES \
+            or not np.array_equal(res.frames[0].frame, img.frame):
+        raise AssertionError(f"mjpeg.decode_stream: {res.ok_count} frames, "
+                             f"{stream_launches} K11 launches (want "
+                             f"{STREAM_FRAMES}), or frame 0 differs from "
+                             "its decode_jpeg")
+    log(f"fast: mjpeg.decode_stream of {STREAM_FRAMES} 1080p frames on "
+        f"{dev}: {stream_launches} K11 launches, frame 0 equal to its "
+        "decode_jpeg")
+    encode_frame_fast.launches = 0
+    data = jpeg_tpu_torch.encode_jpeg(ppm, BENCH_PARAMS, dev)
+    enc_launches = encode_frame_fast.launches
+    data_cpu = jpeg_tpu_torch.encode_jpeg(ppm, BENCH_PARAMS, "cpu")
+    planes = [jpeg_tpu_torch.decode_coefficients(d)[1]
+              for d in (data, data_cpu)]
+    cdiff = torch.from_numpy(np.concatenate(
+        [planes[0][c.cid] - planes[1][c.cid] for c in g_e.components]))
+    check_dense("encode_jpeg(bench frame 0) bytes against the CPU encode's",
+                cdiff, DENSE_DIFF_SHARE["chunk"], "encode_frame_fast")
+    # Where a quantized value differs by 1, its block's pixels differ by
+    # up to q times the basis function; elsewhere by at most 1.
+    blocks = int((cdiff != 0).any(dim=1).sum())
+    pd = np.abs(jpeg_tpu_torch.decode_jpeg(data, "cpu", exact=False)
+                .pixels() - jpeg_tpu_torch.decode_jpeg(
+                    data_cpu, "cpu", exact=False).pixels())
+    far, allowed = int((pd > 1).sum()), blocks * 64 * 4 * 3
+    if enc_launches != 1 or far > allowed:
+        raise AssertionError(f"encode_jpeg(exact=False): {enc_launches} K12 "
+                             f"launches; {far} samples of its decode more "
+                             f"than 1 from the CPU encode's (allowed "
+                             f"{allowed}: {blocks} blocks differ)")
+    log(f"fast: encode_jpeg(bench frame 0, {dev}, exact=False) 1 K12 launch "
+        f"({len(data)} bytes, CPU {len(data_cpu)}); decoded, {far} samples "
+        f"more than 1 apart (max {int(pd.max())}), within the {blocks} "
+        "blocks whose coefficients differ")
+    encode_frame_fast.launches = 0
+    DeviceEncoder.tables_for_stream(ppm, BENCH_PARAMS, dev)
+    if encode_frame_fast.launches != 1:
+        raise AssertionError(f"tables_for_stream: "
+                             f"{encode_frame_fast.launches} K12 launches")
+    log(f"fast: DeviceEncoder.tables_for_stream on {dev}, 1 K12 launch")
+
+    # -- times: each kernel (a call and device only) against the plain
+    # eager chain on the card, the chain's device launches, and the
+    # single-image calls with their parts
+    out11 = decode_frame_fast(c0, q0, g0)
+    out12 = encode_frame_fast(f_e, q_e, g_e)
+    calls = {
+        "decode_frame_fast": (lambda: decode_frame_fast(c0, q0, g0),
+                              lambda: decode_frame_fast_ref(c0, q0, g0),
+                              bound(nbytes(c0, q0, out11),
+                                    c0.shape[0] * 2 * 64 * 8 * 2,
+                                    "float32")),
+        "encode_frame_fast": (lambda: encode_frame_fast(f_e, q_e, g_e),
+                              lambda: encode_frame_fast_ref(f_e, q_e, g_e),
+                              bound(nbytes(f_e, q_e, out12),
+                                    out12.shape[0] * 2 * 64 * 8 * 2,
+                                    "float32")),
+    }
+    times = {}
+    for name, (kern, plain, b) in calls.items():
+        k_ms, d_ms = kernel_ms(name, kern, 20, card)
+        p_ms = cuda_ms(plain, 5)
+        chain = profile_window(plain, "device_", card,
+                               f"one plain {name} chain")
+        log(f"time {name}_ms={k_ms} device_ms={d_ms} plain_ms={p_ms} "
+            f"(the eager chain: {sum(n for n, _ in chain.values())} device "
+            f"launches, as the profiler saw them) per 1080p bench frame 0 "
+            f"[{card}]")
+        log_bound(name, k_ms, b, card, d_ms)
+        times[name] = (k_ms, d_ms, p_ms)
+    enc_planes = dict(zip([c.cid for c in g_e.components], np.split(
+        out12.cpu().numpy(),
+        np.cumsum([c.n_blocks for c in g_e.components])[:-1])))
+    f_host = f_e.cpu()
+    for key, run, parts in (
+            ("fast_decode_ms",
+             lambda: jpeg_tpu_torch.decode_jpeg(bench0, dev, exact=False), {
+                 "host entropy (decode_coefficients)":
+                     lambda: jpeg_tpu_torch.decode_coefficients(bench0),
+                 "dense stage (one upload, K11)":
+                     lambda: decode_frame(img.coefficients, g0,
+                                          img.codestream.qtables
+                                          .astype(np.int32), False,
+                                          device=dev),
+                 "D2H copy of the float frame": lambda: out11.cpu()}),
+            ("fast_encode_ms",
+             lambda: jpeg_tpu_torch.encode_jpeg(ppm, BENCH_PARAMS, dev), {
+                 "dense stage (upload, K12, planes to the host)":
+                     lambda: {k: p.cpu() for k, p in encode_frame(
+                         f_host.to(dev), g_e, qt_host, False).items()},
+                 "host entropy (encode_jpeg_from_planes)":
+                     lambda: encode_jpeg_from_planes(
+                         enc_planes, g_e, qt_host.astype(np.uint16),
+                         BENCH_PARAMS, dev)})):
+        med, runs = median_s(run, 2)
+        split = {what: median_s(fn, 2)[0] * 1e3 for what, fn in parts.items()}
+        log(f"time {key}={med * 1e3} (1080p bench frame 0, median of "
+            f"{len(runs)} runs, host clock; parts, ms: {split}) [{card}]")
+    return [{"name": name, "route": "cuda",
+             "source": "jpeg_tpu_torch/csrc/dense_fast.cu",
+             "replaces": replaces, "launches": launches,
+             "max_abs_err": err, "ms": times[name][0],
+             "device_ms": times[name][1], "plain_ms": times[name][2],
+             **calls[name][2]}
+            for name, replaces, launches, err in (
+                ("decode_frame_fast", "jpeg_tpu/api.py:32", stream_launches,
+                 err11),
+                ("encode_frame_fast", "jpeg_tpu/encoder.py:155",
+                 enc_launches, err12))]
+
+
 def digest(out) -> str:
     """sha256 of a tensor or a tuple of tensors, on the host."""
     h = hashlib.sha256()
@@ -2238,6 +2548,17 @@ def time_tree(tree: str) -> dict:
             lambda: jpeg_tpu_torch.mjpeg.decode_stream_device(rl, dev,
                                                               chunk=CHUNK),
             digest, "host")
+    if importlib.util.find_spec("jpeg_tpu_torch.models.dense_fast"):
+        # K11 and K12 on bench frame 0, where the checkout has them (an
+        # older one runs the eager chain, whose floats differ).
+        g0, c0, q0 = plane_major(bench[0], dev)
+        g_e, f_e, q_e = encode_inputs(synth.make_frame_ppm(0), BENCH_PARAMS,
+                                      dev)
+        q_e = torch.from_numpy(q_e).to(dev)
+        cases["decode_frame_fast 1080p"] = (
+            lambda: decode_frame_fast(c0, q0, g0), digest, "device")
+        cases["encode_frame_fast 1080p"] = (
+            lambda: encode_frame_fast(f_e, q_e, g_e), digest, "device")
     # (label, shared-memory budget of the staged words; None: as it is)
     routes = [("default", None)]
     if hasattr(place_cuda, "STAGE_BYTES"):
@@ -2506,6 +2827,7 @@ def main() -> None:
     entries += general
     entries += single_image_phase(card, dev, streams, ri7)
     entries += rstless_phase(card, dev)
+    entries += fast_phase(card, dev, streams)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": entries}), flush=True)

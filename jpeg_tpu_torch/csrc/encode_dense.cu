@@ -65,6 +65,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "round_away.cuh"
+
 namespace {
 
 constexpr int COMP_INTS = 8;  // models/encode_dense.py COMP_INTS
@@ -98,19 +100,6 @@ __device__ __forceinline__ int comp_of(const int32_t* cp, int nc, int n,
 // x exactly as a float, for 0 <= x < 2^23: (2^23 + x) - 2^23.
 __device__ __forceinline__ float px_float(uint32_t x) {
   return __fsub_rn(__uint_as_float(0x4B000000u | x), 8388608.f);
-}
-
-// roundf(v) as an int (half away from zero), by float adds: adding
-// 1.5 * 2^23 rounds |v| < 2^22 to an integer, ties to even, and a tie
-// that went toward zero moves one away; the integer's bits then sit in
-// the mantissa of r + 1.5 * 2^23.
-__device__ __forceinline__ int round_away(float v) {
-  if (!(fabsf(v) < 4194304.f)) return static_cast<int>(roundf(v));
-  float r = __fsub_rn(__fadd_rn(v, 12582912.f), 12582912.f);
-  const float d = __fsub_rn(v, r);
-  if (d == 0.5f && v > 0.f) r = __fadd_rn(r, 1.f);
-  if (d == -0.5f && v < 0.f) r = __fsub_rn(r, 1.f);
-  return __float_as_int(__fadd_rn(r, 12582912.f)) - 0x4B400000;
 }
 
 // The component of a block's row in its frame (by block offsets), and its

@@ -88,6 +88,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         "jt_decode_rstless_table_ints": [],
         "jt_decode_rstless_ncol": [],
         "jt_decode_rstless_gcol": [],
+        "jt_decode_frame_fast": [p] * 5 + [i] * 10 + [p],
+        "jt_encode_frame_fast": [p] * 5 + [i] * 14 + [p],
+        "jt_dense_fast_comp_ints": [],
+        "jt_dense_fast_block_floats": [],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -102,7 +106,7 @@ def _check_layouts(lib: ctypes.CDLL) -> None:
     from .entropy.encode_cuda import BLOCK_WORDS, T_MAX
     from .entropy.place_cuda import CTA_LANES, LUT_BITS, TABLE_INTS
     from .entropy.speculative_torch import GCOL, NCOL
-    from .models import decode_dense
+    from .models import decode_dense, dense_fast
     from .models.encode_dense import TILE_BLOCKS
 
     for name, got, want in (
@@ -127,6 +131,10 @@ def _check_layouts(lib: ctypes.CDLL) -> None:
          TABLE_INTS),
         ("decode_rstless.cu NCOL", lib.jt_decode_rstless_ncol(), NCOL),
         ("decode_rstless.cu GCOL", lib.jt_decode_rstless_gcol(), GCOL),
+        ("dense_fast.cu COMP_INTS", lib.jt_dense_fast_comp_ints(),
+         dense_fast.COMP_INTS),
+        ("dense_fast.cu BP", lib.jt_dense_fast_block_floats(),
+         dense_fast.BLOCK_FLOATS),
     ):
         if got != want:
             raise RuntimeError(f"csrc/{name} is {got}, the Python side "

@@ -8,9 +8,10 @@ blocks-to-frame -> upsample -> color) and the encoder prologue
 each component, on the device the tensors live on.
 
 ``exact=True`` runs the bit-exact kernels of ``models/dense_exact.py``
-(ordered float32 DCTs, mixed float64 color; kernels on a CUDA tensor,
-their plain versions on a CPU tensor); ``exact=False`` the float32
-matmul DCT and float32 color.
+(ordered float32 DCTs, mixed float64 color); ``exact=False`` the fast
+mode's kernels of ``models/dense_fast.py`` (K11 and K12: float32 DCTs and
+float32 color, one launch a frame).  Kernels on a CUDA tensor, their
+plain versions on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -22,42 +23,40 @@ import torch
 
 from ..geometry import FrameGeometry
 from ..ops.blocks import blocks_to_plane, plane_to_blocks
-from ..ops.color import rgb_to_ycc, to_rgb
-from ..ops.dct import fdct8x8_matmul, idct8x8_matmul
-from ..ops.quant import dequantize, quantize
 from ..ops.resample import downsample_box, upsample_nn
 from .dense_exact import color_exact, fdct_exact, idct_exact
+from .dense_fast import decode_frame_fast, encode_frame_fast
 
 
 def decode_component_plane(coeffs: torch.Tensor, qtable: torch.Tensor,
-                           b_y: int, b_x: int, precision: int,
-                           exact: bool = True) -> torch.Tensor:
-    """int32 [n_blocks, 64] raster coefficients -> dequant -> IDCT ->
-    +level shift -> float32 planar raster [b_y*8, b_x*8]."""
-    if exact:
-        shifted = idct_exact(coeffs, qtable, precision).reshape(-1, 8, 8)
-    else:
-        flt = dequantize(coeffs, qtable).reshape(-1, 8, 8)
-        shifted = idct8x8_matmul(flt) + float(1 << (precision - 1))
+                           b_y: int, b_x: int,
+                           precision: int) -> torch.Tensor:
+    """int32 [n_blocks, 64] raster coefficients -> dequant -> exact IDCT
+    -> +level shift -> float32 planar raster [b_y*8, b_x*8]."""
+    shifted = idct_exact(coeffs, qtable, precision).reshape(-1, 8, 8)
     return blocks_to_plane(shifted, b_y, b_x)
 
 
 def encode_component_plane(plane: torch.Tensor, qtable: torch.Tensor,
-                           precision: int,
-                           exact: bool = True) -> torch.Tensor:
-    """float32 [b_y*8, b_x*8] samples -> -level shift -> FDCT -> quantize
-    -> int32 [n_blocks, 64] raster."""
+                           precision: int) -> torch.Tensor:
+    """float32 [b_y*8, b_x*8] samples -> -level shift -> exact FDCT ->
+    quantize -> int32 [n_blocks, 64] raster."""
     b_y, b_x = plane.shape[-2] // 8, plane.shape[-1] // 8
     blocks = plane_to_blocks(plane.to(torch.float32), b_y, b_x)
-    if exact:
-        return fdct_exact(blocks.reshape(-1, 64).contiguous(), qtable,
-                          precision)
-    fdct = fdct8x8_matmul(blocks - float(1 << (precision - 1)))
-    return quantize(fdct.reshape(-1, 64), qtable)
+    return fdct_exact(blocks.reshape(-1, 64).contiguous(), qtable, precision)
 
 
 def _qtables_on(qtables, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(qtables, np.int32), device=device)
+
+
+def _plane_major(planes: Dict[int, np.ndarray], geom: FrameGeometry,
+                 device: torch.device) -> torch.Tensor:
+    """The host planes as one int32 [total_blocks, 64] tensor on
+    ``device``, components in geometry order, in one upload."""
+    flat = np.concatenate([np.asarray(planes[c.cid], np.int32)
+                           for c in geom.components])
+    return torch.from_numpy(flat).to(device)
 
 
 def decode_frame(planes: Dict[int, torch.Tensor], geom: FrameGeometry,
@@ -68,6 +67,8 @@ def decode_frame(planes: Dict[int, torch.Tensor], geom: FrameGeometry,
     write_image pre-PNM state, decoder.c:433-454)."""
     dev = torch.device(device)
     qt = _qtables_on(qtables, dev)
+    if not exact:
+        return decode_frame_fast(_plane_major(planes, geom, dev), qt, geom)
     size_y, size_x = geom.size_y, geom.size_x
     chans = []
     # The reference assembles channels by ASCENDING component id
@@ -77,7 +78,7 @@ def decode_frame(planes: Dict[int, torch.Tensor], geom: FrameGeometry,
         coeffs = torch.as_tensor(planes[comp.cid], dtype=torch.int32,
                                  device=dev).contiguous()
         plane = decode_component_plane(coeffs, qt[comp.tq], comp.b_y,
-                                       comp.b_x, geom.precision, exact)
+                                       comp.b_x, geom.precision)
         c_y, c_x = comp.b_y * 8, comp.b_x * 8
         step_y = size_y // c_y if c_y else 1
         step_x = size_x // c_x if c_x else 1
@@ -93,9 +94,7 @@ def decode_frame(planes: Dict[int, torch.Tensor], geom: FrameGeometry,
             up = full
         chans.append(up)
     frame = torch.stack(chans, dim=-1)
-    if exact:
-        return color_exact(frame.contiguous(), geom.precision, "to_rgb")
-    return to_rgb(frame, geom.precision)
+    return color_exact(frame.contiguous(), geom.precision, "to_rgb")
 
 
 def encode_frame(frame: torch.Tensor, geom: FrameGeometry, qtables,
@@ -112,10 +111,14 @@ def encode_frame(frame: torch.Tensor, geom: FrameGeometry, qtables,
     dev = frame.device
     frame = frame.to(torch.float32).contiguous()
     qt = _qtables_on(qtables, dev)
-    if exact:
-        ycc = color_exact(frame, geom.precision, "to_ycc")
-    else:
-        ycc = rgb_to_ycc(frame, geom.precision)
+    if not exact:
+        coeffs = encode_frame_fast(frame, qt, geom)
+        out, off = {}, 0
+        for comp in geom.components:
+            out[comp.cid] = coeffs[off:off + comp.n_blocks]
+            off += comp.n_blocks
+        return out
+    ycc = color_exact(frame, geom.precision, "to_ycc")
     size_y, size_x = geom.size_y, geom.size_x
     if (size_y, size_x) != (geom.height, geom.width):
         in_y = torch.arange(size_y, device=dev)[:, None] < geom.height
@@ -128,5 +131,5 @@ def encode_frame(frame: torch.Tensor, geom: FrameGeometry, qtables,
         chan = downsample_box(ycc[..., geom.index_of(comp.cid)], step_y,
                               step_x)
         out[comp.cid] = encode_component_plane(chan, qt[comp.tq],
-                                               geom.precision, exact)
+                                               geom.precision)
     return out

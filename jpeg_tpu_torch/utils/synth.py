@@ -11,6 +11,9 @@ rounding ties, for holding the dense encode stage to round-half-away.
 ``hostile_hist`` and ``hostile_fdct`` are the edge cases of the symbol
 histogram and of the exact FDCT + quantizer, by name (``HIST_CASES``,
 ``FDCT_CASES``), for the CPU tests and the chip check alike.
+``crafted_frame`` is a frame no encoder emits (a sampling ratio that does
+not divide, YCCK, component ids out of order), built from seeded planes
+with the port's own emitter, byte for byte the single-image tests' frames.
 """
 
 from __future__ import annotations
@@ -223,3 +226,65 @@ def hostile_fdct(case: str, seed: int = 19):
     samples = np.full((ti.size, 64), shift, np.float32)
     samples[np.arange(ti.size), pos] += ts[ti]
     return samples, q, bits
+
+
+def crafted_frame(components, tables, seed: int) -> bytes:
+    """A 40 x 24 baseline frame of ``components`` (``geometry.Component``,
+    SOF order) from seeded planes (DC in [-150, 150), five low AC in
+    [-20, 20)), every table 3, the default Huffman tables ``tables`` per
+    scan component; the JAX package's tests build the same bytes with its
+    own emitter (``tests/test_torch_api.py::_crafted``)."""
+    from ..constants import DEFAULT_HTABLES
+    from ..entropy.encode import pack_scan, symbolize_scan
+    from ..format import emit
+    from ..geometry import FrameGeometry, ScanInfo, with_block_grid
+    from ..tables import HuffSpec, derive_table
+
+    geom = with_block_grid(FrameGeometry(precision=8, height=24, width=40,
+                                         components=tuple(components)))
+    rng = np.random.default_rng(seed)
+    planes = {}
+    for c in geom.components:
+        p = np.zeros((c.n_blocks, 64), np.int32)
+        p[:, 0] = rng.integers(-150, 150, c.n_blocks)
+        for k in (1, 2, 8, 9, 16):
+            p[:, k] = rng.integers(-20, 20, c.n_blocks)
+        planes[c.cid] = p
+    qt = np.full((4, 64), 3, np.uint16)
+    specs = {k: HuffSpec.from_pair(v) for k, v in DEFAULT_HTABLES.items()}
+    info = ScanInfo(component_ids=tuple(c.cid for c in components),
+                    td=tuple(tables), ta=tuple(tables))
+    segs = pack_scan(symbolize_scan(planes, geom, info),
+                     {k: derive_table(s) for k, s in specs.items()})
+    out = bytearray(emit.emit_soi())
+    out += emit.emit_dqt(qt[0], 0) + emit.emit_dqt(qt[1], 1)
+    out += emit.emit_sof0(geom)
+    for key in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        out += emit.emit_dht(specs[key], *key)
+    out += emit.emit_sos(info) + emit.emit_scan_body(segs) + emit.emit_eoi()
+    return bytes(out)
+
+
+def _component(cid: int, h: int, v: int, t: int):
+    from ..geometry import Component
+
+    return Component(cid=cid, h=h, v=v, tq=t, td=t, ta=t)
+
+
+# The crafted frames of the single-image tests, by name: (components as
+# (id, h, v, table), SOF order; seed).  "nondividing": h = 3, 2, 1, so the
+# middle component's upsampled plane leaves a margin of 0.0; "ycck": four
+# components; "cid312": the SOF lists ids 3, 1, 2, the full-size one
+# first, so plane and channel orders differ.
+CRAFTED = {
+    "nondividing": (((1, 3, 1, 0), (2, 2, 1, 1), (3, 1, 1, 1)), 7),
+    "ycck": (((1, 1, 1, 0), (2, 1, 1, 1), (3, 1, 1, 1), (4, 1, 1, 0)), 8),
+    "cid312": (((3, 2, 2, 0), (1, 1, 1, 1), (2, 1, 2, 1)), 9),
+}
+
+
+def crafted(name: str) -> bytes:
+    """``crafted_frame`` of ``CRAFTED[name]``."""
+    comps, seed = CRAFTED[name]
+    return crafted_frame([_component(*c) for c in comps],
+                         [c[3] for c in comps], seed)
