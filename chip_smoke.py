@@ -152,9 +152,14 @@ process exits non-zero without printing the result line:
     (tiles below one MCU): the floats within ``fast_tol`` and their pixels
     within +-1 with at most ``TAIL_DIFF_SHARE`` differing;
     ``encode_frame_fast`` (K12) against ``encode_frame_fast_ref`` on bench
-    frame 0 and seeded noise in ``DENSE_SHAPES``, within +-1 under
+    frame 0 and seeded noise in ``DENSE_SHAPES`` (the kernel's box cells)
+    and ``FAST_ENCODE_GEOMETRY`` (its general code), within +-1 under
     ``DENSE_DIFF_SHARE``; a warm call of each under
-    ``torch.cuda.set_sync_debug_mode("error")``; the paths with their
+    ``torch.cuda.set_sync_debug_mode("error")``; bench frame 0's
+    coefficients and pixels 4 bytes off a 16-byte boundary (the kernels'
+    4-byte copies in place of their bulk copies) to the aligned calls'
+    outputs; each kernel's registers a thread and CTAs an SM; the paths
+    with their
     launch counts: ``decode_jpeg(exact=False)`` of bench frame 0 (1, its
     pixels within +-1 of the CPU run's) and of each crafted frame,
     ``mjpeg.decode_stream`` of the 16-frame stream (16), phase 12's mixed
@@ -365,6 +370,12 @@ TAIL_GEOMETRIES = {
 # (YCCK, every component 15 x 15), whose MCU's 900 blocks overflow a CTA,
 # so K11's tiles shrink below one MCU; (id, h, v, tq), height, width.
 FAST_GEOMETRY = (tuple((i, 15, 15, i % 2) for i in (1, 2, 3, 4)), 130, 130)
+# A geometry for K12's general code (a thread a sample), as FAST_GEOMETRY:
+# the second chroma component sampled h=1 v=2, so its 2 x 1 box is neither
+# 1 x 1 nor the frame's 2 x 2 cell.  The encoder's EncodeParams never make
+# such a frame (chroma is 1 x 1); encode_frame_fast takes any sampling
+# that divides.
+FAST_ENCODE_GEOMETRY = (((1, 2, 2, 0), (2, 1, 1, 1), (3, 1, 2, 1)), 38, 54)
 # The mixed-quality stream's frames: (bench content seed, quality).
 MIXED_QUALITY = ((0, 50), (1, 95), (0, 75), (1, 50))
 
@@ -2219,6 +2230,8 @@ def check_fast_decode(label: str, coeffs: torch.Tensor, qt: torch.Tensor,
 def fast_phase(card: str, dev: torch.device, streams: dict) -> list:
     """Phase 14 (the fast mode's dense stages, K11 ``decode_frame_fast``
     and K12 ``encode_frame_fast``); -> their JSON entries."""
+    from jpeg_tpu_torch.models.dense_fast import encode_tiles, kernel_resources
+
     mark("14")
     bench0 = streams["bench"][0]
     # -- K11 against its plain version: bench frame 0, every frame of the
@@ -2267,13 +2280,62 @@ def fast_phase(card: str, dev: torch.device, streams: dict) -> list:
             EncodeParams(h=h, v=v, quality=80, exact=False), dev)
         q = torch.from_numpy(q).to(dev)
         err12 = max(err12, check_dense(
-            f"{comps} comps {height}x{width} {bits}-bit h={h} v={v} noise",
+            f"{comps} comps {height}x{width} {bits}-bit h={h} v={v} noise "
+            f"(box cell {encode_tiles(g).cell})",
             encode_frame_fast(f, q, g) - encode_frame_fast_ref(f, q, g),
             DENSE_DIFF_SHARE["noise"], "encode_frame_fast"))
+    comps, height, width = FAST_ENCODE_GEOMETRY
+    general12 = with_block_grid(FrameGeometry(8, height, width, tuple(
+        Component(cid=i, h=h, v=v, tq=tq) for i, h, v, tq in comps)))
+    f = torch.from_numpy(rng.uniform(0, 255, (general12.size_y,
+                                              general12.size_x, 3))
+                         .astype(np.float32)).to(dev)
+    q = torch.from_numpy(rng.integers(1, 60, (4, 64)).astype(np.int32)
+                         ).to(dev)
+    if encode_tiles(general12).cell != (0, 0):
+        raise AssertionError("FAST_ENCODE_GEOMETRY has a box cell")
+    err12 = max(err12, check_dense(
+        f"{[c[1:3] for c in comps]} sampling {height}x{width} noise "
+        "(the general code)",
+        encode_frame_fast(f, q, general12)
+        - encode_frame_fast_ref(f, q, general12),
+        DENSE_DIFF_SHARE["noise"], "encode_frame_fast"))
     g0, c0, q0 = plane_major(bench0, dev)
     check_no_sync("decode_frame_fast", lambda: decode_frame_fast(c0, q0, g0))
     check_no_sync("encode_frame_fast",
                   lambda: encode_frame_fast(f_e, q_e, g_e))
+    # The bench frame's inputs 4 bytes past a 16-byte boundary: each kernel
+    # fills its stages with 4-byte copies in place of its bulk copies, to
+    # the same output as the aligned call's.
+    for name, run, base in (
+            ("decode_frame_fast", lambda x: decode_frame_fast(x, q0, g0), c0),
+            ("encode_frame_fast", lambda x: encode_frame_fast(x, q_e, g_e),
+             f_e)):
+        buf = torch.empty(base.numel() + 1, dtype=base.dtype, device=dev)
+        off = buf[1:].view(base.shape)
+        off.copy_(base)
+        if off.data_ptr() % 16 == 0 or not torch.equal(run(off), run(base)):
+            raise AssertionError(f"{name}: bench frame 0's input 4 bytes "
+                                 "off a 16-byte boundary gives another "
+                                 "output")
+        log(f"{name}: bench frame 0's input at an address "
+            f"{off.data_ptr() % 16} mod 16 gives the aligned call's output")
+        del buf, off
+    # Registers a thread and CTAs an SM of the instances the bench frame
+    # runs (the shift path, the 2 x 2 cell) and of the general code's (the
+    # crafted non-dividing frame, FAST_ENCODE_GEOMETRY).
+    resources = {
+        "decode_frame_fast": kernel_resources(g0, "decode"),
+        "encode_frame_fast": kernel_resources(g_e, "encode")}
+    for name, g, kind in (
+            ("decode_frame_fast", g0, "decode"),
+            ("decode_frame_fast", plane_major(synth.crafted("nondividing"),
+                                              dev)[0], "decode"),
+            ("encode_frame_fast", g_e, "encode"),
+            ("encode_frame_fast", general12, "encode")):
+        log(f"resources {name} {g.size_y}x{g.size_x} "
+            f"{[(c.h, c.v) for c in g.components]}: "
+            f"{kernel_resources(g, kind)} [{card}]")
 
     # -- the paths that reach the kernels, each launch counted
     decode_frame_fast.launches = 0
@@ -2408,6 +2470,8 @@ def fast_phase(card: str, dev: torch.device, streams: dict) -> list:
              "replaces": replaces, "launches": launches,
              "max_abs_err": err, "ms": times[name][0],
              "device_ms": times[name][1], "plain_ms": times[name][2],
+             "registers": resources[name]["registers"],
+             "ctas_per_sm": resources[name]["ctas_per_sm"],
              **calls[name][2]}
             for name, replaces, launches, err in (
                 ("decode_frame_fast", "jpeg_tpu/api.py:32", stream_launches,

@@ -82,6 +82,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "async_copy.cuh"
 #include "resident.cuh"
 
 namespace {
@@ -120,63 +121,6 @@ __host__ __device__ inline Smem smem_layout(int tile_blocks) {
 }
 static_assert(PLAN_INTS * 4 % 16 == 0 && BLK * 4 % 16 == 0,
               "stages and the pixel stage must be 16-aligned");
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
-                                                      uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One bulk asynchronous copy global -> shared (16-byte aligned, a multiple
-// of 16 bytes), completing `bytes` on `bar`.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void copy4(int32_t* dst, const int32_t* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
-                   smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
 
 // x / d for an upsampling step d = max sampling / sampling, 1..4: the same
 // d for every thread of a component, so the branch does not diverge.
@@ -245,7 +189,7 @@ __device__ __forceinline__ void load_tile(const Params& p,
     if (threadIdx.x < 32) {
       if (threadIdx.x == 0) {
         // the stage was last read through the generic proxy
-        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        fence_proxy_async();
         mbar_arrive_expect_tx(bar, u.n * p.bpm * 64 * 4);
       }
       __syncwarp();
@@ -268,9 +212,7 @@ __device__ __forceinline__ void load_tile(const Params& p,
       for (int e = threadIdx.x; e < u.n * rn[3] * 64; e += THREADS)
         copy4(to + (e >> 6) * BLK + (e & 63), from + e);
     }
-    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
-                     smem_addr(bar))
-                 : "memory");
+    copy4_arrive(bar);
   }
 }
 
@@ -341,7 +283,7 @@ coeffs_to_pixels_kernel(const int32_t* __restrict__ coeffs,  // [F, tb, 64]
   for (int i = tid; i < PLAN_INTS; i += THREADS) CP[i] = plan[i];
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) mbar_init(bar + s, THREADS);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    fence_mbar_init();
   }
   __syncthreads();
   for (int s = 0; s < STAGES; ++s) {

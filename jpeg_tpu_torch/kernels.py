@@ -88,10 +88,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         "jt_decode_rstless_table_ints": [],
         "jt_decode_rstless_ncol": [],
         "jt_decode_rstless_gcol": [],
-        "jt_decode_frame_fast": [p] * 5 + [i] * 10 + [p],
+        "jt_decode_frame_fast": [p] * 5 + [i] * 12 + [p],
         "jt_encode_frame_fast": [p] * 5 + [i] * 14 + [p],
+        "jt_dense_fast_resources": [i] * 5 + [p],
         "jt_dense_fast_comp_ints": [],
         "jt_dense_fast_block_floats": [],
+        "jt_dense_fast_head_bytes": [],
+        "jt_dense_fast_stages": [],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -135,6 +138,10 @@ def _check_layouts(lib: ctypes.CDLL) -> None:
          dense_fast.COMP_INTS),
         ("dense_fast.cu BP", lib.jt_dense_fast_block_floats(),
          dense_fast.BLOCK_FLOATS),
+        ("dense_fast.cu HEAD_BYTES", lib.jt_dense_fast_head_bytes(),
+         dense_fast.HEAD_BYTES),
+        ("dense_fast.cu STAGES", lib.jt_dense_fast_stages(),
+         dense_fast.STAGES),
     ):
         if got != want:
             raise RuntimeError(f"csrc/{name} is {got}, the Python side "

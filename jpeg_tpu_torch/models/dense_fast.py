@@ -10,7 +10,12 @@ the true window -> box downsample -> level shift -> FDCT -> quantize).
 On a CUDA tensor each launches its kernel of ``csrc/dense_fast.cu`` and
 counts the launch in ``<wrapper>.launches``; on a CPU tensor it runs its
 plain version (``*_ref``), the eager PyTorch chain of the JAX program;
-anything else raises.
+anything else raises.  The kernels take the cosine LUT and the component
+records by value from host memory (no device copy of either a call), and
+the helpers below compute, for the CPU tests, what the kernels compute for
+a tile: K11's copy runs (``tile_runs``) and sampling path
+(``pow2_sampling``), K12's box cell (``box_cell``) and block stores
+(``block_stores``).
 
 Contract (both versions): ``coeffs`` int32 ``[total_blocks, 64]``,
 plane-major (components in geometry order, each component's blocks in
@@ -36,10 +41,9 @@ from ..errors import UnsupportedError
 from ..geometry import FrameGeometry
 from ..ops.blocks import blocks_to_plane, plane_to_blocks
 from ..ops.color import rgb_to_ycc, to_rgb
-from ..ops.dct import fdct8x8_matmul, idct8x8_matmul, lut_on
+from ..ops.dct import dct_lut_f32, fdct8x8_matmul, idct8x8_matmul
 from ..ops.quant import dequantize, quantize
 from ..ops.resample import downsample_box, upsample_nn
-from .encode_dense import TILE_BLOCKS  # K12 cuts its tiles as K5 does
 
 # Per-component int32 record shared with csrc/dense_fast.cu, geometry
 # order: sampling factors h, v; steps step_y, step_x (size // plane size:
@@ -49,8 +53,13 @@ from .encode_dense import TILE_BLOCKS  # K12 cuts its tiles as K5 does
 # component id; encode: the input channel, the geometry index).
 COMP_INTS = 8
 C_MAX = 4
-TILE_COLS = 128  # pixel columns a decode tile aims at; whole MCUs
-BLOCK_FLOATS = 72  # csrc BP: a block's floats in a CTA's stage
+TILE_COLS = 64  # pixel columns a decode tile aims at; whole MCUs
+BLOCK_FLOATS = 72  # csrc BP: a block's floats in a CTA's float stage
+STAGES = 2  # csrc STAGES: the input stages of a CTA's ring
+HEAD_BYTES = 16 + 4 * 64 * 4  # csrc HEAD_BYTES: mbarriers, the tables
+# Blocks of a K12 tile (K5 cuts at 64): with two pixel stages, 3 CTAs of a
+# 4:2:0 frame fit an SM's shared memory.
+ENCODE_TILE_BLOCKS = 48
 # Shared memory a CTA may ask for (the H100's 227 KB, less headroom).
 SMEM_MAX = 200 * 1024
 
@@ -165,6 +174,56 @@ class DecodeTiles:
     tiles_y: int
     tiles_x: int
     stage_blocks: int
+    pow2: bool  # the kernel's shift path (``pow2_sampling``)
+
+
+def pow2_sampling(geom: FrameGeometry) -> bool:
+    """Whether K11 takes ``geom`` by its shift path: every upsampling step
+    1 or 2 and every component's plane painted over the whole padded
+    frame (true of every sampling that divides, 4:2:0, 4:2:2, 4:4:0, 4:4:4,
+    gray, YCCK 1:1), so a pixel's sample is ``y >> (step_y - 1)``, ``x >>
+    (step_x - 1)`` and no pixel reads the margin."""
+    recs = comp_records(geom, "decode")
+    return all(
+        int(recs[j, 2]) in (1, 2) and int(recs[j, 3]) in (1, 2)
+        and c.b_y * 8 * int(recs[j, 2]) >= geom.size_y
+        and c.b_x * 8 * int(recs[j, 3]) >= geom.size_x
+        for j, c in enumerate(geom.components))
+
+
+@lru_cache(maxsize=32)
+def channel_records(geom: FrameGeometry) -> np.ndarray:
+    """K11's records: ``comp_records(geom, "decode")`` in output channel
+    order (ascending component id), ``[C_MAX, COMP_INTS]`` int32, the
+    rows past the components zero.  The kernel stages each tile's blocks
+    channel after channel."""
+    recs = comp_records(geom, "decode")
+    out = np.zeros_like(recs)
+    out[:geom.nf] = recs[np.argsort(recs[:geom.nf, 7], kind="stable")]
+    return out
+
+
+def tile_runs(geom: FrameGeometry, tiles: "DecodeTiles", ty: int,
+              tx: int) -> list:
+    """The copies of tile (``ty``, ``tx``) as K11 issues them: [(channel,
+    first plane block (frame-relative, planes in geometry order), blocks,
+    first stage block)], one for each block row of each channel's span,
+    channel after channel.  Each is a contiguous run of 256-byte blocks
+    in the plane: one bulk copy, 16-byte aligned wherever the frame's
+    coefficients are."""
+    recs = channel_records(geom)
+    y0, x0 = ty * tiles.tile_h, tx * tiles.tile_w
+    y1 = min(y0 + tiles.tile_h, geom.size_y)
+    x1 = min(x0 + tiles.tile_w, geom.size_x)
+    out, slot = [], 0
+    for k in range(geom.nf):
+        _, v, sy, sx, first, b_x = (int(i) for i in recs[k, :6])
+        br0, nbr = _span(y0, y1, sy, geom.m_y * v * 8 * sy)
+        bc0, nbc = _span(x0, x1, sx, b_x * 8 * sx)
+        out += [(k, first + (br0 + rb) * b_x + bc0, nbc, slot + rb * nbc)
+                for rb in range(nbr) if nbc]
+        slot += nbr * nbc
+    return out
 
 
 def tile_sources(geom: FrameGeometry, tiles: DecodeTiles, ty: int,
@@ -189,7 +248,8 @@ def tile_sources(geom: FrameGeometry, tiles: DecodeTiles, ty: int,
 def _tiles(geom: FrameGeometry, tile_h: int, tile_w: int) -> DecodeTiles:
     tiles = DecodeTiles(tile_h=tile_h, tile_w=tile_w,
                         tiles_y=-(-geom.size_y // tile_h),
-                        tiles_x=-(-geom.size_x // tile_w), stage_blocks=0)
+                        tiles_x=-(-geom.size_x // tile_w), stage_blocks=0,
+                        pow2=pow2_sampling(geom))
     # A tile's blocks per component are its row span times its column
     # span, so the largest total comes from the rows and columns apart.
     rows = np.array([[s[1] for s in tile_sources(geom, tiles, ty, 0)]
@@ -197,7 +257,8 @@ def _tiles(geom: FrameGeometry, tile_h: int, tile_w: int) -> DecodeTiles:
     cols = np.array([[s[3] for s in tile_sources(geom, tiles, 0, tx)]
                      for tx in range(tiles.tiles_x)])
     most = int((rows[:, None, :] * cols[None, :, :]).sum(-1).max())
-    return DecodeTiles(tile_h, tile_w, tiles.tiles_y, tiles.tiles_x, most)
+    return DecodeTiles(tile_h, tile_w, tiles.tiles_y, tiles.tiles_x, most,
+                       tiles.pow2)
 
 
 @lru_cache(maxsize=32)
@@ -220,26 +281,43 @@ def decode_tiles(geom: FrameGeometry) -> DecodeTiles:
 
 
 def decode_smem(tiles: DecodeTiles) -> int:
-    """Shared memory bytes of a K11 CTA (csrc ``decode_smem``): the LUT,
-    the tables, the records, each component's span, then the stage."""
-    return (64 + 4 * 64 + C_MAX * COMP_INTS + C_MAX * 8) * 4 + \
-        tiles.stage_blocks * BLOCK_FLOATS * 4
+    """Shared memory bytes of a K11 CTA: the mbarriers and the tables,
+    the ring of coefficient stages (64 ints a block), then two float
+    stages (``BLOCK_FLOATS`` a block)."""
+    return HEAD_BYTES + STAGES * tiles.stage_blocks * (64 + BLOCK_FLOATS) * 4
 
 
 @dataclass(frozen=True)
 class EncodeTiles:
-    """How K12 cuts a frame, as K5 does: a tile is up to ``mcus`` MCUs of
-    one MCU row (the row's last tile may hold fewer), a CTA each, so its
-    pixels are ``mcu_h`` rows of ``mcus * mcu_w`` columns of the padded
-    frame and its blocks at most ``TILE_BLOCKS``."""
+    """How K12 cuts a frame: a tile is up to ``mcus`` MCUs of one MCU row
+    (the row's last tile may hold fewer), so its pixels are ``mcu_h`` rows
+    of ``mcus * mcu_w`` columns of the padded frame and its blocks at most
+    ``ENCODE_TILE_BLOCKS``; ``cell`` is the box cell of the kernel's
+    common samplings, (0, 0) for its general code (``box_cell``)."""
 
     mcus: int
     tiles_x: int
     mcu_w: int
     mcu_h: int
     bpm: int
+    cell: tuple
 
 
+def box_cell(geom: FrameGeometry) -> tuple:
+    """(cy, cx): the pixels one sample of the most subsampled component
+    averages, where every component's box is 1 x 1 or that cell and the
+    cell is at most 2 x 2 (4:2:0, 4:2:2, 4:4:0, 4:4:4, gray, luma h=1
+    v=2): K12 then reads each cell's pixels once, a thread a cell.  (0, 0)
+    for any other sampling (its general code, a thread a sample)."""
+    boxes = [(geom.max_v // c.v, geom.max_h // c.h)
+             for c in geom.components]
+    cell = (max(b[0] for b in boxes), max(b[1] for b in boxes))
+    if max(cell) <= 2 and all(b in ((1, 1), cell) for b in boxes):
+        return cell
+    return (0, 0)
+
+
+@lru_cache(maxsize=32)
 def encode_tiles(geom: FrameGeometry) -> EncodeTiles:
     """K12's tiles of ``geom``.  Raises ``ValueError`` if a component's
     sampling does not divide the frame's largest (its box would not tile
@@ -250,23 +328,65 @@ def encode_tiles(geom: FrameGeometry) -> EncodeTiles:
                 f"encode_frame_fast: component {c.cid}'s sampling (h={c.h},"
                 f" v={c.v}) does not divide the frame's largest")
     bpm = sum(c.h * c.v for c in geom.components)
-    mcus = max(1, min(TILE_BLOCKS // bpm, geom.m_x))
+    mcus = max(1, min(ENCODE_TILE_BLOCKS // bpm, geom.m_x))
     return EncodeTiles(mcus=mcus, tiles_x=-(-geom.m_x // mcus),
-                       mcu_w=8 * geom.max_h, mcu_h=8 * geom.max_v, bpm=bpm)
+                       mcu_w=8 * geom.max_h, mcu_h=8 * geom.max_v, bpm=bpm,
+                       cell=box_cell(geom))
+
+
+def block_stores(geom: FrameGeometry, tiles: EncodeTiles, my: int,
+                 tx: int) -> list:
+    """K12's stores of tile (``my``, ``tx``): [(first stage block, first
+    plane row (frame-relative, planes in geometry order), blocks)], one
+    for each block row of each component: its ``n * h`` blocks of the
+    tile are consecutive in the stage and in the plane, stored as whole
+    256-byte blocks."""
+    n = min(tiles.mcus, geom.m_x - tx * tiles.mcus)
+    out, first, f = [], 0, 0
+    for c in geom.components:
+        out += [(n * (f + rb * c.h),
+                 first + (my * c.v + rb) * c.b_x + tx * tiles.mcus * c.h,
+                 n * c.h) for rb in range(c.v)]
+        first += c.n_blocks
+        f += c.h * c.v
+    return out
 
 
 def encode_smem(tiles: EncodeTiles, nc: int) -> int:
-    """Shared memory bytes of a K12 CTA (csrc ``encode_smem``): the LUT,
-    the tables, the records, the stage of the tile's blocks, then its
-    float pixels."""
-    return (64 + 4 * 64 + C_MAX * COMP_INTS) * 4 + \
-        tiles.mcus * tiles.bpm * BLOCK_FLOATS * 4 + \
-        tiles.mcu_h * tiles.mcus * tiles.mcu_w * nc * 4
+    """Shared memory bytes of a K12 CTA: the mbarriers and the tables,
+    the ring of pixel stages, then the tile's blocks (``BLOCK_FLOATS``
+    each)."""
+    return HEAD_BYTES + \
+        STAGES * tiles.mcu_h * tiles.mcus * tiles.mcu_w * nc * 4 + \
+        tiles.mcus * tiles.bpm * BLOCK_FLOATS * 4
 
 
 @lru_cache(maxsize=32)
-def _records_on(geom: FrameGeometry, mode: str, device: torch.device):
-    return torch.from_numpy(comp_records(geom, mode)).to(device)
+def _encode_records(geom: FrameGeometry) -> np.ndarray:
+    return comp_records(geom, "encode")
+
+
+def kernel_resources(geom: FrameGeometry, kind: str) -> dict:
+    """What the instance of K11 (``kind`` "decode") or K12 ("encode")
+    that ``geom`` launches takes on the current CUDA device: registers a
+    thread, spilled bytes a thread, CTAs an SM (at its shared memory),
+    SMs, and its shared memory bytes.  Builds the kernels if needed."""
+    import ctypes
+
+    from ..kernels import load_library
+
+    if kind == "decode":
+        tiles = decode_tiles(geom)
+        args, smem = (0, geom.nf, int(tiles.pow2), 0), decode_smem(tiles)
+    else:
+        tiles = encode_tiles(geom)
+        args, smem = (1, geom.nf, *tiles.cell), encode_smem(tiles, geom.nf)
+    got = (ctypes.c_int * 4)()
+    rc = load_library().lib.jt_dense_fast_resources(*args, smem, got)
+    if rc != 0:
+        raise RuntimeError(f"jt_dense_fast_resources: CUDA error {rc}")
+    return {"registers": got[0], "spill_bytes": got[1],
+            "ctas_per_sm": got[2], "sms": got[3], "smem_bytes": smem}
 
 
 def decode_frame_fast(coeffs: torch.Tensor, qtables: torch.Tensor,
@@ -294,16 +414,15 @@ def decode_frame_fast(coeffs: torch.Tensor, qtables: torch.Tensor,
 
     from ..kernels import load_library
 
-    recs = _records_on(geom, "decode", dev)
     out = torch.empty(geom.size_y, geom.size_x, geom.nf,
                       dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = load_library().lib.jt_decode_frame_fast(
-            coeffs.data_ptr(), qtables.data_ptr(), lut_on(dev).data_ptr(),
-            recs.data_ptr(), out.data_ptr(), geom.size_y, geom.size_x,
-            geom.nf, geom.precision, geom.m_y, tiles.tile_h, tiles.tile_w,
-            tiles.tiles_y, tiles.tiles_x, decode_smem(tiles),
-            cuda_stream(dev))
+            coeffs.data_ptr(), qtables.data_ptr(), dct_lut_f32().ctypes.data,
+            channel_records(geom).ctypes.data, out.data_ptr(), geom.size_y,
+            geom.size_x, geom.nf, geom.precision, geom.m_y, tiles.tile_h,
+            tiles.tile_w, tiles.tiles_y, tiles.tiles_x, tiles.stage_blocks,
+            int(tiles.pow2), decode_smem(tiles), cuda_stream(dev))
     if rc != 0:
         raise RuntimeError(f"decode_frame_fast launch failed: CUDA error "
                            f"{rc}")
@@ -344,16 +463,15 @@ def encode_frame_fast(frame: torch.Tensor, qtables: torch.Tensor,
 
     from ..kernels import load_library
 
-    recs = _records_on(geom, "encode", dev)
     tb = sum(c.n_blocks for c in geom.components)
     out = torch.empty(tb, 64, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = load_library().lib.jt_encode_frame_fast(
-            frame.data_ptr(), qtables.data_ptr(), lut_on(dev).data_ptr(),
-            recs.data_ptr(), out.data_ptr(), geom.size_y, geom.size_x,
+            frame.data_ptr(), qtables.data_ptr(), dct_lut_f32().ctypes.data,
+            _encode_records(geom).ctypes.data, out.data_ptr(), geom.size_x,
             geom.height, geom.width, geom.nf, geom.precision, geom.m_x,
             geom.m_y, tiles.mcus, tiles.tiles_x, tiles.mcu_w, tiles.mcu_h,
-            tiles.bpm, smem, cuda_stream(dev))
+            *tiles.cell, smem, cuda_stream(dev))
     if rc != 0:
         raise RuntimeError(f"encode_frame_fast launch failed: CUDA error "
                            f"{rc}")

@@ -14,6 +14,9 @@ against the plain versions, and the spans against a brute-force read of
 every pixel's sample.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -31,6 +34,7 @@ from jpeg_tpu_torch.encoder import EncodeParams, geometry_for_image
 from jpeg_tpu_torch.geometry import Component, FrameGeometry, with_block_grid
 from jpeg_tpu_torch.models import dense_fast
 from jpeg_tpu_torch.models.dense_fast import (
+    block_stores,
     comp_records,
     decode_frame_fast,
     decode_frame_fast_ref,
@@ -38,6 +42,7 @@ from jpeg_tpu_torch.models.dense_fast import (
     encode_frame_fast,
     encode_frame_fast_ref,
     encode_tiles,
+    tile_runs,
     tile_sources,
 )
 from jpeg_tpu_torch.models.pipeline import decode_frame, encode_frame
@@ -214,7 +219,7 @@ def test_tile_sources_cover_every_sample(name):
     rec = comp_records(g, "decode")
     assert dense_fast.decode_smem(tiles) <= dense_fast.SMEM_MAX
     if name == "15x15 x4":  # 4 x 225 blocks an MCU: narrower tiles
-        assert (tiles.tile_h, tiles.tile_w) == (120, 56)
+        assert (tiles.tile_h, tiles.tile_w) == (120, 24)
     else:  # an MCU row of whole MCUs
         assert tiles.tile_h == 8 * g.max_v
         assert tiles.tile_w % (8 * g.max_h) == 0
@@ -254,48 +259,97 @@ def _small_geoms():
     return {k: v for k, v in GEOMS.items() if "1080p" not in k}
 
 
+def _kernel_spans(rec, geom, box, pow2):
+    """Channel k's span of a tile (br0, nbr, bc0, nbc) by the kernel's
+    arithmetic: shifts on its common samplings, the division and the
+    painted size otherwise (csrc/dense_fast.cu ``tile_spans``)."""
+    y0, x0, y1, x1 = box
+    out = []
+    for k in range(geom.nf):
+        _, v, sy, sx, _, b_x = (int(i) for i in rec[k, :6])
+        if pow2:
+            shy, shx = sy >> 1, sx >> 1
+            br0, bc0 = (y0 >> shy) >> 3, (x0 >> shx) >> 3
+            out.append((br0, (((y1 - 1) >> shy) >> 3) - br0 + 1,
+                        bc0, (((x1 - 1) >> shx) >> 3) - bc0 + 1))
+        else:
+            out.append(dense_fast._span(y0, y1, sy, geom.m_y * v * 8 * sy)
+                       + dense_fast._span(x0, x1, sx, b_x * 8 * sx))
+    return out
+
+
+def _pixel_runs(tiles, geom, ty, tx):
+    """K11's runs of tile (ty, tx) in its loop order: e -> row e // rpr,
+    4 pixels from column 4 * (e % rpr), rpr the tile's width / 4."""
+    y0, x0 = ty * tiles.tile_h, tx * tiles.tile_w
+    y1 = min(y0 + tiles.tile_h, geom.size_y)
+    x1 = min(x0 + tiles.tile_w, geom.size_x)
+    rpr = (x1 - x0) >> 2
+    return [(y0 + e // rpr, x0 + 4 * (e % rpr))
+            for e in range((y1 - y0) * rpr)]
+
+
 def decode_kernel_model(coeffs, qtables, geom):
-    """K11 tile by tile as csrc/dense_fast.cu computes it: each tile's
-    spans IDCT'd into one stage (component after component, raster), then
-    every pixel's sample gathered by the kernel's index arithmetic, with
-    the plain versions' IDCT and colour ops."""
+    """K11 tile by tile as csrc/dense_fast.cu computes it: the tile's copy
+    runs (``tile_runs``) fill its coefficient stage, channel after
+    channel; each stage block is dequantized with the table of the last
+    channel whose stage starts at or before it and IDCT'd (the plain
+    versions' IDCT); then each run of 4 pixels of a row takes each
+    channel's 4 samples by the kernel's index arithmetic, the shift path
+    (one aligned 4- or 2-sample read a run) where ``pow2_sampling`` holds
+    and the general path (a division and the painted size a pixel)
+    otherwise, and the plain colour ops.  Every output float is written
+    exactly once."""
     tiles = decode_tiles(geom)
-    rec = comp_records(geom, "decode")
+    rec = dense_fast.channel_records(geom)
     shift = float(1 << (geom.precision - 1))
     out = torch.full((geom.size_y, geom.size_x, geom.nf), float("nan"))
-    comp_of = {int(rec[j, 7]): j for j in range(geom.nf)}
+    writes = torch.zeros(geom.size_y, geom.size_x, dtype=torch.int32)
     for ty in range(tiles.tiles_y):
         for tx in range(tiles.tiles_x):
-            src = tile_sources(geom, tiles, ty, tx)
-            stage, slots = [], []
-            for j, (br0, nbr, bc0, nbc) in enumerate(src):
-                slots.append(sum(len(s) for s in stage))
-                blk = [int(rec[j, 4]) + (br0 + rb) * int(rec[j, 5]) + bc0 + cb
-                       for rb in range(nbr) for cb in range(nbc)]
-                flt = dequantize(coeffs[blk], qtables[int(rec[j, 6])])
-                stage.append((idct8x8_matmul(flt.reshape(-1, 8, 8)) + shift)
-                             .reshape(-1, 64))
-            flat = torch.cat(stage).reshape(-1)
             y0, x0 = ty * tiles.tile_h, tx * tiles.tile_w
-            ys = torch.arange(y0, min(y0 + tiles.tile_h, geom.size_y))
-            xs = torch.arange(x0, min(x0 + tiles.tile_w, geom.size_x))
-            y, x = ys[:, None], xs[None, :]
-            chans = []
-            for k in range(geom.nf):
-                j = comp_of[k]
-                br0, _, bc0, nbc = src[j]
-                sy, sx = int(rec[j, 2]), int(rec[j, 3])
-                c = geom.components[j]
-                painted = (y < c.b_y * 8 * sy) & (x < c.b_x * 8 * sx)
-                ly = torch.div(y, sy, rounding_mode="floor") - br0 * 8
-                lx = torch.div(x, sx, rounding_mode="floor") - bc0 * 8
-                idx = (slots[j] + (ly >> 3) * nbc + (lx >> 3)) * 64 + \
-                    (ly & 7) * 8 + (lx & 7)
-                idx = torch.where(painted, idx, torch.zeros_like(idx))
-                chans.append(torch.where(painted, flat[idx],
-                                         torch.zeros(())))
-            out[ys[0]:ys[-1] + 1, xs[0]:xs[-1] + 1] = to_rgb(
-                torch.stack(chans, dim=-1), geom.precision)
+            box = (y0, x0, min(y0 + tiles.tile_h, geom.size_y),
+                   min(x0 + tiles.tile_w, geom.size_x))
+            spans = _kernel_spans(rec, geom, box, tiles.pow2)
+            if tiles.pow2:  # the shift path's spans are the general ones
+                assert spans == _kernel_spans(rec, geom, box, False)
+            slots = np.concatenate([[0], np.cumsum(
+                [s[1] * s[3] for s in spans])]).tolist()
+            assert slots[-1] <= tiles.stage_blocks
+            stage = torch.zeros(slots[-1], 64, dtype=torch.int32)
+            filled = torch.zeros(slots[-1], dtype=torch.int32)
+            for k, first, n, slot in tile_runs(geom, tiles, ty, tx):
+                stage[slot:slot + n] = coeffs[first:first + n]
+                filled[slot:slot + n] += 1
+            assert (filled == 1).all()
+            tq = [int(rec[max(k for k in range(geom.nf) if slots[k] <= g),
+                          6]) for g in range(slots[-1])]
+            flt = dequantize(stage, qtables[tq]).reshape(-1, 8, 8)
+            flat = (idct8x8_matmul(flt) + shift).reshape(-1)
+            for y, x in _pixel_runs(tiles, geom, ty, tx):
+                ch = torch.zeros(4, geom.nf)
+                for k in range(geom.nf):
+                    _, v, sy, sx, _, b_x = (int(i) for i in rec[k, :6])
+                    br0, _, bc0, nbc = spans[k]
+                    if tiles.pow2:
+                        ly = (y >> (sy >> 1)) - br0 * 8
+                        lx = (x >> (sx >> 1)) - bc0 * 8
+                        assert lx % (4 // sx) == 0  # the vector read
+                        lxs = [lx + (i >> (sx >> 1)) for i in range(4)]
+                        read = [True] * 4
+                    else:
+                        lxs = [(x + i) // sx - bc0 * 8 for i in range(4)]
+                        ly = y // sy - br0 * 8
+                        read = [y < geom.m_y * v * 8 * sy
+                                and x + i < b_x * 8 * sx for i in range(4)]
+                    for i in range(4):
+                        if read[i]:
+                            ch[i, k] = flat[(slots[k] + (ly >> 3) * nbc
+                                             + (lxs[i] >> 3)) * 64
+                                            + (ly & 7) * 8 + (lxs[i] & 7)]
+                out[y, x:x + 4] = to_rgb(ch, geom.precision)
+                writes[y, x:x + 4] += 1
+    assert (writes == 1).all()
     return out
 
 
@@ -315,18 +369,93 @@ def test_decode_kernel_model(name):
     torch.testing.assert_close(got, want, rtol=0, atol=_tol(want.numpy()))
 
 
+@pytest.mark.parametrize("name", list(GEOMS))
+def test_pixel_runs_cover_the_frame(name):
+    """K11's runs of 4 pixels write every float of the output exactly
+    once, each run inside one row of its tile and 16-byte aligned in a
+    16-byte aligned frame."""
+    g = _geom(*GEOMS[name])
+    tiles = decode_tiles(g)
+    assert tiles.tile_w % 8 == 0 and g.size_x % 8 == 0
+    writes = np.zeros((g.size_y, g.size_x), np.int32)
+    for ty in range(tiles.tiles_y):
+        for tx in range(tiles.tiles_x):
+            x1 = min((tx + 1) * tiles.tile_w, g.size_x)
+            for y, x in _pixel_runs(tiles, g, ty, tx):
+                assert x + 4 <= x1 and ((y * g.size_x + x) * g.nf * 4) % 16 == 0
+                writes[y, x:x + 4] += 1
+    assert (writes == 1).all()
+
+
+@pytest.mark.parametrize("name", list(GEOMS))
+def test_tile_runs_cover_tile_sources(name):
+    """Each tile's copy runs cover its ``tile_sources`` rectangle of every
+    component exactly once, a run a block row in 256-byte blocks, and
+    fill the tile's stage blocks 0 .. n once each, channel after channel
+    (channel k the component of the k-th smallest id)."""
+    g = _geom(*GEOMS[name])
+    tiles = decode_tiles(g)
+    comp_of = {int(r): j for j, r in
+               enumerate(comp_records(g, "decode")[:g.nf, 7])}
+    first = np.cumsum([0] + [c.n_blocks for c in g.components])
+    for ty in range(tiles.tiles_y):
+        for tx in range(tiles.tiles_x):
+            runs = tile_runs(g, tiles, ty, tx)
+            src = tile_sources(g, tiles, ty, tx)
+            slot = 0
+            for k in range(g.nf):
+                j = comp_of[k]
+                c, (br0, nbr, bc0, nbc) = g.components[j], src[j]
+                mine = [r for r in runs if r[0] == k]
+                got = []
+                for _, start, n, at in mine:
+                    assert at == slot and n == nbc and n * 256 % 256 == 0
+                    row, col = divmod(int(start - first[j]), c.b_x)
+                    assert col == bc0 and col + n <= c.b_x
+                    got += [(row, col + i) for i in range(n)]
+                    slot += n
+                want = [(br0 + r, bc0 + i) for r in range(nbr)
+                        for i in range(nbc)] if nbc else []
+                assert got == want
+            assert slot <= tiles.stage_blocks
+
+
+def test_sampling_paths():
+    """Which geometries take K11's shift path and K12's box cells, and
+    K11's channel-ordered records."""
+    pow2 = {name: dense_fast.pow2_sampling(_geom(*GEOMS[name]))
+            for name in GEOMS}
+    assert [n for n, v in pow2.items() if not v] == [
+        "411", "nondividing", "nondividing wide", "nondividing tall"]
+    cells = {name: encode_tiles(_geom(*GEOMS[name])).cell
+             for name in ENCODE_GEOMS}
+    assert cells == {"420": (2, 2), "422": (1, 2), "444": (1, 1),
+                     "gray": (1, 1), "h1v2": (2, 1), "411": (0, 0),
+                     "cid312": (0, 0)}
+    g = _geom(*GEOMS["cid312"])
+    rec = comp_records(g, "decode")
+    np.testing.assert_array_equal(dense_fast.channel_records(g)[:3],
+                                  rec[[1, 2, 0]])
+    assert (dense_fast.channel_records(g)[3] == 0).all()
+
+
 def encode_kernel_model(frame, qtables, geom):
     """K12 tile by tile as csrc/dense_fast.cu computes it: a tile of
-    ``mcus`` MCUs, its pixels' samples box-averaged per component (the
-    raw channel past the true window), blocks in stage order, each
-    written to its plane row; with the plain versions' FDCT and
-    quantizer.  Every output block is written exactly once."""
+    ``mcus`` MCUs (``encode_tiles``); its samples a box cell at a time
+    where ``box_cell`` gives one (each pixel converted once: YCbCr inside
+    the true window, the raw channel outside; a 1 x 1 box's sample the
+    value - shift, the cell's box sum yy outer, xx inner, from 0, times
+    1 / its size - shift), else a sample at a time (the box sum, then the
+    division); blocks in stage order, FDCT'd and quantized with the plain
+    versions' ops, then stored as whole blocks by ``block_stores``.
+    Every output block is stored exactly once."""
     tiles = encode_tiles(geom)
     rec = comp_records(geom, "encode")
     shift = float(1 << (geom.precision - 1))
     tb = sum(c.n_blocks for c in geom.components)
     out = torch.zeros(tb, 64, dtype=torch.int32)
     writes = torch.zeros(tb, dtype=torch.int32)
+    cy, cx = tiles.cell
     for my in range(geom.m_y):
         for tx in range(tiles.tiles_x):
             n = min(tiles.mcus, geom.m_x - tx * tiles.mcus)
@@ -338,23 +467,29 @@ def encode_kernel_model(frame, qtables, geom):
             ycc = torch.where(inside[..., None], rgb_to_ycc(px,
                                                             geom.precision),
                               px)
+            stage = []
             for j, c in enumerate(geom.components):
                 sy, sx = int(rec[j, 2]), int(rec[j, 3])
-                acc = torch.zeros(8 * c.v, 8 * n * c.h)
-                for yy in range(sy):
-                    for xx in range(sx):
-                        acc = acc + ycc[yy::sy, xx::sx, j]
-                samples = acc / float(sy * sx) - shift
-                blocks = samples.reshape(c.v, 8, n * c.h, 8).permute(
-                    0, 2, 1, 3).reshape(-1, 8, 8)
-                q = quantize(fdct8x8_matmul(blocks).reshape(-1, 64),
-                             qtables[c.tq])
-                for i in range(blocks.shape[0]):
-                    rb, cb = divmod(i, n * c.h)
-                    row = int(rec[j, 4]) + (my * c.v + rb) * c.b_x + \
-                        tx * tiles.mcus * c.h + cb
-                    out[row] = q[i]
-                    writes[row] += 1
+                if (sy, sx) == (1, 1):
+                    samples = ycc[..., j] - shift
+                else:
+                    if cy:  # the tile's cells: (sy, sx) is the cell
+                        assert (sy, sx) == (cy, cx)
+                    acc = torch.zeros(8 * c.v, 8 * n * c.h)
+                    for yy in range(sy):
+                        for xx in range(sx):
+                            acc = acc + ycc[yy::sy, xx::sx, j]
+                    samples = (acc * (1.0 / (sy * sx)) if cy
+                               else acc / float(sy * sx)) - shift
+                stage.append(samples.reshape(c.v, 8, n * c.h, 8).permute(
+                    0, 2, 1, 3).reshape(-1, 8, 8))
+            tq = [int(rec[j, 6]) for j, c in enumerate(geom.components)
+                  for _ in range(n * c.h * c.v)]
+            q = quantize(fdct8x8_matmul(torch.cat(stage)).reshape(-1, 64),
+                         qtables[tq])
+            for at, row, blocks in block_stores(geom, tiles, my, tx):
+                out[row:row + blocks] = q[at:at + blocks]
+                writes[row:row + blocks] += 1
     assert (writes == 1).all()
     return out
 
@@ -374,6 +509,27 @@ def test_encode_kernel_model(name):
     want = encode_frame_fast_ref(frame, qt, g)
     torch.testing.assert_close(encode_kernel_model(frame, qt, g), want,
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", ENCODE_GEOMS + ["420 1080p"])
+def test_block_stores_cover_every_block(name):
+    """K12 stores every block of its output exactly once, each tile's
+    stores reading its stage blocks 0 .. n * bpm once each."""
+    g = _geom(*GEOMS[name])
+    tiles = encode_tiles(g)
+    assert tiles.mcus * tiles.bpm <= dense_fast.ENCODE_TILE_BLOCKS
+    writes = np.zeros(sum(c.n_blocks for c in g.components), np.int32)
+    for my in range(g.m_y):
+        for tx in range(tiles.tiles_x):
+            n = min(tiles.mcus, g.m_x - tx * tiles.mcus)
+            read = np.zeros(n * tiles.bpm, np.int32)
+            for at, row, blocks in block_stores(g, tiles, my, tx):
+                read[at:at + blocks] += 1
+                writes[row:row + blocks] += 1
+            assert (read == 1).all()
+    assert (writes == 1).all()
+    if name == "420 1080p":  # 3 CTAs of the kernel fit an SM
+        assert 3 * dense_fast.encode_smem(tiles, 3) <= 227 * 1024
 
 
 def test_wrappers_dispatch():
@@ -408,3 +564,19 @@ def test_wrappers_dispatch():
     with pytest.raises(ValueError, match="component count 2"):
         to_rgb(torch.zeros(2, 2), 8)
     assert dense_fast.COMP_INTS == 8 and dense_fast.C_MAX == 4
+
+
+@pytest.mark.parametrize("name, python", [
+    ("COMP_INTS", "COMP_INTS"), ("C_MAX", "C_MAX"), ("BP", "BLOCK_FLOATS"),
+    ("STAGES", "STAGES"), ("HEAD_BYTES", "HEAD_BYTES")])
+def test_source_constants_match_python(name, python):
+    """csrc/dense_fast.cu's layout constants equal the Python side that
+    sizes the CTAs' shared memory (``decode_smem``, ``encode_smem``) and
+    packs the records: the check the library makes on load
+    (``kernels._check_layouts``), here on the source text."""
+    src = (Path(dense_fast.__file__).parents[1] / "csrc" / "dense_fast.cu"
+           ).read_text()
+    m = re.search(rf"constexpr int {name} = ([0-9 +*]+);", src)
+    assert m, name
+    assert eval(m.group(1), {"__builtins__": {}}) == getattr(dense_fast,
+                                                             python)
