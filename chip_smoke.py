@@ -169,7 +169,27 @@ process exits non-zero without printing the result line:
     and share beside the plain eager chain's time and device launches,
     and ``fast_decode_ms`` / ``fast_encode_ms`` (host clock, median of 2)
     with their host entropy, dense stage and the decode's copy of the
-    float frame to the host timed apart.
+    float frame to the host timed apart;
+15. the native host layer and the CLI: ``jpeg_tpu_torch/native`` built
+    with g++ (its seconds logged; a failed build fails the run) and
+    ``available()``; on the 16-frame ri=4 bench stream the native prep
+    (``jt_prep_ecs``) against the Python prep, chunk by chunk: words
+    equal over ``pack_words``' width and zero past it, bit counts and
+    tables equal, the word routes (``place_cuda.ROUTE_LAUNCHES``) equal;
+    ``mjpeg.decode_stream_device`` with every chunk counted native
+    (``device_decode.native_prep_chunks``, none in
+    ``python_prep_chunks``) and one launch of each kernel a chunk, its
+    pixels equal to the Python prep's; ``host_prep_ms`` and the stream
+    rate under each prep, in turns; ``decode_jpeg(..., exact=True,
+    entropy="native")`` of bench frame 0 to jpeg_tpu's digest and
+    ``encode_jpeg`` with ``entropy_backend="native"`` byte-identical to
+    the numpy backend and to jpeg_tpu's digests; ``exact_decode_ms``,
+    ``fast_decode_ms`` and ``exact_encode_ms`` with native host entropy,
+    each with its entropy part apart and the host thread count; and
+    ``python -m jpeg_tpu_torch.cli`` as three subprocesses on the card:
+    ``decode`` of bench frame 0 (jpeg_tpu's digest), ``encode`` (the
+    committed bytes) and ``mjpeg`` of the stream (each frame equal to
+    ``decode_stream_device``'s), each exiting 0.
 
 Every kernel's time is printed beside its bound (``bound``: the bytes it
 must move at 3.35 TB/s or its operations at the peak rate of their type
@@ -222,6 +242,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 import warnings
@@ -1426,6 +1447,7 @@ def plain_versions():
     the exact dense kernels' plain versions, and the host engines."""
     from jpeg_tpu_torch.entropy import lockstep, lockstep_jax, serial
     from jpeg_tpu_torch.entropy import lockstep_torch
+    from jpeg_tpu_torch.entropy import native as native_entropy
     from jpeg_tpu_torch.models import dense_exact
 
     return ((place_cuda, "decode_segments_general_ref"),
@@ -1435,7 +1457,8 @@ def plain_versions():
             (lockstep_jax, "decode_segments_general_ref"),
             (dense_exact, "idct_exact_ref"), (dense_exact, "color_exact_ref"),
             (serial, "decode_scan_serial"),
-            (lockstep, "decode_scan_lockstep"))
+            (lockstep, "decode_scan_lockstep"),
+            (native_entropy, "decode_scan_native"))
 
 
 @contextlib.contextmanager
@@ -2480,6 +2503,250 @@ def fast_phase(card: str, dev: torch.device, streams: dict) -> list:
                  enc_launches, err12))]
 
 
+@contextlib.contextmanager
+def python_prep():
+    """``DeviceDecoder.prepare`` takes the Python prep while the block
+    runs (the native library reads as not available)."""
+    from jpeg_tpu_torch import native
+
+    saved = native.available
+    native.available = lambda: False
+    try:
+        yield
+    finally:
+        native.available = saved
+
+
+def prep_counts() -> tuple:
+    c = default_metrics.counters
+    return (c.get("device_decode.native_prep_chunks", 0),
+            c.get("device_decode.python_prep_chunks", 0))
+
+
+def cli_run(args: list) -> subprocess.Popen:
+    """``python -m jpeg_tpu_torch.cli`` with ``args``, started from the
+    repository root (the checkout's package) in the background."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "jpeg_tpu_torch.cli", *args],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def native_phase(card: str, dev: torch.device, streams: dict) -> None:
+    """Phase 15: the native host layer (``jpeg_tpu_torch/native``) and the
+    CLI on the card."""
+    mark("15")
+    from jpeg_tpu_torch import native
+
+    lib = native.load_library()  # a failed build raises here
+    if not native.available():
+        raise AssertionError("native.available() is False after a build")
+    threads = min(os.cpu_count() or 1, 16)
+    log(f"native: {lib.path.name} built in {lib.build_seconds:.2f} s "
+        f"(g++ {' '.join(native.CXX_FLAGS)}); {threads} host threads "
+        f"(cpu_count {os.cpu_count()}) [{card}]")
+
+    # -- the native prep against the Python prep on the ri=4 bench stream
+    bench = streams["bench"]
+    frames = [bench[i % len(bench)] for i in range(STREAM_FRAMES)]
+    stream = b"".join(frames)
+    chunks = [frames[i:i + CHUNK] for i in range(0, STREAM_FRAMES, CHUNK)]
+    dec = DeviceDecoder.for_stream(bench[0], dev)
+    routes = {}
+    for label in ("python", "native"):
+        with python_prep() if label == "python" else \
+                contextlib.nullcontext():
+            n0 = prep_counts()
+            before = dict(place_cuda.ROUTE_LAUNCHES)
+            prepared = [dec.prepare(c) for c in chunks]
+            for words, nbits, _ in prepared:
+                dec.decode_prepared(words, nbits, CHUNK)
+            torch.cuda.synchronize()
+            routes[label] = {k: v - before[k]
+                             for k, v in place_cuda.ROUTE_LAUNCHES.items()}
+            got = tuple(b - a for a, b in zip(n0, prep_counts()))
+        want = (len(chunks), 0) if label == "native" else (0, len(chunks))
+        if got != want:
+            raise AssertionError(f"{label} prep: (native, python) chunk "
+                                 f"counts {got}, want {want}")
+        if label == "python":
+            py = prepared
+    for i, ((w, n, q), (w_p, n_p, q_p)) in enumerate(zip(prepared, py)):
+        width = w_p.shape[1]
+        if w.shape[0] != w_p.shape[0] or w.shape[1] < width or \
+                not torch.equal(w[:, :width], w_p) or \
+                bool(w[:, width:].any()) or not torch.equal(n, n_p) or \
+                n.dtype != torch.int32 or not torch.equal(q, q_p):
+            raise AssertionError(f"chunk {i}: the native prep's words "
+                                 f"{tuple(w.shape)}, bit counts or tables "
+                                 f"differ from the Python prep's "
+                                 f"{tuple(w_p.shape)}")
+    if routes["native"] != routes["python"]:
+        raise AssertionError(f"word routes differ: native {routes['native']}"
+                             f", python {routes['python']}")
+    log(f"native: prep of {len(chunks)} chunks equal to the Python prep "
+        f"(words {tuple(prepared[0][0].shape)} a chunk, bit counts, "
+        f"tables); word routes native {routes['native']}, python "
+        f"{routes['python']}")
+
+    # the main path: the stream decode, every chunk on the native prep
+    default_metrics.counters["device_decode.native_prep_chunks"] = 0
+    default_metrics.counters["device_decode.python_prep_chunks"] = 0
+    decode_segments.launches = coeffs_to_pixels.launches = 0
+    px = jpeg_tpu_torch.mjpeg.decode_stream_device(stream, dev, chunk=CHUNK)
+    torch.cuda.synchronize()
+    counts = prep_counts()
+    launches = (decode_segments.launches, coeffs_to_pixels.launches)
+    if counts != (len(chunks), 0) or launches != (len(chunks), len(chunks)):
+        raise AssertionError(f"native stream decode: (native, python) prep "
+                             f"chunks {counts}, decode_segments and "
+                             f"coeffs_to_pixels launches {launches}")
+    with python_prep():
+        px_py = jpeg_tpu_torch.mjpeg.decode_stream_device(stream, dev,
+                                                          chunk=CHUNK)
+    if not torch.equal(px, px_py):
+        raise AssertionError("native prep: pixels differ from the Python "
+                             "prep's")
+    log(f"native: decode_stream_device of {STREAM_FRAMES} frames, "
+        f"(native, python) prep chunks {counts}, launches decode_segments "
+        f"{launches[0]}, coeffs_to_pixels {launches[1]}; pixels equal to "
+        f"the Python prep's")
+
+    # -- times: each prep, and the stream rate under each, in turns
+    mpix = STREAM_FRAMES * 1920 * 1080 / 1e6
+    preps = {"native": [], "python": []}
+    rates = {"native": [], "python": []}
+    for turn in range(E2E_RUNS + 1):  # turn 0 warms up
+        for label in (("native", "python") if turn % 2 else
+                      ("python", "native")):
+            with python_prep() if label == "python" else \
+                    contextlib.nullcontext():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for c in chunks:
+                    dec.prepare(c)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                jpeg_tpu_torch.mjpeg.decode_stream_device(stream, dev,
+                                                          chunk=CHUNK)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+            if turn:
+                preps[label].append((t1 - t0) * 1e3)
+                rates[label].append(mpix / (t2 - t1))
+    for label in ("native", "python"):
+        p, r = sorted(preps[label]), sorted(rates[label])
+        log(f"time host_prep_ms[{label}]={p[len(p) // 2]} (median of "
+            f"{len(p)} runs: parse, unstuff, pack and upload of "
+            f"{STREAM_FRAMES} frames, host clock; run ms {p}; "
+            f"{threads if label == 'native' else 1} host threads) [{card}]")
+        log(f"time e2e_stream_Mpix_s[{label} prep]={r[len(r) // 2]} "
+            f"(median of {len(r)} runs of {STREAM_FRAMES} ri=4 frames from "
+            f"bytes, host clock; runs {r}) [{card}]")
+
+    # -- single images with native host entropy
+    exact = json.loads((CORPUS / "exact.json").read_text())
+    bench0 = bench[0]
+    img = jpeg_tpu_torch.decode_jpeg(bench0, dev, exact=True,
+                                     entropy="native")
+    if hashlib.sha256(img.to_pnm()).hexdigest() != exact["pnm"]["bench"][0]:
+        raise AssertionError("decode_jpeg(entropy='native') of bench frame "
+                             "0 differs from jpeg_tpu's digest")
+    log(f"native: decode_jpeg(bench frame 0, {dev}, exact=True, "
+        f"entropy='native').to_pnm() equals jpeg_tpu's digest")
+    ppm = synth.make_frame_ppm(0)
+    for name, rec in exact["encode"].items():
+        params = EncodeParams(exact=True, entropy_backend="native",
+                              **rec["params"])
+        data = jpeg_tpu_torch.encode_jpeg(ppm, params, dev)
+        numpy_data = jpeg_tpu_torch.encode_jpeg(
+            ppm, EncodeParams(exact=True, **rec["params"]), dev)
+        if data != numpy_data or \
+                hashlib.sha256(data).hexdigest() != rec["sha256"]:
+            raise AssertionError(f"native encode {name}: differs from the "
+                                 "numpy backend or jpeg_tpu's digest")
+        log(f"native: encode_jpeg({name}, {dev}, entropy_backend='native') "
+            f"byte-identical to the numpy backend and jpeg_tpu's digest "
+            f"({len(data)} bytes)")
+    params0 = EncodeParams(exact=True, entropy_backend="native",
+                           **next(iter(exact["encode"].values()))["params"])
+    geom, padded, qt = encode_inputs(ppm, params0, dev)
+    planes = {cid: p.cpu().numpy()
+              for cid, p in encode_frame(padded, geom, qt, True).items()}
+    for key, run, part, what in (
+            ("exact_decode_ms[native]",
+             lambda: jpeg_tpu_torch.decode_jpeg(bench0, dev, exact=True,
+                                                entropy="native"),
+             lambda: jpeg_tpu_torch.decode_coefficients(bench0,
+                                                        entropy="native"),
+             "native host entropy (decode_coefficients)"),
+            ("fast_decode_ms[native]",
+             lambda: jpeg_tpu_torch.decode_jpeg(bench0, dev, exact=False,
+                                                entropy="native"),
+             lambda: jpeg_tpu_torch.decode_coefficients(bench0,
+                                                        entropy="native"),
+             "native host entropy (decode_coefficients)"),
+            ("exact_encode_ms[native]",
+             lambda: jpeg_tpu_torch.encode_jpeg(ppm, params0, dev),
+             lambda: encode_jpeg_from_planes(planes, geom,
+                                             qt.astype(np.uint16), params0,
+                                             dev),
+             "native host entropy and markers (encode_jpeg_from_planes)")):
+        med, runs = median_s(run, 3)
+        med_p, _ = median_s(part, 3)
+        log(f"time {key}={med * 1e3} (1080p bench frame 0, median of "
+            f"{len(runs)} runs, host clock; {what} {med_p * 1e3} ms; "
+            f"{threads} host threads) [{card}]")
+
+    # -- the CLI, as subprocesses on the card (all three at once)
+    rec_name, rec = next(iter(exact["encode"].items()))
+    p = rec["params"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "bench0.jpg").write_bytes(bench0)
+        (tmp / "bench0.ppm").write_bytes(ppm)
+        (tmp / "stream.mjpeg").write_bytes(stream)
+        t0 = time.perf_counter()
+        procs = {
+            "decode": cli_run(["decode", str(tmp / "bench0.jpg"),
+                               str(tmp / "out.ppm")]),
+            "encode": cli_run(["encode", "-h", str(p["h"]), "-v",
+                               str(p["v"]), "-q", str(p["quality"]), "-o",
+                               str(int(p["optimize"])), "-r",
+                               str(p["restart_interval"]),
+                               "--entropy-backend", "native",
+                               str(tmp / "bench0.ppm"),
+                               str(tmp / "out.jpg")]),
+            "mjpeg": cli_run(["mjpeg", str(tmp / "stream.mjpeg"),
+                              str(tmp / "frames"), "--chunk", str(CHUNK)]),
+        }
+        for name, proc in procs.items():
+            out = proc.communicate(timeout=300)[0]
+            if proc.returncode != 0:
+                raise AssertionError(f"cli {name} exited {proc.returncode}:"
+                                     f"\n{out}")
+        seconds = time.perf_counter() - t0
+        if hashlib.sha256((tmp / "out.ppm").read_bytes()).hexdigest() != \
+                exact["pnm"]["bench"][0]:
+            raise AssertionError("cli decode: output differs from jpeg_tpu's "
+                                 "digest")
+        if hashlib.sha256((tmp / "out.jpg").read_bytes()).hexdigest() != \
+                rec["sha256"]:
+            raise AssertionError(f"cli encode {rec_name}: output differs "
+                                 "from jpeg_tpu's digest")
+        host_px = px.cpu().numpy()
+        for i in range(STREAM_FRAMES):
+            want = write_pnm(host_px[i].astype(np.float32), 1920, 1080, 8,
+                             components=3)
+            if (tmp / "frames" / f"frame_{i:05d}.ppm").read_bytes() != want:
+                raise AssertionError(f"cli mjpeg: frame {i} differs from "
+                                     "decode_stream_device's")
+    log(f"native: cli decode (jpeg_tpu digest), encode {rec_name} "
+        f"(jpeg_tpu digest) and mjpeg ({STREAM_FRAMES} frames equal to "
+        f"decode_stream_device's) exited 0 on {dev}, {seconds:.1f} s "
+        f"together [{card}]")
+
+
 def digest(out) -> str:
     """sha256 of a tensor or a tuple of tensors, on the host."""
     h = hashlib.sha256()
@@ -2892,6 +3159,7 @@ def main() -> None:
     entries += single_image_phase(card, dev, streams, ri7)
     entries += rstless_phase(card, dev)
     entries += fast_phase(card, dev, streams)
+    native_phase(card, dev, streams)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": entries}), flush=True)

@@ -8,10 +8,13 @@ pipeline on ``device`` (``models/pipeline.decode_frame``; with
 codec).  ``DecodedImage``, ``expected_mcus``, ``checks_enabled`` and
 ``checks_level`` are copied from the JAX module.
 
-Entropy backends: ``"auto"`` takes the NumPy lockstep engine for scans
-of 16 or more restart segments and the serial oracle otherwise, which is
-the JAX package's own choice when its native library is absent;
-``"serial"`` and ``"lockstep"`` force one.  Two backends decode on the
+Entropy backends: ``"auto"`` takes the threaded C++ engine
+(``"native"``: ``entropy/native.py`` over ``native/scanner.cpp``, built
+with g++ at first use) when its library is available, and otherwise the
+NumPy lockstep engine for scans of 16 or more restart segments and the
+serial oracle for the rest, as the JAX package chooses;
+``"native"``, ``"serial"`` and ``"lockstep"`` force one.  Two backends
+decode on the
 ``device`` they are given (required): ``"lockstep-jax"`` decodes every
 scan with the general segment decode (``entropy/lockstep_jax.py``: the
 kernels of ``csrc/decode_segments.cu``, or their plain versions on the
@@ -19,9 +22,7 @@ CPU), as the JAX package's backend of that name does on its device;
 ``"speculative"`` runs the RST-less engine (``entropy/speculative.py``:
 kernels K8-K10) for a scan without restart markers, routes a scan with
 them to the lockstep engine, and decodes a scan the engine refuses with
-the serial oracle.  ``"auto"`` never picks either.  The native C++
-engine is not ported yet (the port's native host layer), so
-``"native"`` raises.
+the serial oracle.  ``"auto"`` never picks either.
 """
 
 from __future__ import annotations
@@ -33,17 +34,17 @@ from typing import Dict
 
 import numpy as np
 
+from . import native
 from .errors import CorruptStream, JpegError, UnsupportedError
-from .format.parse import Codestream, parse_codestream, unstuff
+from .format.parse import (
+    Codestream,
+    parse_codestream,
+    unstuff,
+    unstuff_ranges,
+)
 from .geometry import FrameGeometry
 from .tables import HuffSpec, HuffTable, derive_table
 from .utils.pnm import write_pnm
-
-_NOT_PORTED = {
-    "native": "the native C++ entropy engine is not ported yet (it comes "
-              "with the port's native prep); use entropy='auto'",
-}
-
 
 @lru_cache(maxsize=64)
 def _derive_cached(spec: HuffSpec) -> HuffTable:
@@ -145,10 +146,8 @@ def decode_coefficients(
 def _decode_coefficients(
     data: bytes, entropy: str, device
 ) -> tuple[Codestream, Dict[int, np.ndarray]]:
-    if entropy in _NOT_PORTED:
-        raise UnsupportedError(_NOT_PORTED[entropy])
     if entropy not in ("auto", "serial", "lockstep", "lockstep-jax",
-                       "speculative"):
+                       "native", "speculative"):
         raise UnsupportedError(f"unknown entropy backend {entropy!r}")
     if entropy in ("lockstep-jax", "speculative"):
         if device is None:
@@ -178,10 +177,33 @@ def _decode_coefficients(
         tables = {k: _derive_cached(spec) for k, spec in scan.htables.items()}
         backend = entropy
         if backend == "auto":
-            # Lockstep decodes restart segments in parallel lanes, but
-            # its per-step cost is fixed -- it only amortizes with
-            # enough lanes; otherwise the serial reader wins.
-            backend = "lockstep" if len(scan.ecs_ranges) >= 16 else "serial"
+            if native.available():
+                backend = "native"
+            else:
+                # Lockstep decodes restart segments in parallel lanes, but
+                # its per-step cost is fixed -- it only amortizes with
+                # enough lanes; otherwise the serial reader wins.
+                backend = "lockstep" if len(scan.ecs_ranges) >= 16 else "serial"
+        if backend == "native":
+            if not native.available():
+                raise UnsupportedError(
+                    "entropy='native' requested but the native library is "
+                    "unavailable (no C++ toolchain?); use entropy='auto'"
+                )
+            from .entropy.native import decode_scan_native
+
+            seg_bytes, seg_offsets = unstuff_ranges(data, scan.ecs_ranges)
+            n = decode_scan_native(
+                geom,
+                scan.info,
+                tables,
+                planes,
+                ri=scan.ri,
+                seg_bytes=seg_bytes,
+                seg_offsets=seg_offsets,
+            )
+            cs.mcus_decoded.append(int(n))
+            continue
         segments = [unstuff(data[s:e]) for (s, e) in scan.ecs_ranges]
         if backend == "serial":
             from .entropy.serial import decode_scan_serial

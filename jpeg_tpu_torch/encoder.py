@@ -16,9 +16,10 @@ stage runs on ``device`` (``models/pipeline.encode_frame``: the exact
 kernels with ``exact=True``); entropy coding runs on the host with the
 NumPy packer, or on ``device`` with ``entropy_backend="jax"`` (the
 segment encode kernel, ``entropy/encode_cuda.pack_scan_device``: the same
-bytes).  ``"native"`` falls back to NumPy, as the JAX package does
-without its native library.  ``EncodeParams`` and ``geometry_for_image``
-are copied unchanged.
+bytes), or on the host with ``entropy_backend="native"`` (the threaded
+C++ coder of ``native/scanner.cpp``; NumPy when its library is not
+available, as the JAX package does).  ``EncodeParams`` and
+``geometry_for_image`` are copied unchanged.
 """
 
 from __future__ import annotations
@@ -98,10 +99,10 @@ def encode_jpeg_from_planes(
     )
 
     # The numpy symbolization feeds the numpy packer and the optimizer's
-    # dry pass; the device backend symbolizes on the card, so skip it
-    # when neither consumer needs it.
+    # dry pass; the device and native backends symbolize on their own, so
+    # skip it when neither consumer needs it.
     symbols = None
-    if params.optimize or params.entropy_backend != "jax":
+    if params.optimize or params.entropy_backend not in ("jax", "native"):
         symbols = symbolize_scan(planes, geom, info, params.restart_interval)
 
     # Table selection: default (MJPEG) tables or per-image optimized
@@ -123,6 +124,25 @@ def encode_jpeg_from_planes(
             planes, geom, info, tables, params.restart_interval,
             resolve(device),
         )
+    elif params.entropy_backend == "native":
+        from . import native
+        from .entropy.encode_cuda import visit_zz_and_tables
+
+        if not native.available():
+            if symbols is None:
+                symbols = symbolize_scan(
+                    planes, geom, info, params.restart_interval
+                )
+            segments = pack_scan(symbols, tables, params.restart_interval)
+        else:
+            zz, dct, act, seg_of, ehufco, ehufsi = visit_zz_and_tables(
+                planes, geom, info, tables, params.restart_interval
+            )
+            n_seg = int(seg_of.max()) + 1
+            sbo = np.searchsorted(seg_of, np.arange(n_seg + 1)).astype(np.int64)
+            segments = native.encode_segments_native(
+                zz, dct, act, sbo, ehufco, ehufsi
+            )
     else:
         segments = pack_scan(symbols, tables, params.restart_interval)
 

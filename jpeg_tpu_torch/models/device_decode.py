@@ -70,6 +70,12 @@ class DeviceDecoder:
     device: torch.device
     qtables_host: np.ndarray  # [4, 64] int32 of the sample frame
     qtables: torch.Tensor  # the same on ``device``, [1, 4, 64]
+    # The native prep (``_prepare_native``): the sample frame's bytes up
+    # to its first entropy-coded byte, that byte's offset, and the width
+    # of the lane rows in u32 words (pack_words' padding; it only grows).
+    header: bytes
+    scan_start: int
+    wn: int
 
     @staticmethod
     def for_stream(sample_jpeg: bytes, device) -> "DeviceDecoder":
@@ -87,6 +93,8 @@ class DeviceDecoder:
         total_blocks = sum(c.n_blocks for c in cs.geometry.components)
         check_shape(plan, 1, spf, total_blocks)
         qt = cs.qtables.astype(np.int32)
+        maxlen = int(_segment_bytes(sample_jpeg, scan.ecs_ranges).max())
+        scan_start = scan.ecs_ranges[0][0]
         return DeviceDecoder(
             plan=plan,
             geom=cs.geometry,
@@ -96,6 +104,9 @@ class DeviceDecoder:
             device=dev,
             qtables_host=qt,
             qtables=torch.from_numpy(qt[None]).to(dev),
+            header=sample_jpeg[:scan_start],
+            scan_start=scan_start,
+            wn=_row_words(maxlen),
         )
 
     @property
@@ -110,7 +121,20 @@ class DeviceDecoder:
         tables.  When every frame's tables equal the sample frame's,
         nothing is uploaded for them: ``qtables`` is the cached set
         expanded over the frames (frame stride 0).
+
+        A chunk whose frames all start with the sample frame's header
+        takes the native prep (``_prepare_native``) when the native
+        library is available; every other chunk, and one the native prep
+        refuses, the Python prep (``parse_codestream``, ``unstuff_ranges``,
+        ``pack_words``).  The two give equal words over ``pack_words``'
+        width (the native rows may be wider, zeros past it) and equal bit
+        counts and tables; ``device_decode.native_prep_chunks`` and
+        ``device_decode.python_prep_chunks`` count which ran.
         """
+        prepared = self._prepare_native(jpegs)
+        if prepared is not None:
+            default_metrics.count("device_decode.native_prep_chunks")
+            return prepared
         spf = self.segs_per_frame
         parts: List[np.ndarray] = []
         lens_parts: List[np.ndarray] = []
@@ -149,7 +173,51 @@ class DeviceDecoder:
             qt = self.qtables.expand(len(qts), 4, 64)
         else:
             qt = torch.from_numpy(np.stack(qts)).to(dev)
+        default_metrics.count("device_decode.python_prep_chunks")
         return words_t, nbits_t, qt
+
+    def _prepare_native(self, jpegs: Sequence[bytes]):
+        """The native prep: one C++ pass a frame (``jt_prep_ecs``)
+        unstuffs its restart segments into its ``segs_per_frame`` rows of
+        the padded [S, wn] word matrix that ``decode_segments`` reads.
+        Frames that start with the sample frame's header bytes share its
+        geometry, Huffman tables, restart interval and quantization
+        tables, so the tables are the cached set, with no upload.
+        -> ``prepare``'s triple, or None for the Python prep: the library
+        is not available, a frame's header differs (e.g. a DQT that
+        changes from frame to frame), or a frame is not ``segs_per_frame``
+        segments closed by EOI (malformed, truncated, other markers), so
+        that every bad frame fails one way.  A row that overflows, or
+        keeps less than ``pack_words``' 8 bytes of slack, widens ``wn``
+        and redoes the chunk."""
+        from .. import native
+
+        if not native.available() or \
+                not all(d.startswith(self.header) for d in jpegs):
+            return None
+        spf, frames = self.segs_per_frame, len(jpegs)
+        for _ in range(4):
+            rows = np.zeros((frames * spf, self.wn), np.uint32)
+            lens = np.zeros(frames * spf, np.int32)
+            for f, data in enumerate(jpegs):
+                lane = slice(f * spf, (f + 1) * spf)
+                rc = native.prep_ecs_native(data, self.scan_start, rows[lane],
+                                            lens[lane])
+                if rc != spf:
+                    break
+            else:
+                need = _row_words(int(lens.max(initial=0)))
+                if need <= self.wn:
+                    dev = self.device
+                    return (torch.from_numpy(rows.view(np.int32)).to(dev),
+                            torch.from_numpy(lens * 8).to(dev),
+                            self.qtables.expand(frames, 4, 64))
+                self.wn = need
+                continue
+            if rc != -2:
+                return None
+            self.wn = self.wn * 3 // 2 // 16 * 16 + 16
+        return None
 
     def decode_prepared(self, words: torch.Tensor, nbits: torch.Tensor,
                         frames: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -233,6 +301,23 @@ class DeviceDecoder:
         """-> plane-major coefficients [F, total_blocks, 64] int32 on
         ``device`` (components in geometry order)."""
         return self._run(jpegs, chunk, lambda c, qt: c)
+
+
+def _segment_bytes(data: bytes, ranges) -> np.ndarray:
+    """Each ECS range's unstuffed byte count (the differences of
+    ``unstuff_ranges``' offsets) without building the bytes: the range's
+    length less the stuffing zeros (a 0x00 after a 0xFF) inside it."""
+    buf = np.frombuffer(data, dtype=np.uint8)
+    zeros = np.flatnonzero((buf[:-1] == 0xFF) & (buf[1:] == 0x00)) + 1
+    r = np.asarray(ranges, dtype=np.int64).reshape(-1, 2)
+    return (r[:, 1] - r[:, 0]) - (np.searchsorted(zeros, r[:, 1])
+                                  - np.searchsorted(zeros, r[:, 0]))
+
+
+def _row_words(maxlen: int) -> int:
+    """``pack_words``' row width in u32 words for a longest segment of
+    ``maxlen`` bytes: 8 bytes of slack, rounded up to 64 bytes."""
+    return (maxlen + 8 + 63) // 64 * 16
 
 
 def _host_pixels(data: bytes, geom: FrameGeometry,

@@ -35,6 +35,7 @@ from jpeg_tpu.ops import quant as jquant
 from jpeg_tpu.tables import HuffSpec, derive_table
 
 import jpeg_tpu_torch as jt
+import jpeg_tpu_torch.native  # noqa: F401 (jt.native)
 from jpeg_tpu_torch.encoder import EncodeParams
 from jpeg_tpu_torch.models import dense_exact
 from jpeg_tpu_torch.ops import color, dct
@@ -154,18 +155,22 @@ def test_exact_encode_is_byte_identical(name, optimize, ri):
     assert dev == want
 
 
-def test_fast_encode_and_native_backend():
+def test_fast_encode_and_native_backend(monkeypatch):
     """exact=False: the float32 matmul forms; the blocks may differ from
     jpeg_tpu's on rounding boundaries, so the check is the decode (+-1
-    against jpeg_tpu's decode of its own fast encode).  "native" falls
-    back to the NumPy packer, as jpeg_tpu does without its library."""
+    against jpeg_tpu's decode of its own fast encode).  "native" codes
+    with the threaded C++ coder, byte-identical to the NumPy packer."""
     fields = dict(h=2, v=2, quality=80, optimize=False, restart_interval=2,
                   exact=False)
     pnm = _pnm("420")
     got = jt.encode_jpeg(pnm, EncodeParams(**fields), "cpu")
+    calls = []
+    coder = jt.native.encode_segments_native
+    monkeypatch.setattr(jt.native, "encode_segments_native",
+                        lambda *a: calls.append(1) or coder(*a))
     native = jt.encode_jpeg(pnm, EncodeParams(entropy_backend="native",
                                               **fields), "cpu")
-    assert native == got
+    assert native == got and calls == [1]
     want = jax_encode(pnm, JParams(**fields))
     a = jpeg_tpu.decode_jpeg(got, exact=True).pixels()
     b = jpeg_tpu.decode_jpeg(want, exact=True).pixels()
@@ -257,13 +262,13 @@ def test_exact_wrappers_on_cpu_and_other_devices(frames):
     with pytest.raises(ValueError, match="mode"):
         dense_exact.color_exact(torch.zeros(2, 3), 8, "to_cmyk")
     data = frames["420"]
-    with pytest.raises(jt.UnsupportedError, match="not ported"):
-        jt.decode_jpeg(data, "cpu", entropy="native")
+    native = jt.decode_coefficients(data, entropy="native")[1]
     lock = jt.decode_coefficients(data, entropy="lockstep")[1]
     serial = jt.decode_coefficients(data, entropy="serial")[1]
     spec = jt.decode_coefficients(data, entropy="speculative",
                                   device="cpu")[1]
     for cid in lock:
+        np.testing.assert_array_equal(native[cid], serial[cid])
         np.testing.assert_array_equal(lock[cid], serial[cid])
         np.testing.assert_array_equal(spec[cid], serial[cid])
 

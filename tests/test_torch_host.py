@@ -28,6 +28,7 @@ from jpeg_tpu.format.parse import parse_codestream as jax_parse
 from jpeg_tpu.format.parse import unstuff_ranges as jax_unstuff_ranges
 
 import jpeg_tpu_torch as jt
+import jpeg_tpu_torch.native  # noqa: F401 (jt.native)
 from jpeg_tpu_torch.entropy import place_cuda
 from jpeg_tpu_torch.entropy.lockstep_torch import _cached_plan, pack_words
 from jpeg_tpu_torch.format.parse import parse_codestream, unstuff_ranges
@@ -74,10 +75,11 @@ def assert_same(a, b, path="root"):
 
 @pytest.mark.parametrize("path", ["utils/pnm.py", "format/emit.py",
                                   "entropy/encode.py", "entropy/lockstep.py",
-                                  "entropy/serial.py"])
+                                  "entropy/serial.py", "entropy/native.py",
+                                  "native/scanner.cpp"])
 def test_encode_host_copies_are_verbatim(path):
-    """Numpy-only host modules whose imports are all package-relative are
-    carried over byte for byte."""
+    """Numpy-only host modules whose imports are all package-relative, and
+    the native layer's C++ source, are carried over byte for byte."""
     assert ((REPO / "jpeg_tpu_torch" / path).read_bytes()
             == (REPO / "jpeg_tpu" / path).read_bytes())
 
@@ -230,8 +232,8 @@ def test_ineligible_stream_raises():
 
 def test_rstless_stream_raises():
     """An RST-less stream decodes, small frames one lane per frame, and so
-    does ``entropy="speculative"``; what still raises is the native
-    entropy engine, which is not ported."""
+    do ``entropy="speculative"`` and ``entropy="native"``; explicit
+    ``"native"`` raises only when the native library is not available."""
     params = EncodeParams(h=2, v=2, quality=75, restart_interval=0,
                           optimize=False, exact=False)
     jpeg = encode_jpeg(make_ppm(64, 32, seed=3), params)
@@ -245,8 +247,16 @@ def test_rstless_stream_raises():
     got = jt.decode_coefficients(jpeg, entropy="speculative", device="cpu")[1]
     for cid in planes:
         np.testing.assert_array_equal(got[cid], planes[cid])
-    with pytest.raises(jt.UnsupportedError, match="native"):
-        jt.decode_jpeg(jpeg, "cpu", entropy="native")
+    got = jt.decode_coefficients(jpeg, entropy="native")[1]
+    for cid in planes:
+        np.testing.assert_array_equal(got[cid], planes[cid])
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jt.native, "available", lambda: False)
+    try:
+        with pytest.raises(jt.UnsupportedError, match="native"):
+            jt.decode_jpeg(jpeg, "cpu", entropy="native")
+    finally:
+        mp.undo()
 
 
 def test_no_frames_raises():
