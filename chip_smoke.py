@@ -189,7 +189,29 @@ process exits non-zero without printing the result line:
     ``python -m jpeg_tpu_torch.cli`` as three subprocesses on the card:
     ``decode`` of bench frame 0 (jpeg_tpu's digest), ``encode`` (the
     committed bytes) and ``mjpeg`` of the stream (each frame equal to
-    ``decode_stream_device``'s), each exiting 0.
+    ``decode_stream_device``'s), each exiting 0;
+16. multi-device (``jpeg_tpu_torch.parallel``): (a) in this process, an
+    NCCL group of one rank and a (1, 1) mesh on the card: the sharded
+    stream decoder on the 16 bench frames at ri=4 (``place_ri=4``: K1 and
+    K3) and on 16 ri=7 frames (``place_ri=0``: K2 and K3) against
+    ``DeviceDecoder.decode_batch``, ``decode_frame_sharded`` of bench
+    frame 0, ri=7 frame 0 and an ri=9 frame (907 lanes) against
+    ``decode_coefficients(entropy="lockstep-jax")``, the sharded stream
+    encoder (16 frames, with the histogram) against ``encode_batch`` and
+    the single-device histogram, ``make_sharded_decoder`` (K11; exact:
+    K4) and ``make_sharded_roundtrip`` (K11, K12) at ``BatchConfig(1080,
+    1920, 2, 2)``, batch 8, on seeded coefficients against
+    ``decode_batch_ycc`` / ``roundtrip_step_ycc``, all bit for bit, and
+    the batch kernels against their plain versions (K11 within
+    ``fast_tol``, K12 within +-1 under ``DENSE_DIFF_SHARE["noise"]``,
+    K4 equal); (b) the same paths in two spawned ranks sharing the card
+    over gloo (meshes (2, 1), (1, 2) for the tile gather, and a 1-D
+    'frame' mesh of two for the frame decode, the ri=9 frame padded with
+    a lane), plus ``global_frame_batch`` of each rank's decode, every
+    gathered output (sha256) equal to (a)'s; each path twice (cold,
+    warm), its wall time, peak device memory (per rank) and kernel
+    launches printed, and the launches of both runs added to the kernels
+    line (``sharded_launches``).
 
 Every kernel's time is printed beside its bound (``bound``: the bytes it
 must move at 3.35 TB/s or its operations at the peak rate of their type
@@ -2747,6 +2769,317 @@ def native_phase(card: str, dev: torch.device, streams: dict) -> None:
         f"together [{card}]")
 
 
+# Phase 16: the multi-device layer.  The batch of BatchConfig paths
+# (bench.py's 1080p 4:2:0), its size and seed; the ri=9 frame's lane count
+# (907) does not divide over two ranks, so its decode pads a lane.
+PARALLEL_BATCH = 8
+PARALLEL_SEED = 16
+PAD_PARAMS = EncodeParams(h=2, v=2, quality=75, optimize=False,
+                          restart_interval=9, exact=False)
+# Wall limit of the two-rank run (its ranks are stopped past it).
+PARALLEL_TIMEOUT_S = 240.0
+# Runs of each path: a cold one (first launches, NCCL set-up) and a warm.
+PARALLEL_RUNS = 2
+
+
+def launch_deltas(before: dict) -> dict:
+    """The kernel launches since ``before`` (``parallel_launches()``)."""
+    return {k: n for k, n in ((k, c - before[k]) for k, c in
+                              parallel_launches().items()) if n}
+
+
+def parallel_launches() -> dict:
+    from jpeg_tpu_torch.parallel.demo import kernel_wrappers
+
+    return {k: f.launches for k, f in kernel_wrappers().items()}
+
+
+def parallel_phase(card: str, dev: torch.device, streams: dict) -> dict:
+    """Phase 16 (multi-device, ``jpeg_tpu_torch.parallel``): (a) every
+    sharded path in this process over an NCCL group of one rank, against
+    its single-device path bit for bit (and the batch paths against their
+    plain versions); (b) the same paths in two spawned ranks on this one
+    card over gloo, their gathered outputs (sha256) against (a)'s.  ->
+    {kernel: {path: launches}} of both runs."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from jpeg_tpu_torch.models import batch as mb
+    from jpeg_tpu_torch.parallel import demo, distributed
+    from jpeg_tpu_torch.parallel import sharding as sh
+
+    mark("16")
+    t_phase = time.perf_counter()
+    bench = streams["bench"]
+    frames4 = [bench[i % len(bench)] for i in range(STREAM_FRAMES)]
+    px = bench_pixels(dev)
+    enc7 = DeviceEncoder.for_config(synth.HEIGHT, synth.WIDTH, 3,
+                                    GENERAL_PARAMS, device=dev)
+    frames7 = enc7.encode_batch(px, optimize=False, chunk=CHUNK)
+    pad = DeviceEncoder.for_config(synth.HEIGHT, synth.WIDTH, 3, PAD_PARAMS,
+                                   device=dev).encode_batch(px[:1])[0]
+    one_frames = {"bench0": bench[0], "ri7_0": frames7[0], "ri9_0": pad}
+    lanes = {k: len(parse_codestream(f).scans[0].ecs_ranges)
+             for k, f in one_frames.items()}
+    if lanes["ri9_0"] % 2 == 0:
+        raise AssertionError(f"the padding frame has {lanes['ri9_0']} lanes")
+    cfg = mb.BatchConfig(synth.HEIGHT, synth.WIDTH, 2, 2)
+    y, cb, cr, ql, qc = demo.batch_inputs(cfg, PARALLEL_BATCH, PARALLEL_SEED)
+    batch = [torch.from_numpy(a).to(dev) for a in (y, cb, cr, ql, qc)]
+    launches = {}  # kernel -> {path: launches}
+    digests = {}  # (path, output) -> sha256 of (a)'s output
+
+    def record(path, got, run):
+        for k, n in got.items():
+            launches.setdefault(k, {})[f"{run} {path}"] = n
+
+    # -- (a) one rank, NCCL
+    t_a = time.perf_counter()
+    rank, world = distributed.initialize(f"localhost:{demo.free_port()}", 1,
+                                         0, device="cuda")
+    backend = torch.distributed.get_backend()
+    if (rank, world, backend) != (0, 1, "nccl"):
+        raise AssertionError(f"(a): group {rank}/{world} on {backend}")
+    mesh = sh.make_mesh(1, 1, "cuda")
+    mesh_f = DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("frame",))
+    log(f"parallel (a): {backend} group of {world}, mesh "
+        f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} on "
+        f"{sh.local_device(mesh)} [{card}]")
+
+    def path_a(name, run, check):
+        secs = []
+        for _ in range(PARALLEL_RUNS):  # the first is a warm-up, the last kept
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = parallel_launches()
+            t0 = time.perf_counter()
+            outs = run()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            got = launch_deltas(before)
+        record(name, got, "(a)")
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        note = check(outs)
+        for k, t in outs.items():
+            digests[(name, k)] = demo._digest(t)
+        log(f"parallel (a) {name}: wall ms {[round(t * 1e3, 3) for t in secs]}"
+            f" (cold, warm), peak {peak:.1f} MiB, launches {got or '-'}; "
+            f"{note} [{card}]")
+
+    def equal(what, got, ref):
+        if not torch.equal(got, ref):
+            raise AssertionError(f"parallel (a) {what}: the sharded path "
+                                 "differs from the single-device one")
+
+    for name, frames, ri, place_ri in (("stream ri=4", frames4, 4, 4),
+                                       ("stream ri=7", frames7, 7, 0)):
+        dec = DeviceDecoder.for_stream(frames[0], dev)
+        if dec.ri != ri:
+            raise AssertionError(f"{name}: restart interval {dec.ri}")
+        words, nbits, qt = dec.prepare(frames)
+
+        def run(dec=dec, words=words, nbits=nbits, qt=qt,
+                frames=frames, place_ri=place_ri):
+            fn = sh.make_sharded_stream_decoder(dec, mesh, len(frames),
+                                                place_ri=place_ri)
+            got, counts = fn(words, nbits, qt)
+            return {"px": sh.gather_full(got),
+                    "counts": sh.gather_full(counts)}
+
+        def check(o, dec=dec, frames=frames):
+            equal(name, o["px"], dec.decode_batch(frames, chunk=CHUNK))
+            if int(o["counts"].sum()) != dec.plan.n_mcus * len(frames):
+                raise AssertionError(f"{name}: MCU counts short")
+            return f"{len(frames)} frames equal to decode_batch"
+
+        path_a(name, run, check)
+
+    for label, frame in one_frames.items():
+        def run(frame=frame):
+            _, planes = sh.decode_frame_sharded(frame, mesh_f)
+            return {f"c{c}": torch.from_numpy(p) for c, p in planes.items()}
+
+        def check(o, frame=frame, label=label):
+            _, ref = jpeg_tpu_torch.decode_coefficients(
+                frame, entropy="lockstep-jax", device="cuda")
+            for c, p in ref.items():
+                equal(f"frame {label} c{c}", o[f"c{c}"], torch.from_numpy(p))
+            return (f"{lanes[label]} lanes, planes equal to "
+                    "decode_coefficients(lockstep-jax)")
+
+        path_a(f"frame {label}", run, check)
+
+    enc4 = DeviceEncoder.for_config(synth.HEIGHT, synth.WIDTH, 3,
+                                    BENCH_PARAMS, device=dev)
+
+    def run_enc():
+        fn = sh.make_sharded_stream_encoder(enc4, mesh, STREAM_FRAMES,
+                                            with_hist=True)
+        words, seg_bits, n_words, missing, hist = fn(px)
+        nw = int(n_words.to_local()[0])
+        if int(missing.to_local()[0]):
+            raise AssertionError("stream encode: a symbol has no code")
+        jpegs = enc4._finalize_flat(words[:nw].cpu().numpy().view(np.uint32),
+                                    seg_bits.to_local().cpu().numpy(),
+                                    STREAM_FRAMES)
+        half = STREAM_FRAMES // 2  # (b)'s ranks' bytes, one digest each
+        return {"hist": sh.gather_full(hist),
+                "seg_bits": sh.gather_full(seg_bits),
+                **{f"jpegs.r{r}": torch.frombuffer(
+                    bytearray(b"".join(part)), dtype=torch.uint8)
+                   for r, part in enumerate((jpegs[:half], jpegs[half:]))}}
+
+    def check_enc(o):
+        ref = b"".join(enc4.encode_batch(px, chunk=CHUNK))
+        if bytes(torch.cat([o["jpegs.r0"], o["jpegs.r1"]]).numpy()) != ref:
+            raise AssertionError("stream encode: bytes differ from "
+                                 "encode_batch")
+        equal("stream encode hist", o["hist"],
+              enc4.histogram(enc4.dense(px)))
+        return f"{STREAM_FRAMES} frames equal to encode_batch, hist equal"
+
+    path_a("stream encode", run_enc, check_enc)
+
+    def run_dec(exact=False, b=PARALLEL_BATCH):
+        fn = sh.make_sharded_decoder(cfg, mesh, exact=exact)
+        ys, cbs, crs = sh.shard_batch(mesh, *(t[:b] for t in batch[:3]))
+        qls, qcs = sh.replicate(mesh, *batch[3:])
+        return {"px": sh.gather_full(fn(ys, cbs, crs, qls, qcs))}
+
+    def check_dec(o, exact=False, b=PARALLEL_BATCH):
+        args = [t[:b] for t in batch[:3]] + batch[3:]
+        ref = mb.decode_batch_ycc(cfg, *args, exact=exact)
+        equal("batch decode", o["px"], ref)
+        plain = mb.decode_batch_ycc_ref(cfg, *args, exact=exact)
+        err = float((ref - plain).abs().max())
+        tol = 0.0 if exact else fast_tol(plain)
+        if err > tol:
+            raise AssertionError(f"batch decode: kernels vs plain {err} > "
+                                 f"{tol}")
+        return (f"equal to decode_batch_ycc; vs plain max |diff| {err} "
+                f"(allowed {tol})")
+
+    path_a("batch decode", run_dec, check_dec)
+    path_a("batch decode exact", lambda: run_dec(True, 2),
+           lambda o: check_dec(o, True, 2))
+
+    def run_rt():
+        fn = sh.make_sharded_roundtrip(cfg, mesh)
+        ys, cbs, crs = sh.shard_batch(mesh, *batch[:3])
+        qls, qcs = sh.replicate(mesh, *batch[3:])
+        return dict(zip(("y2", "cb2", "cr2", "hist"),
+                        (sh.gather_full(t) for t in fn(ys, cbs, crs, qls,
+                                                       qcs))))
+
+    def check_rt(o):
+        ref = mb.roundtrip_step_ycc(cfg, *batch)
+        for k, r in zip(("y2", "cb2", "cr2", "hist"), ref):
+            equal(f"roundtrip {k}", o[k], r)
+        if int(o["hist"].sum()) != PARALLEL_BATCH * cfg.n_luma_blocks:
+            raise AssertionError("roundtrip: histogram does not sum to the "
+                                 "luma blocks")
+        # K12 against its plain version on the kernels' own RGB
+        rgb = mb.decode_batch_ycc(cfg, *batch)
+        err = 0
+        for g, p in zip(mb.encode_batch_ycc(cfg, rgb, *batch[3:]),
+                        mb.encode_batch_ycc_ref(cfg, rgb, *batch[3:])):
+            err = max(err, check_dense("roundtrip re-encode", g - p,
+                                       DENSE_DIFF_SHARE["noise"],
+                                       "encode_batch_ycc"))
+        ex = mb.encode_batch_ycc(cfg, rgb[:2], *batch[3:], exact=True)
+        for g, p in zip(ex, mb.encode_batch_ycc_ref(cfg, rgb[:2], *batch[3:],
+                                                    exact=True)):
+            equal("encode_batch_ycc exact vs plain", g, p)
+        return ("equal to roundtrip_step_ycc, histogram sums to the luma "
+                f"blocks; re-encode vs plain max |diff| {err}; exact "
+                "encode equal to plain")
+
+    path_a("roundtrip", run_rt, check_rt)
+    torch.distributed.destroy_process_group()
+    sec_a = time.perf_counter() - t_a
+
+    # -- (b) two ranks on this one card, gloo
+    t_b = time.perf_counter()
+    work = CORPUS.parents[2] / "build"
+    work.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=str(work)) as tmp:
+        tmp = Path(tmp)
+        demo.frames_file(tmp / "ri4.npz", frames4)
+        demo.frames_file(tmp / "ri7.npz", frames7)
+        demo.frames_file(tmp / "one.npz", list(one_frames.values()))
+        np.save(tmp / "pixels.npy", px.cpu().numpy())
+        cfg_l = [cfg.height, cfg.width, cfg.h, cfg.v]
+        params = {k: getattr(BENCH_PARAMS, k) for k in (
+            "h", "v", "quality", "optimize", "restart_interval", "exact")}
+        paths = [
+            {"name": "stream ri=4", "kind": "stream_decode",
+             "frames": "ri4.npz", "place_ri": 4, "mesh": [2, 1]},
+            {"name": "stream ri=7", "kind": "stream_decode",
+             "frames": "ri7.npz", "place_ri": 0, "mesh": [2, 1]},
+            {"name": "frame", "kind": "frame_decode", "frames": "one.npz",
+             "mesh": "frame"},
+            {"name": "stream encode", "kind": "stream_encode",
+             "pixels": "pixels.npy", "params": params,
+             "with_hist": True, "mesh": [2, 1]},
+            {"name": "batch decode", "kind": "batch_decode", "cfg": cfg_l,
+             "batch": PARALLEL_BATCH, "seed": PARALLEL_SEED, "mesh": [1, 2]},
+            {"name": "roundtrip", "kind": "roundtrip", "cfg": cfg_l,
+             "batch": PARALLEL_BATCH, "seed": PARALLEL_SEED, "mesh": [1, 2]},
+            {"name": "global batch", "kind": "global_batch",
+             "frames": "ri4.npz", "mesh": "frame"},
+        ]
+        spec = tmp / "spec.json"
+        spec.write_text(json.dumps({"paths": paths, "digest": True,
+                                    "repeat": PARALLEL_RUNS}))
+        demo.spawn(2, "jpeg_tpu_torch.parallel.demo:check_rank", str(spec),
+                   "cuda", backend="gloo", timeout_s=PARALLEL_TIMEOUT_S)
+        outs = {p["name"]: [dict(np.load(tmp / f"{p['name']}.r{r}.npz"))
+                            for r in range(2)] for p in paths}
+    sec_b = time.perf_counter() - t_b
+    # what (b)'s gathered outputs must equal, by (path, output)
+    want = {("stream ri=4", "px"): digests[("stream ri=4", "px")],
+            ("stream ri=4", "counts"): digests[("stream ri=4", "counts")],
+            ("stream ri=7", "px"): digests[("stream ri=7", "px")],
+            ("stream ri=7", "counts"): digests[("stream ri=7", "counts")],
+            ("stream encode", "hist"): digests[("stream encode", "hist")],
+            ("stream encode", "seg_bits"):
+                digests[("stream encode", "seg_bits")],
+            ("batch decode", "px"): digests[("batch decode", "px")],
+            ("global batch", "full"): digests[("stream ri=4", "px")]}
+    for k in ("y2", "cb2", "cr2", "hist"):
+        want[("roundtrip", k)] = digests[("roundtrip", k)]
+    for i, label in enumerate(one_frames):
+        for (path, k), d in digests.items():
+            if path == f"frame {label}":
+                want[("frame", f"f{i}_{k}")] = d
+    for (path, k), d in want.items():
+        for r, o in enumerate(outs[path]):
+            if str(o[k]) != d:
+                raise AssertionError(f"parallel (b) {path} {k} on rank {r} "
+                                     "differs from (a)")
+    for r, o in enumerate(outs["stream encode"]):
+        if str(o["jpegs"]) != digests[("stream encode", f"jpegs.r{r}")]:
+            raise AssertionError(f"parallel (b) stream encode: rank {r}'s "
+                                 "bytes differ from encode_batch's")
+    for p in paths:
+        rows = outs[p["name"]]
+        for k, n in json.loads(str(rows[0]["launches"])).items():
+            launches.setdefault(k, {})[f"(b) {p['name']}"] = n
+        walls = [[round(float(t) * 1e3, 3) for t in o["seconds"]]
+                 for o in rows]
+        log(f"parallel (b) {p['name']} mesh {p['mesh']}: wall ms a rank "
+            f"(cold, warm) {walls}, peak "
+            f"MiB {[round(float(o['peak_MiB']), 1) for o in rows]}, "
+            f"launches a rank "
+            f"{[json.loads(str(o['launches'])) for o in rows]} [{card}]")
+    log(f"parallel (b): 2 ranks over gloo on one card, every gathered "
+        f"output equal to (a)'s; both ranks share one card, so these times "
+        f"show the collectives' cost, not scaling [{card}]")
+    log(f"parallel: launches {json.dumps(launches)}")
+    log(f"time parallel_phase_s={time.perf_counter() - t_phase} ((a) "
+        f"{sec_a:.1f} s, (b) {sec_b:.1f} s with its spawn) [{card}]")
+    return launches
+
+
 def digest(out) -> str:
     """sha256 of a tensor or a tuple of tensors, on the host."""
     h = hashlib.sha256()
@@ -3160,6 +3493,9 @@ def main() -> None:
     entries += rstless_phase(card, dev)
     entries += fast_phase(card, dev, streams)
     native_phase(card, dev, streams)
+    sharded = parallel_phase(card, dev, streams)
+    for e in entries:
+        e["sharded_launches"] = sharded.get(e["name"], {})
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": entries}), flush=True)

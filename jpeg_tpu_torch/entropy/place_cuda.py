@@ -36,7 +36,7 @@ the dispatch keeps the JAX package's rule, ``RB_MAX`` included.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -80,6 +80,11 @@ TABLE_INTS = OFF_LUT + T_MAX * (1 << LUT_BITS) // 2
 CTA_LANES = 64
 STAGE_BYTES = 64 * 1024
 ROUTE_LAUNCHES = {"staged": 0, "lookahead": 0}
+
+# ``lane_base`` of the general decode: the lane MCU counts [S] int32 ->
+# an int32 tensor (a scalar or [S]) on their device, added to each lane's
+# first MCU before placement.
+LaneBase = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
 
 def placement_eligible(plan: ScanPlan, ri: int, segs_per_frame: int) -> bool:
@@ -189,7 +194,8 @@ def _slot_affinities(plan: ScanPlan):
 def place_emissions(plan: ScanPlan, mcu_counts: torch.Tensor,
                     em_key: torch.Tensor, em_val: torch.Tensor, frames: int,
                     spf: int, total_blocks: int,
-                    checks: bool = False) -> torch.Tensor:
+                    checks: bool = False,
+                    seg_offset: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Prefix-sum placement of one [steps, S] emission stream ->
     plane-major [frames*total_blocks, 64] int32.
 
@@ -207,11 +213,18 @@ def place_emissions(plan: ScanPlan, mcu_counts: torch.Tensor,
     ``lockstep_jax.py:665-680``): a valid-key emission whose coefficient
     lands outside the output raises ``CorruptStream`` ("sanitizer: ...")
     where the production scatter drops it.
+
+    ``seg_offset`` [S], where given, is each lane's first MCU in place of
+    the per-frame cumsum: the JAX placement's ``seg_offset`` argument,
+    which the context-parallel frame decode gives the global offsets of
+    a slice of one frame's lanes.
     """
     dev = em_key.device
     S = mcu_counts.shape[0]
-    per_frame = mcu_counts.to(torch.int64).reshape(frames, spf)
-    seg_offset = (per_frame.cumsum(1) - per_frame).reshape(S)
+    if seg_offset is None:
+        per_frame = mcu_counts.to(torch.int64).reshape(frames, spf)
+        seg_offset = (per_frame.cumsum(1) - per_frame).reshape(S)
+    seg_offset = seg_offset.to(torch.int64)
     keys = em_key.reshape(-1).to(torch.int64)
     upd = torch.nonzero(keys > 0).squeeze(1)  # (step, lane) order
     lane = upd % S
@@ -284,15 +297,21 @@ def decode_segments_ref(plan: ScanPlan, words: torch.Tensor,
 
 def decode_segments_general_ref(plan: ScanPlan, words: torch.Tensor,
                                 nbits: torch.Tensor, frames: int, spf: int,
-                                total_blocks: int, checks: bool = False):
+                                total_blocks: int, checks: bool = False,
+                                lane_base: LaneBase = None):
     """Plain PyTorch version of the general kernel, on any device: the
     eager scan, then ``place_emissions`` (``checks``: both with the
     sanitizer's checks).  -> (coeffs, mcu_counts) as
-    ``decode_segments_ref``."""
+    ``decode_segments_ref``.  ``lane_base`` as ``decode_segments_general``
+    (the offsets go to ``place_emissions`` as its ``seg_offset``)."""
     check_shape(plan, frames, spf, total_blocks)
     counts, em_key, em_val, _ = scan_lanes(plan, words, nbits, checks)
+    seg_offset = None
+    if lane_base is not None:
+        off, _ = _layout(counts.to(torch.int64).reshape(frames, spf))
+        seg_offset = off.reshape(-1) + lane_base(counts).to(torch.int64)
     return (place_emissions(plan, counts, em_key, em_val, frames, spf,
-                            total_blocks, checks), counts)
+                            total_blocks, checks, seg_offset), counts)
 
 
 def huffval_pad(plan: ScanPlan) -> int:
@@ -583,7 +602,7 @@ def _general_layout(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
 
 def decode_segments_general(plan: ScanPlan, words: torch.Tensor,
                             nbits: torch.Tensor, frames: int, spf: int,
-                            total_blocks: int):
+                            total_blocks: int, lane_base: LaneBase = None):
     """Decode ``frames * spf`` restart segments of any shape the kernel
     tables hold (prefix-sum placement).  Arguments and result as
     ``decode_segments``; the restart interval plays no part.
@@ -593,10 +612,19 @@ def decode_segments_general(plan: ScanPlan, words: torch.Tensor,
     counted once per call in ``decode_segments_general.launches``;
     a CPU tensor runs ``decode_segments_general_ref``.  Anything else
     raises.
+
+    ``lane_base`` (default none) maps the lane MCU counts to an MCU base
+    added to every lane's first MCU after the count walk and before the
+    place walk, on the device and with no host sync: the context-parallel
+    frame decode (``parallel.sharding``) decodes a slice of one frame's
+    lanes and places them after the earlier slices' MCUs, the JAX
+    placement's ``seg_offset``.  The contested rows stay those of the
+    slice's own offsets: a row past the frame by the global offset is
+    marked where it may not be, and there every write is dropped anyway.
     """
     if words.device.type == "cpu":
         return decode_segments_general_ref(plan, words, nbits, frames, spf,
-                                           total_blocks)
+                                           total_blocks, lane_base=lane_base)
     dev = _check_launch(plan, words, nbits, frames, spf, total_blocks)
     S, wn = words.shape
     staged = _route(words)
@@ -607,6 +635,8 @@ def decode_segments_general(plan: ScanPlan, words: torch.Tensor,
     counts, partial, off, first, contested, bkey = _count_walk(
         plan, words, nbits, frames, spf, buf[n:], staged)
     coeffs = buf[:n].view(frames * total_blocks, 64)
+    if lane_base is not None:
+        off.add_(lane_base(counts).to(torch.int32))
 
     from ..kernels import load_library
 

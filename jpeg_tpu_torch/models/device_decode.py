@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,7 +36,12 @@ import torch
 from ..device import resolve
 from ..entropy.lockstep import ScanPlan
 from ..entropy.lockstep_torch import _cached_plan, pack_words
-from ..entropy.place_cuda import check_shape, decode_segments
+from ..entropy.place_cuda import (
+    check_shape,
+    decode_segments,
+    decode_segments_general,
+    region_path,
+)
 from ..errors import UnsupportedError
 from ..format.parse import parse_codestream, unstuff, unstuff_ranges
 from ..geometry import FrameGeometry
@@ -220,13 +225,30 @@ class DeviceDecoder:
         return None
 
     def decode_prepared(self, words: torch.Tensor, nbits: torch.Tensor,
-                        frames: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                        frames: int, place_ri: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Prepared chunk -> (coeffs [frames, total_blocks, 64] int32,
-        mcu_counts [S] int32), on ``device``."""
-        tb = self.total_blocks
-        coeffs, counts = decode_segments(
-            self.plan, words, nbits, frames, self.segs_per_frame, self.ri, tb
-        )
+        mcu_counts [S] int32), on ``device``.
+
+        ``place_ri`` picks the placement as the JAX stream decoder's
+        argument of that name: None (the default) routes by the stream's
+        restart interval (``decode_segments``); 0 takes the general
+        prefix-sum kernel (``decode_segments_general``); ``ri > 0`` the
+        one-pass region kernel, which must take the shape
+        (``region_path``), else ``UnsupportedError``."""
+        tb, spf = self.total_blocks, self.segs_per_frame
+        if place_ri == 0:
+            coeffs, counts = decode_segments_general(
+                self.plan, words, nbits, frames, spf, tb)
+        else:
+            ri = self.ri if place_ri is None else place_ri
+            if place_ri is not None and not region_path(self.plan, spf, ri,
+                                                        tb):
+                raise UnsupportedError(
+                    f"place_ri={ri}: the region placement does not take "
+                    f"{spf} segments a frame of this scan")
+            coeffs, counts = decode_segments(self.plan, words, nbits,
+                                             frames, spf, ri, tb)
         return coeffs.reshape(frames, tb, 64), counts
 
     def _run(self, jpegs: Sequence[bytes], chunk: int, finish,

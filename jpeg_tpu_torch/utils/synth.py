@@ -41,6 +41,19 @@ def make_frame_ppm(seed: int) -> bytes:
     return b"P6\n%d %d\n255\n" % (WIDTH, HEIGHT) + samples.tobytes()
 
 
+def small_ppm(width: int, height: int, seed: int = 0) -> bytes:
+    """A small seeded P6 image: smooth gradients and texture (the same
+    samples as the tests' ``refbin.make_ppm`` at maxval 255)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float64)
+    img = np.stack([0.5 + 0.5 * np.sin(xx / 17.0) * np.cos(yy / 23.0),
+                    (xx + yy) / (width + height),
+                    0.5 + 0.5 * np.cos(xx / 31.0 + yy / 13.0)], axis=-1)
+    img = img + rng.normal(0, 0.02, img.shape)
+    samples = np.clip(np.round(img * 255), 0, 255).astype(np.uint8)
+    return b"P6\n%d %d\n255\n" % (width, height) + samples.tobytes()
+
+
 def make_frame(seed: int) -> np.ndarray:
     """``make_frame_ppm(seed)``'s samples as [HEIGHT, WIDTH, 3] uint8."""
     data = make_frame_ppm(seed)
