@@ -38,9 +38,11 @@ process exits non-zero without printing the result line:
 4. against JAX: every single-scan corpus frame's coefficients against the
    sha256 digests jpeg_tpu produced (``digests.json``);
 5. the slice: ``mjpeg.decode_stream_device`` on a 16-frame 1080p stream,
-   with both kernels' launch counts (``coeffs_to_pixels`` exactly once
-   per chunk), checked against the CPU decode;
-6. times: end-to-end stream rate, device-resident rate, host prep, per
+   with the kernels' launch counts (``coeffs_to_pixels`` and, "auto" prep
+   being flat on the card, ``rows_from_flat`` exactly once per chunk,
+   every chunk counted flat), checked against the CPU decode;
+6. times, each labelled with the prep mode "auto" resolved to:
+   end-to-end stream rate, device-resident rate, host prep, per
    8-frame chunk each kernel (``decode_segments``, ``coeffs_to_pixels``:
    ``dense_tail_ms``) against its plain version, their bounds and
    roofline shares, and the card's busy share of one stream decode under
@@ -173,7 +175,8 @@ process exits non-zero without printing the result line:
 15. the native host layer and the CLI: ``jpeg_tpu_torch/native`` built
     with g++ (its seconds logged; a failed build fails the run) and
     ``available()``; on the 16-frame ri=4 bench stream the native prep
-    (``jt_prep_ecs``) against the Python prep, chunk by chunk: words
+    in its rows mode (``jt_prep_ecs``; phase 17 holds the flat mode)
+    against the Python prep, chunk by chunk: words
     equal over ``pack_words``' width and zero past it, bit counts and
     tables equal, the word routes (``place_cuda.ROUTE_LAUNCHES``) equal;
     ``mjpeg.decode_stream_device`` with every chunk counted native
@@ -211,7 +214,24 @@ process exits non-zero without printing the result line:
     gathered output (sha256) equal to (a)'s; each path twice (cold,
     warm), its wall time, peak device memory (per rank) and kernel
     launches printed, and the launches of both runs added to the kernels
-    line (``sharded_launches``).
+    line (``sharded_launches``);
+17. the flat prep (``DeviceDecoder.prep_mode`` "flat", or
+    ``JPEG_TPU_PREP=flat``): K13 ``rows_from_flat`` against
+    ``rows_from_flat_ref`` bit for bit on the flat buffers of the 16-frame
+    ri=4 and ri=7 streams' chunks, of 8-frame chunks damaged
+    (``damage_frame``) and cut (``cut_frame``: segments that end inside a
+    symbol), and on rows that clip at both ends; the flat decode against
+    the rows decode on each (coefficients, lane MCU counts and pixels
+    equal, word routes equal, the ri=4 chunks staged);
+    ``decode_stream_device`` of the 16 ri=4 frames with
+    ``JPEG_TPU_PREP=flat`` (counts set to 0 before it): K13, the segment
+    kernel and the dense tail once a chunk, every chunk counted flat, its
+    pixels equal to rows'; K13's times, bound and share; the upload bytes
+    of a chunk in each mode; ``host_prep_ms[rows]`` / ``[flat]`` and the
+    ri=4 and ri=7 stream rates in each mode, in turns; the measured upload
+    rate, the break-even derived from the bytes and K13's device-only time
+    beside ``ROWS_MIN_UPLOAD_BPS``, and the mode "auto" picks (phases 3-16
+    run "auto": flat on an H100).
 
 Every kernel's time is printed beside its bound (``bound``: the bytes it
 must move at 3.35 TB/s or its operations at the peak rate of their type
@@ -337,6 +357,12 @@ from jpeg_tpu_torch.models.device_decode import (
     DeviceDecoder,
     _dense_from_coeffs,
 )
+try:
+    from jpeg_tpu_torch.models.flat_rows import rows_from_flat
+except ImportError:
+    # A --time-tree worker may import a checkout older than the flat prep.
+    if sys.argv[1:2] != ["--time-tree"]:
+        raise
 from jpeg_tpu_torch.models.dense_exact import (
     color_exact,
     color_exact_ref,
@@ -1518,6 +1544,21 @@ def damage_frame(frame: bytes, every: int) -> bytes:
     return bytes(out)
 
 
+def cut_frame(frame: bytes, every: int) -> bytes:
+    """A JPEG frame with the second half of every ``every``-th restart
+    segment cut out, its marker kept: those lanes run out of bits inside
+    a symbol, where the flat prep's words past the segment are the next
+    segment's."""
+    out, prev = bytearray(), 0
+    for i, (s, e) in enumerate(parse_codestream(frame).scans[0].ecs_ranges):
+        if i % every == 1 and e - s > 2:
+            mid = s + (e - s) // 2
+            mid -= frame[mid - 1] == 0xFF  # keep a stuffed 0xFF 0x00 whole
+            out += frame[prev:mid]
+            prev = e
+    return bytes(out + frame[prev:])
+
+
 def device_entropy_checks(dev: torch.device, bench0: bytes, ri7: bytes,
                           want_pnm: str) -> dict:
     """The single-image device entropy path (``entropy="lockstep-jax"``):
@@ -2574,6 +2615,7 @@ def native_phase(card: str, dev: torch.device, streams: dict) -> None:
     stream = b"".join(frames)
     chunks = [frames[i:i + CHUNK] for i in range(0, STREAM_FRAMES, CHUNK)]
     dec = DeviceDecoder.for_stream(bench[0], dev)
+    dec.prep_mode = "rows"  # zeros past each lane, as the Python prep's
     routes = {}
     for label in ("python", "native"):
         with python_prep() if label == "python" else \
@@ -3080,6 +3122,245 @@ def parallel_phase(card: str, dev: torch.device, streams: dict) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def prep_env(mode: str):
+    """``JPEG_TPU_PREP`` set to ``mode`` while the block runs."""
+    saved = os.environ.get("JPEG_TPU_PREP")
+    os.environ["JPEG_TPU_PREP"] = mode
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("JPEG_TPU_PREP")
+        else:
+            os.environ["JPEG_TPU_PREP"] = saved
+
+
+def flat_inputs(dec: DeviceDecoder, chunk: list, dev: torch.device) -> tuple:
+    """(flat words [blen] int32, starts [S] int32 on ``dev``, lens [S]) of
+    a chunk, from the decoder's flat host prep."""
+    packed = dec._pack_flat(chunk)
+    if packed is None:
+        raise AssertionError("the flat prep refused a chunk")
+    buf, starts, lens, _ = packed
+    return (torch.from_numpy(buf.view(np.int32)).to(dev),
+            torch.from_numpy(starts).to(dev), lens)
+
+
+def flat_read_words(starts: torch.Tensor, wn: int, blen: int) -> int:
+    """Distinct buffer words the rebuild reads: the union of each row's
+    ``[start, start + wn)`` within the buffer (starts ascend)."""
+    st = starts.cpu().numpy().astype(np.int64)
+    if (np.diff(st) < 0).any():
+        raise AssertionError("flat starts do not ascend")
+    ends = np.minimum(st + wn, blen)
+    return int((np.minimum(ends, np.r_[st[1:], blen]) - st).clip(0).sum())
+
+
+def flat_phase(card: str, dev: torch.device, streams: dict,
+               main_launches: int) -> dict:
+    """Phase 17: the flat prep mode and K13 ``rows_from_flat``; -> the
+    kernel's JSON entry, with ``main_launches``, K13's launches in phase
+    5's main-path run ("auto" prep)."""
+    from jpeg_tpu_torch.models import device_decode as dd
+    from jpeg_tpu_torch.models.flat_rows import rows_from_flat_ref
+
+    mark("17")
+    t_phase = time.perf_counter()
+    bench = streams["bench"]
+    frames4 = [bench[i % len(bench)] for i in range(STREAM_FRAMES)]
+    enc7 = DeviceEncoder.for_config(synth.HEIGHT, synth.WIDTH, 3,
+                                    GENERAL_PARAMS, device=dev)
+    frames7 = enc7.encode_batch(bench_pixels(dev), optimize=False,
+                                chunk=CHUNK)
+    cases = {"ri=4": frames4, "ri=7": frames7}
+    damaged = {"ri=4 damaged": [damage_frame(f, 37 + i)
+                                for i, f in enumerate(frames4[:CHUNK])],
+               "ri=7 damaged": [damage_frame(f, 37 + i)
+                                for i, f in enumerate(frames7[:CHUNK])],
+               "ri=4 cut": [cut_frame(f, 5 + i)
+                            for i, f in enumerate(frames4[:CHUNK])],
+               "ri=7 cut": [cut_frame(f, 5 + i)
+                            for i, f in enumerate(frames7[:CHUNK])]}
+
+    # -- K13 against its plain version, bit for bit
+    err, checked = 0, []
+    for label, frames in {**cases, **damaged}.items():
+        dec = DeviceDecoder.for_stream(frames[0], dev)
+        for lo in range(0, len(frames), CHUNK):
+            buf, starts, _ = flat_inputs(dec, frames[lo:lo + CHUNK], dev)
+            got = rows_from_flat(buf, starts, dec.wn)
+            want = rows_from_flat_ref(buf, starts, dec.wn)
+            err = max(err, int((got.long() - want.long()).abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(f"rows_from_flat {label} chunk {lo}: "
+                                     "differs from rows_from_flat_ref")
+            checked.append(f"{label}@{lo} {tuple(got.shape)}")
+    rng = np.random.default_rng(17)  # rows that clip at both ends
+    buf = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, 1000,
+                                        dtype=np.int64).astype(np.int32))
+    starts = np.sort(rng.integers(0, 990, 300)).astype(np.int32)
+    starts[0], starts[-3:] = -7, (995, 999, 1200)
+    buf, starts = buf.to(dev), torch.from_numpy(starts).to(dev)
+    got = rows_from_flat(buf, starts, 48)
+    want = rows_from_flat_ref(buf, starts, 48)
+    err = max(err, int((got.long() - want.long()).abs().max()))
+    if not torch.equal(got, want):
+        raise AssertionError("rows_from_flat: clipped rows differ from "
+                             "rows_from_flat_ref")
+    log(f"kernel-vs-plain rows_from_flat: max abs err {err}, equal bit "
+        f"for bit on {len(checked)} chunks ({', '.join(checked)}) and on rows that "
+        f"clip at both ends")
+
+    # -- flat decode == rows decode on the card
+    routes = {}
+    for label, frames in {**cases, **damaged}.items():
+        outs = {}
+        for mode in ("rows", "flat"):
+            dec = DeviceDecoder.for_stream(frames[0], dev)
+            dec.prep_mode = mode
+            before = dict(place_cuda.ROUTE_LAUNCHES)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)  # damage
+                coeffs = dec.decode_coeffs_batch(frames, chunk=CHUNK)
+                px = dec.decode_batch(frames, chunk=CHUNK)
+            counts = torch.cat([
+                dec.decode_prepared(*dec.prepare(frames[i:i + CHUNK])[:2],
+                                    len(frames[i:i + CHUNK]))[1]
+                for i in range(0, len(frames), CHUNK)])
+            torch.cuda.synchronize()
+            routes[(label, mode)] = {
+                k: v - before[k] for k, v in place_cuda.ROUTE_LAUNCHES.items()}
+            outs[mode] = (coeffs, counts, px)
+        for name, a, b in zip(("coefficients", "MCU counts", "pixels"),
+                              outs["rows"], outs["flat"]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"flat {label}: {name} differ from the "
+                                     "rows decode")
+        if routes[(label, "rows")] != routes[(label, "flat")]:
+            raise AssertionError(f"flat {label}: word routes "
+                                 f"{routes[(label, 'flat')]}, rows "
+                                 f"{routes[(label, 'rows')]}")
+        c = outs["flat"][1]
+        log(f"flat {label}: {len(frames)} frames, coefficients "
+            f"{tuple(outs['flat'][0].shape)}, lane MCU counts (sum "
+            f"{int(c.sum())}) and pixels equal to the rows decode; word "
+            f"routes {routes[(label, 'flat')]}")
+    if routes[("ri=4", "flat")]["staged"] == 0:
+        raise AssertionError("flat ri=4 chunks did not take the staged route")
+
+    # -- the flat main path: counts from 0, one stream decode
+    stream4 = b"".join(frames4)
+    chunks = STREAM_FRAMES // CHUNK
+    default_metrics.counters["device_decode.flat_prep_chunks"] = 0
+    default_metrics.counters["device_decode.rows_prep_chunks"] = 0
+    rows_from_flat.launches = 0
+    decode_segments.launches = coeffs_to_pixels.launches = 0
+    with prep_env("flat"):
+        px_flat = jpeg_tpu_torch.mjpeg.decode_stream_device(stream4, dev,
+                                                            chunk=CHUNK)
+    torch.cuda.synchronize()
+    launches = rows_from_flat.launches
+    got = (launches, decode_segments.launches, coeffs_to_pixels.launches,
+           default_metrics.counters["device_decode.flat_prep_chunks"],
+           default_metrics.counters["device_decode.rows_prep_chunks"])
+    if got != (chunks, chunks, chunks, chunks, 0):
+        raise AssertionError(f"flat stream decode: (rows_from_flat, "
+                             f"decode_segments, coeffs_to_pixels) launches, "
+                             f"(flat, rows) chunks {got}")
+    with prep_env("rows"):
+        px_rows = jpeg_tpu_torch.mjpeg.decode_stream_device(stream4, dev,
+                                                            chunk=CHUNK)
+    if not torch.equal(px_flat, px_rows):
+        raise AssertionError("flat stream decode: pixels differ from rows")
+    log(f"flat: decode_stream_device of {STREAM_FRAMES} ri=4 frames with "
+        f"JPEG_TPU_PREP=flat: launches rows_from_flat {launches}, "
+        f"decode_segments {got[1]}, coeffs_to_pixels {got[2]}, flat chunks "
+        f"{got[3]}; pixels equal to JPEG_TPU_PREP=rows")
+
+    # -- K13's times and bound on the bench chunk
+    dec = DeviceDecoder.for_stream(bench[0], dev)
+    chunk = frames4[:CHUNK]
+    buf, starts, lens = flat_inputs(dec, chunk, dev)
+    S, wn, blen = starts.numel(), dec.wn, buf.numel()
+    k_ms, kd_ms = kernel_ms("rows_from_flat",
+                            lambda: rows_from_flat(buf, starts, wn), 20, card)
+    p_ms = cuda_ms(lambda: rows_from_flat_ref(buf, starts, wn), 5)
+    read = flat_read_words(starts, wn, blen)
+    k_bound = bound(4 * read + 4 * S * wn + nbytes(starts), 0, "int32")
+    log(f"time rows_from_flat_ms={k_ms} device_ms={kd_ms} plain_ms={p_ms} "
+        f"per {CHUNK}-frame 1080p chunk ({S} rows of {wn} words from "
+        f"{blen} buffer words, {read} of them read) [{card}]")
+    log_bound("rows_from_flat", k_ms, k_bound, card, kd_ms)
+
+    # -- upload bytes, host prep and stream rates in each mode, in turns
+    dec.prep_mode = "rows"
+    rows_w, rows_n, _ = dec.prepare(chunk)
+    up = {"rows": nbytes(rows_w, rows_n),
+          "flat": 4 * blen + nbytes(starts) + 4 * S}
+    log(f"flat: upload bytes per {CHUNK}-frame ri=4 chunk: rows {up['rows']}"
+        f" ([{S}, {rows_w.shape[1]}] words + bit counts), flat {up['flat']} "
+        f"({blen} buffer words + starts + bit counts; "
+        f"{int(lens.astype(np.int64).sum())} segment bytes) [{card}]")
+    mpix = STREAM_FRAMES * synth.WIDTH * synth.HEIGHT / 1e6
+    streams_b = {"ri=4": stream4, "ri=7": b"".join(frames7)}
+    preps = {m: [] for m in ("rows", "flat")}
+    rates = {(k, m): [] for k in streams_b for m in ("rows", "flat")}
+    pdec = DeviceDecoder.for_stream(bench[0], dev)
+    for turn in range(E2E_RUNS + 1):  # turn 0 warms up
+        for mode in (("rows", "flat") if turn % 2 else ("flat", "rows")):
+            pdec.prep_mode = mode
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(0, STREAM_FRAMES, CHUNK):
+                pdec.prepare(frames4[i:i + CHUNK])
+            torch.cuda.synchronize()
+            if turn:
+                preps[mode].append((time.perf_counter() - t0) * 1e3)
+            with prep_env(mode):
+                for key, data in streams_b.items():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    jpeg_tpu_torch.mjpeg.decode_stream_device(data, dev,
+                                                              chunk=CHUNK)
+                    torch.cuda.synchronize()
+                    if turn:
+                        rates[(key, mode)].append(
+                            mpix / (time.perf_counter() - t0))
+    for mode in ("rows", "flat"):
+        p = sorted(preps[mode])
+        log(f"time host_prep_ms[{mode}]={p[len(p) // 2]} (median of {len(p)}"
+            f" runs: native {mode} prep and upload of {STREAM_FRAMES} ri=4 "
+            f"frames, host clock; run ms {p}) [{card}]")
+        for key in streams_b:
+            r = sorted(rates[(key, mode)])
+            log(f"time e2e_stream_Mpix_s[{key} {mode}]={r[len(r) // 2]} "
+                f"(median of {len(r)} runs of {STREAM_FRAMES} frames from "
+                f"bytes, host clock; runs {r}) [{card}]")
+
+    # -- the upload rate, the break-even and what "auto" picks
+    rate = dd._measured_upload_rate(dev)
+    even = (up["rows"] - up["flat"]) / (kd_ms / 1e3)
+    even_call = (up["rows"] - up["flat"]) / (k_ms / 1e3)
+    auto = DeviceDecoder.for_stream(bench[0], dev)
+    auto.prepare(chunk)
+    log(f"flat: measured upload rate {rate} B/s "
+        f"(device_decode.upload_Bps "
+        f"{default_metrics.counters['device_decode.upload_Bps']}); "
+        f"break-even {even} B/s ({up['rows'] - up['flat']} more bytes for "
+        f"rows over K13's device-only {kd_ms} ms; {even_call} B/s over "
+        f"its whole call, {k_ms} ms), source constant "
+        f"ROWS_MIN_UPLOAD_BPS {dd.ROWS_MIN_UPLOAD_BPS}; \"auto\" picks "
+        f"{auto.prep_mode} (by the derived break-even: "
+        f"{'rows' if rate >= even else 'flat'}) [{card}]")
+    log(f"time flat_phase_s={time.perf_counter() - t_phase} [{card}]")
+    return {"name": "rows_from_flat", "route": "cuda",
+            "source": "jpeg_tpu_torch/csrc/flat_rows.cu",
+            "replaces": "jpeg_tpu/models/device_decode.py:272",
+            "launches": main_launches, "max_abs_err": err, "ms": k_ms,
+            "device_ms": kd_ms, "plain_ms": p_ms, **k_bound}
+
+
 def digest(out) -> str:
     """sha256 of a tensor or a tuple of tensors, on the host."""
     h = hashlib.sha256()
@@ -3357,17 +3638,30 @@ def main() -> None:
     mark("5")
     stream_frames = [bench[i % len(bench)] for i in range(STREAM_FRAMES)]
     stream = b"".join(stream_frames)
+    chunks = STREAM_FRAMES // CHUNK
     decode_segments.launches = coeffs_to_pixels.launches = 0
+    rows_from_flat.launches = 0
+    for mode in ("rows", "flat"):
+        default_metrics.counters[f"device_decode.{mode}_prep_chunks"] = 0
     px = jpeg_tpu_torch.mjpeg.decode_stream_device(stream, "cuda",
                                                    chunk=CHUNK)
     torch.cuda.synchronize()
     launches = decode_segments.launches
     tail_launches = coeffs_to_pixels.launches
-    if launches <= 0 or tail_launches != STREAM_FRAMES // CHUNK:
+    flat_launches = rows_from_flat.launches
+    preps = {mode: default_metrics.counters[
+        f"device_decode.{mode}_prep_chunks"] for mode in ("rows", "flat")}
+    if launches <= 0 or tail_launches != chunks:
         raise AssertionError(f"main path launched decode_segments "
                              f"{launches} times, coeffs_to_pixels "
-                             f"{tail_launches} (want "
-                             f"{STREAM_FRAMES // CHUNK})")
+                             f"{tail_launches} (want {chunks})")
+    # "auto" prep is flat on the card (the measured upload rate is far
+    # below ROWS_MIN_UPLOAD_BPS): every chunk through K13, once each.
+    if flat_launches != chunks or preps != {"rows": 0, "flat": chunks}:
+        raise AssertionError(f"main path launched rows_from_flat "
+                             f"{flat_launches} times, (rows, flat) prep "
+                             f"chunks {preps} (want {chunks} flat)")
+    prep = "auto=flat"
     want = (STREAM_FRAMES, 1080, 1920, 3)
     if tuple(px.shape) != want or px.dtype != torch.uint8 or not px.is_cuda:
         raise AssertionError(f"stream output {tuple(px.shape)} {px.dtype} "
@@ -3382,7 +3676,9 @@ def main() -> None:
         raise AssertionError(f"frame 0 differs from the CPU decode by {diff}")
     log(f"slice: decode_stream_device {want} uint8 on cuda, "
         f"decode_segments launches {launches}, coeffs_to_pixels launches "
-        f"{tail_launches}, frame 0 vs CPU max diff {diff}")
+        f"{tail_launches}, rows_from_flat launches {flat_launches} "
+        f"({prep} prep, {preps['flat']} flat chunks), frame 0 vs CPU max "
+        f"diff {diff}")
 
     # ---- 6. times ---------------------------------------------------------
     mark("6")
@@ -3396,23 +3692,23 @@ def main() -> None:
         e2e.append(time.perf_counter() - t0)
     runs = sorted(e2e[1:])
     med = runs[len(runs) // 2]
-    log(f"time e2e_stream_Mpix_s={mpix / med} (median of {len(runs)} runs "
-        f"of {STREAM_FRAMES} frames from bytes; run ms "
+    log(f"time e2e_stream_Mpix_s[{prep}]={mpix / med} (median of "
+        f"{len(runs)} runs of {STREAM_FRAMES} frames from bytes; run ms "
         f"{[round(r * 1e3, 3) for r in runs]}) [{card}]")
 
     dec = decs["bench"]
-    prep = []
+    prep_s = []
     for _ in range(E2E_RUNS):
         t0 = time.perf_counter()
         prepared = [dec.prepare(stream_frames[i:i + CHUNK])
                     for i in range(0, STREAM_FRAMES, CHUNK)]
         torch.cuda.synchronize()
-        prep.append(time.perf_counter() - t0)
-    prep = sorted(prep)
-    log(f"time host_prep_ms={prep[len(prep) // 2] * 1e3} (median of "
-        f"{len(prep)} runs: parse, unstuff, pack and upload of "
-        f"{STREAM_FRAMES} frames, host clock; run ms "
-        f"{[round(r * 1e3, 3) for r in prep]}) [{card}]")
+        prep_s.append(time.perf_counter() - t0)
+    prep_s = sorted(prep_s)
+    log(f"time host_prep_ms[{prep}]={prep_s[len(prep_s) // 2] * 1e3} "
+        f"(median of {len(prep_s)} runs: native {dec.prep_mode} prep and "
+        f"upload of {STREAM_FRAMES} frames, host clock; run ms "
+        f"{[round(r * 1e3, 3) for r in prep_s]}) [{card}]")
 
     def resident():
         for words, nbits, qt in prepared:
@@ -3422,7 +3718,7 @@ def main() -> None:
     resident()
     reps = 10
     ms = cuda_ms(resident, reps)
-    log(f"time device_resident_Mpix_s={mpix / (ms / 1e3)} "
+    log(f"time device_resident_Mpix_s[{prep}]={mpix / (ms / 1e3)} "
         f"({ms} ms per {STREAM_FRAMES} frames, mean of {reps}) [{card}]")
 
     words, nbits, qt = prepared[0]
@@ -3458,7 +3754,8 @@ def main() -> None:
     profile_window(
         lambda: jpeg_tpu_torch.mjpeg.decode_stream_device(stream, "cuda",
                                                           chunk=CHUNK),
-        "device_decode.", card, f"{STREAM_FRAMES}-frame stream decode")
+        "device_decode.", card,
+        f"{STREAM_FRAMES}-frame stream decode, {prep} prep")
 
     entries = [{
         "name": "decode_segments",
@@ -3494,6 +3791,7 @@ def main() -> None:
     entries += fast_phase(card, dev, streams)
     native_phase(card, dev, streams)
     sharded = parallel_phase(card, dev, streams)
+    entries.append(flat_phase(card, dev, streams, flat_launches))
     for e in entries:
         e["sharded_launches"] = sharded.get(e["name"], {})
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -95,6 +95,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         "jt_dense_fast_block_floats": [],
         "jt_dense_fast_head_bytes": [],
         "jt_dense_fast_stages": [],
+        "jt_rows_from_flat": [p, p, p, ll, i, i, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

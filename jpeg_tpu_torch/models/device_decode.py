@@ -26,6 +26,8 @@ slice of the planes, then the dense stage runs once.
 
 from __future__ import annotations
 
+import os
+import time
 import warnings
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
@@ -46,7 +48,58 @@ from ..errors import UnsupportedError
 from ..format.parse import parse_codestream, unstuff, unstuff_ranges
 from ..geometry import FrameGeometry
 from ..models.decode_dense import coeffs_to_pixels
+from ..models.flat_rows import rows_from_flat
 from ..utils.metrics import default_metrics, trace
+
+PREP_MODES = ("auto", "rows", "flat")
+_UPLOAD_RATE: dict = {}  # measured host->device B/s by device, once each
+
+
+def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array on ``dev``: a pageable copy to a card, the array
+    itself on the CPU."""
+    return torch.from_numpy(a).to(dev)
+
+
+def _measured_upload_rate(device: torch.device) -> float:
+    """The sustained host->device rate of ``_upload`` in bytes a second,
+    measured once per process and device; "auto" prep picks by it.
+
+    A 4 MB warm-up, then a 32 MB buffer timed to a synchronize (jpeg_tpu's
+    probe, ``jpeg_tpu/models/device_decode.py:50``), recorded in
+    ``device_decode.upload_Bps``.  A failed upload raises.  On the CPU
+    nothing is uploaded (the prep's tensors are its arrays): the rate is
+    infinite, "auto" takes rows, and nothing is recorded."""
+    key = str(device)
+    if key in _UPLOAD_RATE:
+        return _UPLOAD_RATE[key]
+    if device.type == "cpu":
+        _UPLOAD_RATE[key] = float("inf")
+        return _UPLOAD_RATE[key]
+    _upload(np.ones(1 << 20, np.uint32), device)
+    torch.cuda.synchronize(device)
+    buf = np.ones(8 << 20, np.uint32)
+    t0 = time.perf_counter()
+    _upload(buf, device)
+    torch.cuda.synchronize(device)
+    rate = _UPLOAD_RATE[key] = buf.nbytes / (time.perf_counter() - t0)
+    default_metrics.counters["device_decode.upload_Bps"] = int(rate)
+    return rate
+
+
+# "auto" takes rows at or above this measured upload rate, flat below it.
+# It is the break-even of the 8-frame 1080p 4:2:0 q75 ri=4 chunk: the
+# 2,277,632 bytes that rows upload beyond flat's, over the 0.00279 ms that
+# K13 (flat's one extra step) takes on the card, device only, as
+# chip_smoke.py phase 17 derives it on an NVIDIA H100 80GB HBM3 at
+# 700.00 W.  Later runs there derived 6.26e11-6.59e11 B/s (K13 at
+# 0.0035-0.0036 ms); the constant keeps the first reading, since any
+# value in that range picks the same mode.  That card's pageable uploads
+# measured 4.8e9-7.7e9 B/s, so "auto" is flat on it, and so it stays on
+# any PCIe-class link (PCIe 5.0 x16 peaks at 6.4e10 B/s), even against a
+# break-even timed by K13's whole call (0.0228-0.0330 ms: 6.9e10-1.0e11
+# B/s).  jpeg_tpu's 800 MB/s is a TPU figure, not used.
+ROWS_MIN_UPLOAD_BPS = 8.16e11
 
 
 def _dense_from_coeffs(coeffs: torch.Tensor, geom: FrameGeometry,
@@ -81,6 +134,15 @@ class DeviceDecoder:
     header: bytes
     scan_start: int
     wn: int
+    # The native prep's mode, jpeg_tpu's ``prep_mode``: "rows" writes the
+    # zero-padded [S, wn] lane matrix on the host and uploads it; "flat"
+    # packs the segments back to back in one buffer (about the compressed
+    # size), uploads that and rebuilds the matrix on the device
+    # (``rows_from_flat``, K13); "auto" measures the upload rate once
+    # (``_measured_upload_rate``) and becomes "rows" at or above
+    # ``ROWS_MIN_UPLOAD_BPS``, else "flat".  ``JPEG_TPU_PREP`` overrides.
+    prep_mode: str = "auto"
+    flat_blen: int = 0  # sticky flat buffer length in words (only grows)
 
     @staticmethod
     def for_stream(sample_jpeg: bytes, device) -> "DeviceDecoder":
@@ -131,10 +193,13 @@ class DeviceDecoder:
         takes the native prep (``_prepare_native``) when the native
         library is available; every other chunk, and one the native prep
         refuses, the Python prep (``parse_codestream``, ``unstuff_ranges``,
-        ``pack_words``).  The two give equal words over ``pack_words``'
-        width (the native rows may be wider, zeros past it) and equal bit
-        counts and tables; ``device_decode.native_prep_chunks`` and
-        ``device_decode.python_prep_chunks`` count which ran.
+        ``pack_words``).  They give equal bit counts and tables, and equal
+        words over each lane's segment: past it, the Python prep and the
+        native "rows" mode hold zeros, the native "flat" mode the next
+        segment's words (which no decode consumes).
+        ``device_decode.native_prep_chunks`` and ``python_prep_chunks``
+        count which prep ran, ``rows_prep_chunks`` and
+        ``flat_prep_chunks`` the native chunks by mode.
         """
         prepared = self._prepare_native(jpegs)
         if prepared is not None:
@@ -182,24 +247,57 @@ class DeviceDecoder:
         return words_t, nbits_t, qt
 
     def _prepare_native(self, jpegs: Sequence[bytes]):
-        """The native prep: one C++ pass a frame (``jt_prep_ecs``)
-        unstuffs its restart segments into its ``segs_per_frame`` rows of
-        the padded [S, wn] word matrix that ``decode_segments`` reads.
-        Frames that start with the sample frame's header bytes share its
+        """The native prep, in the mode ``prep_mode`` (or
+        ``JPEG_TPU_PREP``) names; "auto" resolves once, by the measured
+        upload rate, and the decoder keeps the mode it picked.  Frames
+        that start with the sample frame's header bytes share its
         geometry, Huffman tables, restart interval and quantization
         tables, so the tables are the cached set, with no upload.
         -> ``prepare``'s triple, or None for the Python prep: the library
         is not available, a frame's header differs (e.g. a DQT that
         changes from frame to frame), or a frame is not ``segs_per_frame``
         segments closed by EOI (malformed, truncated, other markers), so
-        that every bad frame fails one way.  A row that overflows, or
-        keeps less than ``pack_words``' 8 bytes of slack, widens ``wn``
-        and redoes the chunk."""
+        that every bad frame fails one way.  A "rows" chunk the rows
+        refuse (rows that still overflow after their widenings, or a bad
+        frame) goes to the flat prep, as in jpeg_tpu."""
         from .. import native
 
         if not native.available() or \
                 not all(d.startswith(self.header) for d in jpegs):
             return None
+        mode = os.environ.get("JPEG_TPU_PREP", self.prep_mode)
+        if mode not in PREP_MODES:
+            raise ValueError(f"prep mode {mode!r}: one of {PREP_MODES}")
+        if mode == "auto":
+            self.prep_mode = mode = (
+                "rows"
+                if _measured_upload_rate(self.device) >= ROWS_MIN_UPLOAD_BPS
+                else "flat")
+        if mode == "rows":
+            prepared = self._prepare_native_rows(jpegs)
+            if prepared is not None:
+                default_metrics.count("device_decode.rows_prep_chunks")
+                return prepared
+        flat = self._pack_flat(jpegs)
+        if flat is None:
+            return None
+        buf, starts, lens, packed = flat
+        lens *= 8  # bit counts, in place: one upload carries all three
+        S, dev = starts.size, self.device
+        up = _upload(packed, dev)
+        words = rows_from_flat(up[2 * S:], up[:S], self.wn)
+        default_metrics.count("device_decode.flat_prep_chunks")
+        return words, up[S:2 * S], self.qtables.expand(len(jpegs), 4, 64)
+
+    def _prepare_native_rows(self, jpegs: Sequence[bytes]):
+        """The "rows" mode: one C++ pass a frame (``jt_prep_ecs``)
+        unstuffs its restart segments into its ``segs_per_frame`` rows of
+        the zero-padded [S, wn] word matrix that ``decode_segments``
+        reads, and the matrix is uploaded.  A row that overflows, or
+        keeps less than ``pack_words``' 8 bytes of slack, widens ``wn``
+        and redoes the chunk.  -> ``prepare``'s triple, or None."""
+        from .. import native
+
         spf, frames = self.segs_per_frame, len(jpegs)
         for _ in range(4):
             rows = np.zeros((frames * spf, self.wn), np.uint32)
@@ -214,8 +312,8 @@ class DeviceDecoder:
                 need = _row_words(int(lens.max(initial=0)))
                 if need <= self.wn:
                     dev = self.device
-                    return (torch.from_numpy(rows.view(np.int32)).to(dev),
-                            torch.from_numpy(lens * 8).to(dev),
+                    return (_upload(rows.view(np.int32), dev),
+                            _upload(lens * 8, dev),
                             self.qtables.expand(frames, 4, 64))
                 self.wn = need
                 continue
@@ -223,6 +321,49 @@ class DeviceDecoder:
                 return None
             self.wn = self.wn * 3 // 2 // 16 * 16 + 16
         return None
+
+    def _pack_flat(self, jpegs: Sequence[bytes]):
+        """The "flat" mode's host half (jpeg_tpu's, :406-439): one C++
+        pass a frame (``jt_prep_ecs_flat``) packs its restart segments
+        back to back at word offsets of one u32 buffer.  ``wn`` grows to
+        hold the longest segment and a lookahead word (a multiple of 16);
+        the buffer is rounded up to 65,536 words with at least ``wn + 1``
+        words of zeros past the last segment, and its length only grows
+        (``flat_blen``).  -> (buf [blen] u32, starts [S] int32 word
+        offsets, lens [S] int32 bytes, packed), the first three views of
+        ``packed`` [2 S + blen] int32 = starts, lens, buf; or None for
+        the Python prep."""
+        from .. import native
+
+        spf, frames = self.segs_per_frame, len(jpegs)
+        S = frames * spf
+        cap = sum(len(d) for d in jpegs) // 4 + frames * (spf + 16)
+        # Room for the rounded length: no segment is longer than its frame,
+        # so wn cannot grow past ``widest``.
+        widest = max(self.wn, (max(map(len, jpegs), default=0) + 3) // 4 + 17)
+        room = max((cap + widest + 1 + 65535) // 65536 * 65536,
+                   self.flat_blen)
+        packed = np.zeros(2 * S + room, np.int32)
+        starts, lens = packed[:S], packed[S:2 * S]
+        buf = packed[2 * S:].view(np.uint32)
+        base = 0
+        for f, data in enumerate(jpegs):
+            lane = slice(f * spf, (f + 1) * spf)
+            rc, used = native.prep_ecs_flat_native(
+                data, self.scan_start, buf[:cap], base, starts[lane],
+                lens[lane])
+            if rc != spf:
+                return None
+            starts[lane] += base  # the C++ gives frame-relative offsets
+            base += used
+        need = (int(lens.max(initial=0)) + 3) // 4 + 2
+        if need > self.wn:
+            self.wn = (need + 15) // 16 * 16
+        blen = max((base + self.wn + 1 + 65535) // 65536 * 65536,
+                   self.flat_blen)
+        self.flat_blen = blen
+        packed = packed[:2 * S + blen]
+        return packed[2 * S:].view(np.uint32), starts, lens, packed
 
     def decode_prepared(self, words: torch.Tensor, nbits: torch.Tensor,
                         frames: int, place_ri: Optional[int] = None

@@ -285,11 +285,12 @@ def kernel_wrappers() -> dict:
     from ..models.dense_exact import color_exact, fdct_exact, idct_exact
     from ..models.dense_fast import decode_frame_fast, encode_frame_fast
     from ..models.encode_dense import pixels_to_zz
+    from ..models.flat_rows import rows_from_flat
 
     return {f.__name__: f for f in (
         decode_segments, decode_segments_general, coeffs_to_pixels,
         pixels_to_zz, encode_scan, block_histogram, idct_exact, fdct_exact,
-        color_exact, decode_frame_fast, encode_frame_fast)}
+        color_exact, decode_frame_fast, encode_frame_fast, rows_from_flat)}
 
 
 def _digest(t: torch.Tensor) -> str:
