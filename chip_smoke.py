@@ -231,7 +231,30 @@ process exits non-zero without printing the result line:
     ri=4 and ri=7 stream rates in each mode, in turns; the measured upload
     rate, the break-even derived from the bytes and K13's device-only time
     beside ``ROWS_MIN_UPLOAD_BPS``, and the mode "auto" picks (phases 3-16
-    run "auto": flat on an H100).
+    run "auto": flat on an H100; its rows batches run frame-major,
+    ``JPEG_TPU_PHASED=0``, and its counts come from ``prepare``'s
+    frame-major rows of a kept, learned decoder);
+18. the learned lane order (jpeg_tpu's phased scan): on the 8-frame ri=7
+    1080p chunk in the order its learning batch gives it, K2
+    ``decode_segments_general`` with ``perm`` and ``want_nsteps`` against
+    its plain version, integer for integer (coefficients, frame-major MCU
+    counts, steps) on both word routes, intact, damaged and damaged under
+    hostile tables, and without ``perm`` on the frame-major chunk (equal
+    to the sorted decode); the count walk's layout with ``perm`` against
+    the plain scan's, intact and damaged; a kept ``DeviceDecoder`` in
+    "rows" prep decodes the 16-frame ri=7 stream twice: the first batch
+    learns, the second (counts set to 0 before it) runs 2 "mats" chunks,
+    K2 with a lane order twice (``lane_order_launches``, the kernels
+    line's launches), no ``phase_inflate``, pixels equal to the first's,
+    and a third decode gives the encoder's blocks; the same on the ri=4
+    bench stream under ``JPEG_TPU_PLACE=scatter``; times in turns of K2
+    sorted and frame-major (a call and device-only) and of the count walk
+    with its layouts, K2's bound, the plain version's time, the two
+    streams' rates and the ri=7 host prep in each order (a kept decoder,
+    ``JPEG_TPU_PHASED=0`` for frame-major); what a misprediction costs
+    (bounds of 8 steps: both chunks redone frame-major, pixels equal to
+    the sorted batch's), timed against the sorted batch in turns; and
+    each order's profile.
 
 Every kernel's time is printed beside its bound (``bound``: the bytes it
 must move at 3.35 TB/s or its operations at the peak rate of their type
@@ -3212,7 +3235,9 @@ def flat_phase(card: str, dev: torch.device, streams: dict,
         f"for bit on {len(checked)} chunks ({', '.join(checked)}) and on rows that "
         f"clip at both ends")
 
-    # -- flat decode == rows decode on the card
+    # -- flat decode == rows decode on the card (the batches' rows
+    # frame-major: a kept decoder's second batch would take the learned
+    # lane order, phase 18; ``prepare`` is frame-major unless asked)
     routes = {}
     for label, frames in {**cases, **damaged}.items():
         outs = {}
@@ -3220,7 +3245,7 @@ def flat_phase(card: str, dev: torch.device, streams: dict,
             dec = DeviceDecoder.for_stream(frames[0], dev)
             dec.prep_mode = mode
             before = dict(place_cuda.ROUTE_LAUNCHES)
-            with warnings.catch_warnings():
+            with warnings.catch_warnings(), env_vars(JPEG_TPU_PHASED="0"):
                 warnings.simplefilter("ignore", RuntimeWarning)  # damage
                 coeffs = dec.decode_coeffs_batch(frames, chunk=CHUNK)
                 px = dec.decode_batch(frames, chunk=CHUNK)
@@ -3359,6 +3384,329 @@ def flat_phase(card: str, dev: torch.device, streams: dict,
             "replaces": "jpeg_tpu/models/device_decode.py:272",
             "launches": main_launches, "max_abs_err": err, "ms": k_ms,
             "device_ms": kd_ms, "plain_ms": p_ms, **k_bound}
+
+
+@contextlib.contextmanager
+def env_vars(**values):
+    """Environment variables set while the block runs (None: unset)."""
+    saved = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def lane_order_case(label: str, plan: ScanPlan, words: torch.Tensor,
+                    nbits: torch.Tensor, perm, frames: int, spf: int,
+                    tb: int) -> tuple:
+    """K2 with the lane order ``perm`` (or none) and its steps against its
+    plain version on the same card inputs, on both word routes: the
+    coefficients, frame-major MCU counts and steps integer for integer.
+    -> (max |diff|, the plain version's (coeffs, counts, nsteps))."""
+    args = (plan, words, nbits, frames, spf, tb)
+    ref = decode_segments_general_ref(*args, perm=perm, want_nsteps=True)
+    err = 0
+    for budget in (place_cuda.STAGE_BYTES, 0):
+        saved, place_cuda.STAGE_BYTES = place_cuda.STAGE_BYTES, budget
+        try:
+            got = decode_segments_general(*args, perm=perm, want_nsteps=True)
+        finally:
+            place_cuda.STAGE_BYTES = saved
+        torch.cuda.synchronize()
+        err = max(err, max_err(got, ref))
+        for name, a, b in zip(("coefficients", "MCU counts", "steps"), got,
+                              ref):
+            if a.dtype != torch.int32 or not torch.equal(a, b):
+                raise AssertionError(
+                    f"lane order {label}: decode_segments_general's {name} "
+                    f"(stage budget {budget} bytes) differ from the plain "
+                    f"version's (max |diff| {max_err([a], [b])})")
+    return err, ref
+
+
+def phased_phase(card: str, dev: torch.device, streams: dict) -> dict:
+    """Phase 18: jpeg_tpu's learned lane order on the card (a kept
+    ``DeviceDecoder`` in "rows" prep, K2 ``decode_segments_general`` with
+    a ``perm``); -> the lane-order kernel's JSON entry, its launches those
+    of the ri=7 stream's sorted batch."""
+    mark("18")
+    t_phase = time.perf_counter()
+    bench = streams["bench"]
+    frames4 = [bench[i % len(bench)] for i in range(STREAM_FRAMES)]
+    enc7 = DeviceEncoder.for_config(synth.HEIGHT, synth.WIDTH, 3,
+                                    GENERAL_PARAMS, device=dev)
+    px7 = bench_pixels(dev)
+    frames7 = enc7.encode_batch(px7, optimize=False, chunk=CHUNK)
+    rows_env = dict(JPEG_TPU_PREP="rows", JPEG_TPU_PHASED=None)
+
+    # -- K2 with a lane order against its plain version, on the 8-frame
+    # ri=7 chunk in the order its learning batch gives it
+    chunk = frames7[:CHUNK]
+    with env_vars(**rows_env, JPEG_TPU_PLACE=None):
+        dec = DeviceDecoder.for_stream(chunk[0], dev)
+        dec.decode_coeffs_batch(chunk, chunk=CHUNK)  # the learning batch
+        prepared = dec.prepare(chunk, lane_order=True)
+        frame_major = dec.prepare(chunk)
+    if dec.lane_steps is None or prepared.kind != "mats" or \
+            frame_major.kind != "mat":
+        raise AssertionError(f"ri=7 chunk: prep kinds {prepared.kind}, "
+                             f"{frame_major.kind} after a learning batch")
+    words, nbits, _ = prepared
+    perm = prepared.perm
+    spf, tb = dec.segs_per_frame, dec.total_blocks
+    bad_w, bad_n = damage(words, nbits, 18)
+    err, refs = 0, {}
+    for label, plan, w, n, p in (
+            ("sorted intact", dec.plan, words, nbits, perm),
+            ("sorted damaged", dec.plan, bad_w, bad_n, perm),
+            ("sorted damaged, hostile tables", hostile_plan(chunk[0]), bad_w,
+             bad_n, perm),
+            ("frame-major intact", dec.plan, *frame_major[:2], None)):
+        e, refs[label] = lane_order_case(label, plan, w, n, p, CHUNK, spf, tb)
+        err = max(err, e)
+        short = refs[label][1].cpu() - lane_mcus(dec, CHUNK)
+        if ("intact" in label) == bool((short != 0).any()):
+            raise AssertionError(f"lane order {label}: lanes short of their "
+                                 f"MCUs: {int((short < 0).sum())}")
+        log(f"kernel-vs-plain decode_segments_general {label} ri=7 chunk "
+            f"x{CHUNK}: {words.shape[0]} lanes ({int((short < 0).sum())} "
+            f"died short of their MCUs), coefficients, frame-major MCU "
+            f"counts and steps equal on both word routes (longest lane "
+            f"{int(refs[label][2].max())} steps)")
+    for a, b in zip(refs["sorted intact"], refs["frame-major intact"]):
+        if not torch.equal(a, b):
+            raise AssertionError("ri=7 chunk: the sorted decode differs from "
+                                 "the frame-major one")
+    # The count walk's layout with the lane order (its per-frame tickets
+    # from a warp's lanes of one frame at a time), against the plain scan.
+    for tag, (w, n) in (("intact", (words, nbits)),
+                        ("damaged", (bad_w, bad_n))):
+        got = place_cuda._general_layout(dec.plan, w, n, CHUNK, spf, tb, perm)
+        counts, key, _, _ = scan_lanes(dec.plan, w, n)
+        partial = place_cuda._to_frame_major(
+            place_cuda.partial_lanes(counts, key), perm)
+        counts = place_cuda._to_frame_major(counts, perm)
+        want = (counts, partial, *place_cuda.lane_layout(counts, CHUNK, spf),
+                place_cuda.contested_rows(counts, partial, CHUNK, spf,
+                                          dec.plan.n_mcus))
+        torch.cuda.synchronize()
+        for name, a, b in zip(("counts", "partial", "lane_off",
+                               "lane_first", "contested"), got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"lane order {tag}: the count walk's "
+                                     f"{name} differs from the plain scan's")
+        log(f"lane order {tag}: the count walk's counts, partial flags and "
+            f"layout equal to the plain scan's ({int(want[4].sum())} "
+            "contested MCUs)")
+
+    # -- a kept decoder: its first batch learns, its second runs sorted
+    def kept(label: str, frames: list, place) -> tuple:
+        with env_vars(**rows_env, JPEG_TPU_PLACE=place):
+            d = DeviceDecoder.for_stream(frames[0], dev)
+            if d.place_ri:
+                raise AssertionError(f"{label}: takes the region kernel")
+            first = d.decode_batch(frames, chunk=CHUNK)
+            torch.cuda.synchronize()
+            if d.lane_steps is None:
+                raise AssertionError(f"{label}: the first batch learned "
+                                     "nothing")
+            keys = ("mats_chunks", "learn_chunks", "phase_inflate")
+            for k in keys:
+                default_metrics.counters[f"device_decode.{k}"] = 0
+            decode_segments_general.launches = 0
+            decode_segments_general.lane_order_launches = 0
+            decode_segments.launches = coeffs_to_pixels.launches = 0
+            second = d.decode_batch(frames, chunk=CHUNK)
+            torch.cuda.synchronize()
+            got = {k: default_metrics.counters[f"device_decode.{k}"]
+                   for k in keys}
+            got.update(k2=decode_segments_general.launches,
+                       k2_lane_order=decode_segments_general.lane_order_launches,
+                       k1=decode_segments.launches,
+                       k3=coeffs_to_pixels.launches)
+        chunks = -(-len(frames) // CHUNK)
+        want = {"mats_chunks": chunks, "learn_chunks": 0, "phase_inflate": 0,
+                "k2": chunks, "k2_lane_order": chunks, "k1": 0, "k3": chunks}
+        if got != want:
+            raise AssertionError(f"{label}: second batch {got}, want {want}")
+        if not torch.equal(first, second):
+            raise AssertionError(f"{label}: the sorted batch's pixels differ "
+                                 "from the learning batch's")
+        log(f"phased {label}: a kept DeviceDecoder (rows prep), first batch "
+            f"learned {d.segs_per_frame} segment bounds (max_steps "
+            f"{d.max_steps}, longest prediction {int(d.lane_steps.max())}), "
+            f"second batch {got}: pixels equal to the first's")
+        return d, got["k2_lane_order"]
+
+    dec7, launches = kept(f"ri=7 x{STREAM_FRAMES}", frames7, None)
+    with env_vars(**rows_env):
+        coeffs = dec7.decode_coeffs_batch(frames7, chunk=CHUNK)
+    blocks = torch.cat([enc7.dense(px7[i:i + CHUNK])
+                        for i in range(0, STREAM_FRAMES, CHUNK)])
+    prev = torch.from_numpy(enc7.prev_idx).to(dev)
+    if not torch.equal(raster_to_zz(coeffs, prev), blocks):
+        raise AssertionError("ri=7 sorted decode: blocks differ from the "
+                             "encoder's")
+    log("phased ri=7: a third, sorted decode_coeffs_batch gives the "
+        "encoder's blocks")
+    dec4, launches4 = kept(f"ri=4 JPEG_TPU_PLACE=scatter x{STREAM_FRAMES}",
+                           frames4, "scatter")
+
+    # -- times: K2 sorted against frame-major on the same chunk, in turns
+    fm_args = (dec.plan, *frame_major[:2], CHUNK, spf, tb)
+    so_args = (dec.plan, words, nbits, CHUNK, spf, tb)
+    runs = {"frame-major": lambda: decode_segments_general(*fm_args),
+            "sorted": lambda: decode_segments_general(
+                *so_args, perm=perm, want_nsteps=True)}
+    walks = {"frame-major": lambda: place_cuda._general_layout(*fm_args),
+             "sorted": lambda: place_cuda._general_layout(*so_args,
+                                                          perm=perm)}
+    times = {k: [] for k in runs}
+    walk_times = {k: [] for k in runs}
+    for order in ("frame-major", "sorted", "sorted", "frame-major"):
+        times[order].append(kernel_ms(f"decode_segments_general {order}",
+                                      runs[order], 20, card))
+        walk_times[order].append(kernel_ms(f"count walk {order}",
+                                           walks[order], 20, card))
+    for order in runs:
+        ms = [t[0] for t in times[order]]
+        dms = [t[1] for t in times[order]]
+        wdms = [t[1] for t in walk_times[order]]
+        log(f"time decode_segments_general_ms[{order}]={ms} device_ms={dms} "
+            f"count walk with its layouts device_ms={wdms} (share of the "
+            f"call's device time {[w / d for w, d in zip(wdms, dms)]}) per "
+            f"{CHUNK}-frame ri=7 1080p chunk, in turns [{card}]")
+    k_ms = float(np.mean([t[0] for t in times["sorted"]]))
+    kd_ms = float(np.mean([t[1] for t in times["sorted"]]))
+    p_ms = cuda_ms(lambda: decode_segments_general_ref(
+        *so_args, perm=perm, want_nsteps=True), 2)
+    out = decode_segments_general(*so_args, perm=perm, want_nsteps=True)
+    nb64 = nbits.to(torch.int64)
+    b = bound(int(((nb64 + 7) // 8).sum()) + nbytes(nbits, perm, *out)
+              + 4 * place_cuda._staged_ints(dec.plan), int(nb64.sum()),
+              "int32")
+    log(f"time decode_segments_general_lane_order_ms={k_ms} device_ms={kd_ms}"
+        f" plain_ms={p_ms} (plain: the eager scan and placement with the "
+        f"lane order) [{card}]")
+    log_bound("decode_segments_general (lane order)", k_ms, b, card, kd_ms)
+
+    # -- stream rates, kept decoders, frame-major (JPEG_TPU_PHASED=0) and
+    # sorted in turns
+    mpix = STREAM_FRAMES * synth.WIDTH * synth.HEIGHT / 1e6
+    rates = {(k, o): [] for k in ("ri=7", "ri=4 scatter")
+             for o in ("frame-major", "sorted")}
+    for turn in range(E2E_RUNS + 1):  # turn 0 warms up
+        for order in (("frame-major", "sorted") if turn % 2
+                      else ("sorted", "frame-major")):
+            phased = "0" if order == "frame-major" else None
+            for key, d, frames in (("ri=7", dec7, frames7),
+                                   ("ri=4 scatter", dec4, frames4)):
+                with env_vars(JPEG_TPU_PREP="rows", JPEG_TPU_PHASED=phased):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    d.decode_batch(frames, chunk=CHUNK)
+                    torch.cuda.synchronize()
+                if turn:
+                    rates[(key, order)].append(
+                        mpix / (time.perf_counter() - t0))
+    for (key, order), r in rates.items():
+        r = sorted(r)
+        log(f"time e2e_stream_Mpix_s[{key} rows {order}]={r[len(r) // 2]} "
+            f"(median of {len(r)} runs of {STREAM_FRAMES} frames from bytes, "
+            f"a kept decoder, host clock; runs {r}) [{card}]")
+    # Where a sorted stream's time goes against a frame-major one: the
+    # host prep alone, in turns, and each order's spans and card busy
+    # share under the profiler.
+    preps = {o: [] for o in ("frame-major", "sorted")}
+    for turn in range(E2E_RUNS + 1):
+        for order in (("frame-major", "sorted") if turn % 2
+                      else ("sorted", "frame-major")):
+            phased = "0" if order == "frame-major" else None
+            with env_vars(JPEG_TPU_PREP="rows", JPEG_TPU_PHASED=phased):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(0, STREAM_FRAMES, CHUNK):
+                    dec7.prepare(frames7[i:i + CHUNK], lane_order=True)
+                torch.cuda.synchronize()
+            if turn:
+                preps[order].append((time.perf_counter() - t0) * 1e3)
+    for order, p in preps.items():
+        p = sorted(p)
+        log(f"time host_prep_ms[ri=7 rows {order}]={p[len(p) // 2]} (median "
+            f"of {len(p)} runs: prep and upload of {STREAM_FRAMES} frames, "
+            f"host clock; run ms {p}) [{card}]")
+    redo_phase(card, dec7, frames7)
+    for order in ("frame-major", "sorted"):
+        phased = "0" if order == "frame-major" else None
+        with env_vars(JPEG_TPU_PREP="rows", JPEG_TPU_PHASED=phased):
+            profile_window(lambda: dec7.decode_batch(frames7, chunk=CHUNK),
+                           "device_decode.", card,
+                           f"{STREAM_FRAMES}-frame ri=7 decode, a kept "
+                           f"decoder, rows {order}")
+    log(f"phased: lane-order launches ri=7 {launches}, ri=4 scatter "
+        f"{launches4}")
+    log(f"time phased_phase_s={time.perf_counter() - t_phase} [{card}]")
+    return {"name": "decode_segments_general (lane order)", "route": "cuda",
+            "source": "jpeg_tpu_torch/csrc/decode_segments.cu",
+            "replaces": "jpeg_tpu/entropy/lockstep_jax.py:499",
+            "launches": launches, "max_abs_err": err, "ms": k_ms,
+            "device_ms": kd_ms, "plain_ms": p_ms, **b}
+
+
+def redo_phase(card: str, dec, frames: list) -> None:
+    """What a misprediction costs a kept, learned decoder: bounds of 8
+    steps a segment (jpeg_tpu's own test of it) starve every "mats"
+    chunk, which is then redone frame-major, learning again (the redo
+    that keeps jpeg_tpu's result on damaged chunks).  Timed against the
+    sorted batch, in turns, host clock; the learned state is put back
+    after each run.  Fails unless every chunk of a mispredicted batch,
+    and none of a sorted one, is redone, and unless both give the same
+    pixels."""
+    chunks = -(-len(frames) // CHUNK)
+    with env_vars(JPEG_TPU_PREP="rows", JPEG_TPU_PHASED=None):
+        ref = dec.decode_batch(frames, chunk=CHUNK)
+    keep = (dec.lane_steps, dec.sort_order, dec.max_steps)
+    ms = {"sorted": [], "mispredicted": []}
+    for turn in range(E2E_RUNS + 1):  # turn 0 warms up
+        for order in (("sorted", "mispredicted") if turn % 2
+                      else ("mispredicted", "sorted")):
+            if order == "mispredicted":
+                dec.lane_steps = np.full(dec.segs_per_frame, 8, np.int64)
+                dec.sort_order = np.arange(dec.segs_per_frame)
+            default_metrics.counters["device_decode.phase_inflate"] = 0
+            with env_vars(JPEG_TPU_PREP="rows", JPEG_TPU_PHASED=None):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                px = dec.decode_batch(frames, chunk=CHUNK)
+                torch.cuda.synchronize()
+                dt = (time.perf_counter() - t0) * 1e3
+            redone = default_metrics.counters["device_decode.phase_inflate"]
+            dec.lane_steps, dec.sort_order, dec.max_steps = keep
+            want = chunks if order == "mispredicted" else 0
+            if redone != want:
+                raise AssertionError(f"redo: {order} batch redid {redone} "
+                                     f"chunks, want {want}")
+            if not torch.equal(px, ref):
+                raise AssertionError(f"redo: the {order} batch's pixels "
+                                     "differ from the sorted batch's")
+            if turn:
+                ms[order].append(dt)
+    med = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+    log(f"time redo_batch_ms[ri=7 rows sorted]={med['sorted']} "
+        f"[mispredicted, {chunks} chunks redone]={med['mispredicted']} "
+        f"(medians of {E2E_RUNS} runs of {len(frames)} frames from bytes, "
+        f"a kept decoder, host clock; redo cost "
+        f"{med['mispredicted'] - med['sorted']} ms a batch; runs {ms}) "
+        f"[{card}]")
 
 
 def digest(out) -> str:
@@ -3792,6 +4140,7 @@ def main() -> None:
     native_phase(card, dev, streams)
     sharded = parallel_phase(card, dev, streams)
     entries.append(flat_phase(card, dev, streams, flat_launches))
+    entries.append(phased_phase(card, dev, streams))
     for e in entries:
         e["sharded_launches"] = sharded.get(e["name"], {})
     log(f"total {time.perf_counter() - t_start:.1f} s")

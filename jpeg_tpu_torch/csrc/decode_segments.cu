@@ -104,6 +104,28 @@
 //     (one CTA a frame over a few KB) cost more in launch and wrapper
 //     than in work, so the CTA that finishes a frame's last lanes lays
 //     the frame out while the other CTAs still decode.
+//
+// A lane order (the general walks; jpeg_tpu's phased scan,
+// lockstep_jax.py:499 _scan_lanes_phased with _place_emissions(perm=...),
+// behind models/device_decode.py:236 _decode_device_phased).  jpeg_tpu
+// learns each segment's symbol count from a first batch and writes later
+// batches' rows sorted by it, longest first, so that each lockstep phase
+// continues only the lanes still alive and the scatter's attempts track
+// the symbols decoded.  Here no lane waits on a step bound, but a warp of
+// WARP_LANES threads steps at the pace of its longest lane, and the
+// sorted order puts lanes of like length in one warp.  With `perm` (sorted
+// row -> frame-major lane), thread t decodes row t of the sorted words and
+// bit counts (the CTA's staged slab stays a contiguous block of rows), but
+// takes its frame and segment from perm[t], reads and writes every
+// per-lane array (counts, partial, lane_off, lane_first, nsteps) at
+// perm[t], so frame_layout works on frame-major arrays as before, and puts
+// the sorted index t in its owner keys, so that a contested coefficient
+// goes to the emission latest in (step, sorted lane) order, as jpeg_tpu's
+// phase-by-phase scatter leaves it.  A CTA's rows then span many frames:
+// its lanes add to their frames' tickets a warp's peers of one frame at a
+// time.  With `perm` null every walk does what it did before.  `nsteps`
+// (count walk, nullable) receives each lane's steps begun alive, the
+// lockstep scan's counter that jpeg_tpu's learning pass reads.
 
 #include <atomic>
 #include <cstdint>
@@ -176,6 +198,8 @@ struct General {
   unsigned long long* bkey;  // [frames, spf + 1, bpm, 64] owner keys
   unsigned int* tickets;     // [frames] count walk: lanes stored so far, 0
                              // between calls
+  const int32_t* perm;       // [S] sorted row -> frame-major lane, or null
+  int32_t* nsteps;           // [S] count walk: steps begun alive, or null
 };
 
 // Kernel launches of this file since the library loaded (a host count).
@@ -353,19 +377,22 @@ decode_segments_kernel(const int32_t* __restrict__ tables,
   const int li = threadIdx.x & 31;
   const int idx = (threadIdx.x >> 5) * WARP_LANES + li;  // lane in the CTA
   const int base = blockIdx.x * CTA_LANES;
-  const int lane = base + idx;
+  const int lane = base + idx;  // the row of words and bit counts
   const bool mine = li < WARP_LANES && lane < p.S;
-  const int frame = lane / p.spf;
-  const int k = lane - frame * p.spf;
+  // The lane's frame-major index: its frame and segment, and where its
+  // per-lane inputs and outputs live.
+  const int fl = g.perm != nullptr && mine ? g.perm[lane] : lane;
+  const int frame = fl / p.spf;
+  const int k = fl - frame * p.spf;
   int count = 0, off = 0, first = 0;
   bool c_first = false, c_end = false;  // contested first / partial MCU
   if ((MODE == MODE_PLACE || MODE == MODE_RESOLVE) && mine) {
-    count = g.counts[lane];
-    off = g.lane_off[lane];
-    first = g.lane_first[lane];
+    count = g.counts[fl];
+    off = g.lane_off[fl];
+    first = g.lane_first[fl];
     const int64_t frow = static_cast<int64_t>(frame) * (p.spf + 1);
     c_first = g.contested[frow + first] != 0;
-    c_end = g.partial[lane] != 0 &&
+    c_end = g.partial[fl] != 0 &&
             g.contested[frow + (count == 0 ? first : k + 1)] != 0;
   }
   if (MODE == MODE_RESOLVE) {
@@ -608,9 +635,11 @@ decode_segments_kernel(const int32_t* __restrict__ tables,
     }
     if (TILES)  // the tiles stay allocated until copied out
       asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-    if (MODE == MODE_REGION || MODE == MODE_COUNT) mcu_counts[lane] = mcu;
+    if (MODE == MODE_REGION || MODE == MODE_COUNT) mcu_counts[fl] = mcu;
     if (MODE == MODE_COUNT) {
-      g.partial[lane] = wrote ? 1 : 0;
+      g.partial[fl] = wrote ? 1 : 0;
+      // The walk left the loop at its fatal step, which it began alive.
+      if (g.nsteps != nullptr) g.nsteps[fl] = nb > 0 ? step + 1 : 0;
       if (wrote && mcu > 0)  // it ends in row k + 1 of its frame
         sm.cand[atomicAdd(&sm.n_cand, 1)] =
             static_cast<int64_t>(frame) * (p.spf + 1) + k + 1;
@@ -623,22 +652,35 @@ decode_segments_kernel(const int32_t* __restrict__ tables,
   // CTA's lanes of each frame it holds to the frame's ticket (each
   // thread's stores fenced before); the CTA that brings a ticket to spf
   // holds the frame's last stores, lays the frame out and resets the
-  // ticket.
+  // ticket.  Frame-major rows give a CTA a contiguous range of frames,
+  // one add a frame; sorted rows may hold a lane of every frame, so the
+  // lanes of one frame in a warp add together, by their lowest lane.
   __threadfence();
   __syncthreads();
   zero_key_rows(g.bkey, sm.cand, sm.n_cand, 0, p.bpm * 64, threadIdx.x,
                 THREADS);
   if (threadIdx.x == 0) sm.n_done = 0;
   __syncthreads();
-  const int rows = min(CTA_LANES, p.S - base);
-  const int f = base / p.spf + static_cast<int>(threadIdx.x);
-  if (f <= (base + rows - 1) / p.spf) {
-    const int lo = max(base, f * p.spf);
-    const int hi = min(base + rows, (f + 1) * p.spf);
-    const unsigned add = static_cast<unsigned>(hi - lo);
+  auto add_ticket = [&](int f, unsigned add) {
     if (atomicAdd(g.tickets + f, add) + add == static_cast<unsigned>(p.spf)) {
       g.tickets[f] = 0u;  // every other CTA of the frame has added
       sm.done[atomicAdd(&sm.n_done, 1)] = f;
+    }
+  };
+  if (g.perm == nullptr) {
+    const int rows = min(CTA_LANES, p.S - base);
+    const int f = base / p.spf + static_cast<int>(threadIdx.x);
+    if (f <= (base + rows - 1) / p.spf) {
+      const int lo = max(base, f * p.spf);
+      const int hi = min(base + rows, (f + 1) * p.spf);
+      add_ticket(f, static_cast<unsigned>(hi - lo));
+    }
+  } else {
+    const unsigned walkers = __ballot_sync(0xffffffffu, mine);
+    if (mine) {
+      const unsigned peers = __match_any_sync(walkers, frame);
+      if (__ffs(peers) - 1 == li)
+        add_ticket(frame, static_cast<unsigned>(__popc(peers)));
     }
   }
   __syncthreads();
@@ -716,13 +758,16 @@ extern "C" long long jt_decode_segments_launches() { return g_launches; }
 // General shapes, pass 1: per-lane MCU counts and partial flags, then each
 // frame's layout (lane_off, lane_first, the contested rows, their owner
 // keys in bkey zeroed) in the same launch.  `tickets` holds `frames`
-// zeros, and holds zeros again when the launch ends.
+// zeros, and holds zeros again when the launch ends.  `perm` (nullable) is
+// the rows' lane order, `nsteps` (nullable) receives each lane's steps;
+// every per-lane output is frame-major.
 extern "C" int jt_decode_segments_count(
     const void* tables, const void* words, const void* nbits,
     void* mcu_counts, void* partial, void* lane_off, void* lane_first,
-    void* contested, void* bkey, void* tickets, int S, int wn, int spf,
-    int bpm, int n_mcus, int interleaved, int m_x, int vpad, int tab_ints,
-    int staged, void* stream) {
+    void* contested, void* bkey, void* tickets, const void* perm,
+    void* nsteps, int S, int wn, int spf, int bpm, int n_mcus,
+    int interleaved, int m_x, int vpad, int tab_ints, int staged,
+    void* stream) {
   if (spf <= 0 || S % spf) return static_cast<int>(cudaErrorInvalidValue);
   const Params p{S,      wn,          spf, 0,    0,       bpm,
                  n_mcus, interleaved, m_x, vpad, tab_ints};
@@ -733,20 +778,22 @@ extern "C" int jt_decode_segments_count(
   g.contested = static_cast<int32_t*>(contested);
   g.bkey = static_cast<unsigned long long*>(bkey);
   g.tickets = static_cast<unsigned int*>(tickets);
+  g.perm = static_cast<const int32_t*>(perm);
+  g.nsteps = static_cast<int32_t*>(nsteps);
   return launch<MODE_COUNT>(tables, words, nbits, nullptr, mcu_counts, p, g,
                             staged, stream);
 }
 
 // General shapes, passes 2 and 3 on `stream`: the place walk, then the
 // resolve walk (its CTAs without a contested lane return at once; it
-// always reads words from device memory).
+// always reads words from device memory).  `perm` as the count walk's.
 extern "C" int jt_decode_segments_place(
     const void* tables, const void* words, const void* nbits,
     const void* counts, const void* lane_off, const void* lane_first,
     const void* partial, const void* contested, void* bkey, void* coeffs,
-    int S, int wn, int spf, int total_blocks, int bpm, int n_mcus,
-    int interleaved, int m_x, int vpad, int tab_ints, int staged,
-    void* stream) {
+    const void* perm, int S, int wn, int spf, int total_blocks, int bpm,
+    int n_mcus, int interleaved, int m_x, int vpad, int tab_ints,
+    int staged, void* stream) {
   if (S <= 0) return 0;
   const Params p{S,      wn,          spf, 0,    total_blocks, bpm,
                  n_mcus, interleaved, m_x, vpad, tab_ints};
@@ -758,6 +805,7 @@ extern "C" int jt_decode_segments_place(
   g.partial = const_cast<int32_t*>(static_cast<const int32_t*>(partial));
   g.contested = const_cast<int32_t*>(static_cast<const int32_t*>(contested));
   g.bkey = static_cast<unsigned long long*>(bkey);
+  g.perm = static_cast<const int32_t*>(perm);
   const int rc = launch<MODE_PLACE>(tables, words, nbits, coeffs, nullptr, p,
                                     g, staged, stream);
   if (rc != 0) return rc;

@@ -22,7 +22,9 @@ chunk of restart segments.  It takes the shape the JAX package takes:
   the MCUs two lanes write, ``contested_rows``; place), and a third walk
   resolves the contested MCUs only: three launches a call.  On a CPU
   tensor the plain version ``decode_segments_general_ref`` runs the eager
-  scan and ``place_emissions``.
+  scan and ``place_emissions``.  With a lane order (``perm``: the rows
+  sorted by learned length) it ports jpeg_tpu's phased scan,
+  ``lockstep_jax._scan_lanes_phased`` with ``_place_emissions(perm=...)``.
 
 The kernels decode codes of up to ``LUT_BITS`` bits with one lookup in
 ``lookup_table`` and stage each CTA's segment words in shared memory when
@@ -195,7 +197,8 @@ def place_emissions(plan: ScanPlan, mcu_counts: torch.Tensor,
                     em_key: torch.Tensor, em_val: torch.Tensor, frames: int,
                     spf: int, total_blocks: int,
                     checks: bool = False,
-                    seg_offset: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    seg_offset: Optional[torch.Tensor] = None,
+                    perm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Prefix-sum placement of one [steps, S] emission stream ->
     plane-major [frames*total_blocks, 64] int32.
 
@@ -214,20 +217,30 @@ def place_emissions(plan: ScanPlan, mcu_counts: torch.Tensor,
     lands outside the output raises ``CorruptStream`` ("sanitizer: ...")
     where the production scatter drops it.
 
-    ``seg_offset`` [S], where given, is each lane's first MCU in place of
-    the per-frame cumsum: the JAX placement's ``seg_offset`` argument,
-    which the context-parallel frame decode gives the global offsets of
-    a slice of one frame's lanes.
+    ``seg_offset`` [S], where given, is each frame-major lane's first MCU
+    in place of the per-frame cumsum: the JAX placement's ``seg_offset``
+    argument, which the context-parallel frame decode gives the global
+    offsets of a slice of one frame's lanes.
+
+    ``perm`` [S] (sorted lane -> frame-major lane), where given, is the
+    JAX placement's ``perm`` (``lockstep_jax.py:619-625``, the phased
+    scan's): ``mcu_counts`` and the emission stream's lanes are then in
+    sorted order, a lane's frame and first MCU are those of ``perm[lane]``,
+    and the latest emission wins in (step, sorted lane) order -- the
+    order of jpeg_tpu's phase-by-phase scatter.
     """
     dev = em_key.device
     S = mcu_counts.shape[0]
+    fm = (torch.arange(S, device=dev) if perm is None
+          else perm.to(device=dev, dtype=torch.int64))
     if seg_offset is None:
-        per_frame = mcu_counts.to(torch.int64).reshape(frames, spf)
+        per_frame = _to_frame_major(mcu_counts, perm).to(torch.int64) \
+            .reshape(frames, spf)
         seg_offset = (per_frame.cumsum(1) - per_frame).reshape(S)
     seg_offset = seg_offset.to(torch.int64)
     keys = em_key.reshape(-1).to(torch.int64)
     upd = torch.nonzero(keys > 0).squeeze(1)  # (step, lane) order
-    lane = upd % S
+    lane = fm[upd % S]
     kk = keys[upd] - 1
     pos = kk & 63
     slot = (kk >> 6) & 15
@@ -252,6 +265,26 @@ def place_emissions(plan: ScanPlan, mcu_counts: torch.Tensor,
     out = torch.zeros(n, dtype=torch.int32, device=dev)
     out[flat[win]] = em_val.reshape(-1)[upd[win]].to(torch.int32)
     return out.reshape(frames * total_blocks, 64)
+
+
+def _check_perm_ref(perm: Optional[torch.Tensor], S: int) -> None:
+    """The plain version's check of a lane order: ``perm``, where given,
+    must hold each of ``range(S)`` once, else ValueError."""
+    if perm is not None and not torch.equal(
+            torch.sort(perm.reshape(-1).to(torch.int64)).values,
+            torch.arange(S, device=perm.device)):
+        raise ValueError(f"perm is not a permutation of the {S} lanes")
+
+
+def _to_frame_major(x: torch.Tensor,
+                    perm: Optional[torch.Tensor]) -> torch.Tensor:
+    """Per-lane values in sorted order -> frame-major (``out[perm] = x``);
+    ``x`` itself when ``perm`` is None."""
+    if perm is None:
+        return x
+    out = torch.empty_like(x)
+    out[perm.to(device=x.device, dtype=torch.int64)] = x
+    return out
 
 
 def check_plan(plan: ScanPlan) -> None:
@@ -298,20 +331,30 @@ def decode_segments_ref(plan: ScanPlan, words: torch.Tensor,
 def decode_segments_general_ref(plan: ScanPlan, words: torch.Tensor,
                                 nbits: torch.Tensor, frames: int, spf: int,
                                 total_blocks: int, checks: bool = False,
-                                lane_base: LaneBase = None):
+                                lane_base: LaneBase = None,
+                                perm: Optional[torch.Tensor] = None,
+                                want_nsteps: bool = False):
     """Plain PyTorch version of the general kernel, on any device: the
     eager scan, then ``place_emissions`` (``checks``: both with the
     sanitizer's checks).  -> (coeffs, mcu_counts) as
-    ``decode_segments_ref``.  ``lane_base`` as ``decode_segments_general``
-    (the offsets go to ``place_emissions`` as its ``seg_offset``)."""
+    ``decode_segments_ref``, and with ``want_nsteps`` the lanes' steps
+    begun alive (``scan_lanes``' ``nsteps``) third.  ``lane_base``,
+    ``perm`` and the frame-major order of the lane outputs as
+    ``decode_segments_general`` (the offsets go to ``place_emissions`` as
+    its ``seg_offset``)."""
     check_shape(plan, frames, spf, total_blocks)
-    counts, em_key, em_val, _ = scan_lanes(plan, words, nbits, checks)
+    _check_perm_ref(perm, words.shape[0])
+    counts, em_key, em_val, nsteps = scan_lanes(plan, words, nbits, checks)
+    counts_fm = _to_frame_major(counts, perm)
     seg_offset = None
     if lane_base is not None:
-        off, _ = _layout(counts.to(torch.int64).reshape(frames, spf))
-        seg_offset = off.reshape(-1) + lane_base(counts).to(torch.int64)
-    return (place_emissions(plan, counts, em_key, em_val, frames, spf,
-                            total_blocks, checks, seg_offset), counts)
+        off, _ = _layout(counts_fm.to(torch.int64).reshape(frames, spf))
+        seg_offset = off.reshape(-1) + lane_base(counts_fm).to(torch.int64)
+    coeffs = place_emissions(plan, counts, em_key, em_val, frames, spf,
+                             total_blocks, checks, seg_offset, perm)
+    if want_nsteps:
+        return coeffs, counts_fm, _to_frame_major(nsteps, perm)
+    return coeffs, counts_fm
 
 
 def huffval_pad(plan: ScanPlan) -> int:
@@ -543,15 +586,38 @@ def partial_lanes(counts: torch.Tensor, em_key: torch.Tensor) -> torch.Tensor:
     return hit.any(0).to(torch.int32)
 
 
+def _check_perm(perm: Optional[torch.Tensor], S: int,
+                device: torch.device) -> int:
+    """Validate a lane order for a CUDA launch; -> its pointer (0 for
+    None).  ``perm`` must be a permutation of ``range(S)``, as
+    ``DeviceDecoder.prepare(..., lane_order=True)`` gives it
+    (``Prepared.perm``): the kernel writes each lane's outputs at
+    ``perm[lane]`` and counts a frame laid out when ``spf`` of its lanes
+    have stored.  Its dtype, device and length are checked; its values
+    are not read back here (that would sync), only by the plain version
+    (``_check_perm_ref``)."""
+    if perm is None:
+        return 0
+    _check_tensor("perm", perm, 1, device)
+    if perm.shape[0] != S:
+        raise ValueError(f"perm holds {perm.shape[0]} lanes, words {S}")
+    return perm.data_ptr()
+
+
 def _count_walk(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
-                frames: int, spf: int, tickets: torch.Tensor, staged: int):
+                frames: int, spf: int, tickets: torch.Tensor, staged: int,
+                perm: Optional[torch.Tensor] = None,
+                nsteps: Optional[torch.Tensor] = None):
     """The general path's first launch on a CUDA tensor: the count walk
     with the layout folded in, on the word route ``staged`` (``_route``).
     ``tickets`` holds ``frames`` int32 zeros (the walk's per-frame count of
-    lanes stored; zeros again when it ends).  -> (counts, partial,
-    lane_off, lane_first [S], contested [frames * (spf + 1)], all int32;
-    bkey, the owner keys with the contested rows zeroed).  The caller has
-    run ``_check_launch``."""
+    lanes stored; zeros again when it ends).  ``perm`` (checked by
+    ``_check_perm``) is the lane order of ``words`` and ``nbits``;
+    ``nsteps``, where given, an [S] int32 tensor that receives each lane's
+    steps begun alive.  -> (counts, partial, lane_off, lane_first [S],
+    contested [frames * (spf + 1)], all int32 and frame-major; bkey, the
+    owner keys with the contested rows zeroed).  The caller has run
+    ``_check_launch``."""
     dev = words.device
     S, wn = words.shape
 
@@ -571,7 +637,8 @@ def _count_walk(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
             _device_tables(plan, dev).data_ptr(), words.data_ptr(),
             nbits.data_ptr(), counts.data_ptr(), partial.data_ptr(),
             off.data_ptr(), first.data_ptr(), contested.data_ptr(),
-            bkey.data_ptr(), tickets.data_ptr(), S, wn, spf,
+            bkey.data_ptr(), tickets.data_ptr(), _check_perm(perm, S, dev),
+            0 if nsteps is None else nsteps.data_ptr(), S, wn, spf,
             bpm, plan.n_mcus, int(plan.interleaved), kernel_m_x(plan),
             huffval_pad(plan), _staged_ints(plan), staged, cuda_stream(dev))
     if rc != 0:
@@ -581,35 +648,42 @@ def _count_walk(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
 
 
 def _general_layout(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
-                    frames: int, spf: int, total_blocks: int):
+                    frames: int, spf: int, total_blocks: int,
+                    perm: Optional[torch.Tensor] = None):
     """The general path's placement inputs, for checks: (counts, partial,
-    lane_off, lane_first [S], contested [frames * (spf + 1)]), all int32.
-    A CUDA tensor runs the count walk alone (its layout folded in; no
-    launch counted); a CPU tensor the plain scan (``scan_lanes``,
+    lane_off, lane_first [S], contested [frames * (spf + 1)]), all int32
+    and frame-major (``perm`` as ``decode_segments_general``).  A CUDA
+    tensor runs the count walk alone (its layout folded in; no launch
+    counted); a CPU tensor the plain scan (``scan_lanes``,
     ``partial_lanes``), ``lane_layout`` and ``contested_rows``.  Anything
     else raises."""
     if words.device.type == "cpu":
         check_shape(plan, frames, spf, total_blocks)
+        _check_perm_ref(perm, words.shape[0])
         counts, key, _, _ = scan_lanes(plan, words, nbits)
-        partial = partial_lanes(counts, key)
+        partial = _to_frame_major(partial_lanes(counts, key), perm)
+        counts = _to_frame_major(counts, perm)
         return (counts, partial, *lane_layout(counts, frames, spf),
                 contested_rows(counts, partial, frames, spf, plan.n_mcus))
     dev = _check_launch(plan, words, nbits, frames, spf, total_blocks)
     tickets = torch.zeros(frames, dtype=torch.int32, device=dev)
     return _count_walk(plan, words, nbits, frames, spf, tickets,
-                       _route(words))[:5]
+                       _route(words), perm)[:5]
 
 
 def decode_segments_general(plan: ScanPlan, words: torch.Tensor,
                             nbits: torch.Tensor, frames: int, spf: int,
-                            total_blocks: int, lane_base: LaneBase = None):
+                            total_blocks: int, lane_base: LaneBase = None,
+                            perm: Optional[torch.Tensor] = None,
+                            want_nsteps: bool = False):
     """Decode ``frames * spf`` restart segments of any shape the kernel
     tables hold (prefix-sum placement).  Arguments and result as
     ``decode_segments``; the restart interval plays no part.
 
     A CUDA tensor launches the walks of ``csrc/decode_segments.cu`` (count
     with partial flags and the layout; place; resolve the contested MCUs),
-    counted once per call in ``decode_segments_general.launches``;
+    counted once per call in ``decode_segments_general.launches`` (and,
+    with a ``perm``, in ``decode_segments_general.lane_order_launches``);
     a CPU tensor runs ``decode_segments_general_ref``.  Anything else
     raises.
 
@@ -621,19 +695,37 @@ def decode_segments_general(plan: ScanPlan, words: torch.Tensor,
     placement's ``seg_offset``.  The contested rows stay those of the
     slice's own offsets: a row past the frame by the global offset is
     marked where it may not be, and there every write is dropped anyway.
+
+    ``perm`` (default none) is a lane order: an [S] int32 permutation,
+    sorted lane -> frame-major lane, with the rows of ``words`` and
+    ``nbits`` in sorted order (``DeviceDecoder``'s sorted rows prep, the
+    input of jpeg_tpu's phased scan: take it from that prep's
+    ``Prepared.perm``).  The CUDA launch does not read its values back
+    (``_check_perm``); the plain version raises ValueError for one that
+    is not a permutation.  Lanes decode in that order, where
+    two lanes write one coefficient the latest in (step, sorted lane)
+    order wins (jpeg_tpu's ``_place_emissions(perm=...)``), and the MCU
+    counts come back frame-major all the same.  ``want_nsteps`` adds a
+    third result, each lane's steps begun alive ([S] int32, frame-major:
+    the lockstep scan's ``nsteps``, which the phased scan's learning pass
+    reads), written by the count walk.
     """
     if words.device.type == "cpu":
         return decode_segments_general_ref(plan, words, nbits, frames, spf,
-                                           total_blocks, lane_base=lane_base)
+                                           total_blocks, lane_base=lane_base,
+                                           perm=perm, want_nsteps=want_nsteps)
     dev = _check_launch(plan, words, nbits, frames, spf, total_blocks)
     S, wn = words.shape
+    perm_ptr = _check_perm(perm, S, dev)
     staged = _route(words)
     # One zero fill serves the coefficients (the place walk writes into
     # zeros) and, past them, the count walk's per-frame tickets.
     n = frames * total_blocks * 64
     buf = torch.zeros(n + frames, dtype=torch.int32, device=dev)
+    nsteps = (torch.empty(S, dtype=torch.int32, device=dev) if want_nsteps
+              else None)
     counts, partial, off, first, contested, bkey = _count_walk(
-        plan, words, nbits, frames, spf, buf[n:], staged)
+        plan, words, nbits, frames, spf, buf[n:], staged, perm, nsteps)
     coeffs = buf[:n].view(frames * total_blocks, 64)
     if lane_base is not None:
         off.add_(lane_base(counts).to(torch.int32))
@@ -645,15 +737,20 @@ def decode_segments_general(plan: ScanPlan, words: torch.Tensor,
             _device_tables(plan, dev).data_ptr(), words.data_ptr(),
             nbits.data_ptr(), counts.data_ptr(), off.data_ptr(),
             first.data_ptr(), partial.data_ptr(), contested.data_ptr(),
-            bkey.data_ptr(), coeffs.data_ptr(), S, wn, spf, total_blocks,
-            plan.blocks_per_mcu, plan.n_mcus, int(plan.interleaved),
-            kernel_m_x(plan), huffval_pad(plan), _staged_ints(plan), staged,
-            cuda_stream(dev))
+            bkey.data_ptr(), coeffs.data_ptr(), perm_ptr, S, wn, spf,
+            total_blocks, plan.blocks_per_mcu, plan.n_mcus,
+            int(plan.interleaved), kernel_m_x(plan), huffval_pad(plan),
+            _staged_ints(plan), staged, cuda_stream(dev))
     if rc != 0:
         raise RuntimeError(
             f"decode_segments_general passes 2-3 failed: CUDA error {rc}")
     decode_segments_general.launches += 1
+    if perm is not None:
+        decode_segments_general.lane_order_launches += 1
+    if want_nsteps:
+        return coeffs, counts, nsteps
     return coeffs, counts
 
 
 decode_segments_general.launches = 0
+decode_segments_general.lane_order_launches = 0  # those with a ``perm``

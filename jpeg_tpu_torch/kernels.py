@@ -61,8 +61,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     signatures = {
         "jt_decode_segments": [p] * 5 + [i] * 12 + [p],
-        "jt_decode_segments_count": [p] * 10 + [i] * 10 + [p],
-        "jt_decode_segments_place": [p] * 10 + [i] * 11 + [p],
+        "jt_decode_segments_count": [p] * 12 + [i] * 10 + [p],
+        "jt_decode_segments_place": [p] * 11 + [i] * 11 + [p],
         "jt_decode_segments_launches": [],
         "jt_decode_segments_table_ints": [],
         "jt_decode_segments_lut_bits": [],
