@@ -11,7 +11,10 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
+
+from .utils.metrics import trace
 
 
 def set_precision() -> None:
@@ -31,6 +34,13 @@ def resolve(device) -> torch.device:
         )
     set_precision()
     return dev
+
+
+def upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array on ``dev`` in a ``device_decode.upload`` span: a
+    pageable copy to a card, the array itself on the CPU."""
+    with trace("device_decode.upload"):
+        return torch.from_numpy(a).to(dev)
 
 
 def check_tensor(name: str, t: torch.Tensor, dtypes, shape,

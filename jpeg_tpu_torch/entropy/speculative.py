@@ -48,8 +48,9 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..device import upload
 from ..errors import UnsupportedError
-from ..utils.metrics import default_metrics
+from ..utils.metrics import default_metrics, trace
 from . import speculative_cuda
 from .lockstep import ScanPlan
 from .lockstep_torch import pack_words
@@ -134,8 +135,8 @@ def prepare_batch(segments: Sequence[np.ndarray], device: torch.device,
     sizes = np.array([s.size for s in segs], np.int64)
     words, nbits = pack_words(np.concatenate(segs), sizes)
     rows = Rows.build(row_layout(sizes, chunk_bytes), device)
-    return (torch.from_numpy(words.view(np.int32)).to(device),
-            torch.from_numpy(nbits.astype(np.int32)).to(device), rows)
+    return (upload(words.view(np.int32), device),
+            upload(nbits.astype(np.int32), device), rows)
 
 
 def speculative_core_batch(plan: ScanPlan, total_blocks: int,
@@ -163,30 +164,33 @@ def speculative_core_batch(plan: ScanPlan, total_blocks: int,
         return _fallback(f"plan: {e}")
     if not segments:
         return _fallback("empty batch")
-    words, nbits, rows = prepare_batch(segments, device, chunk_bytes)
-    max_rounds = int(np.diff(rows.row0).max()) + 1
+    with trace("device_decode.spec_prepare"):
+        words, nbits, rows = prepare_batch(segments, device, chunk_bytes)
+        max_rounds = int(np.diff(rows.row0).max()) + 1
     default_metrics.count("speculative.batches")
     cb, sb, pb = chunk_bytes * 8, strip_bytes * 8, piece_bytes * 8
-    links, member, marks = speculative_cuda.sync(plan, words, nbits, rows,
-                                                 cb, sb, pb)
-    res = speculative_cuda.resolve(plan, words, nbits, rows, links, member,
-                                   marks, cb, sb, pb, max_rounds)
-    # K10 reads none of K8's outputs: free the membership map before the
-    # coefficients are allocated
-    links = member = marks = None
-    # K10 runs on an unresolved batch too (its unsettled rows hold no
-    # blocks), so that the batch needs one host read.
-    coeffs, ok = speculative_cuda.final(plan, words, nbits, rows,
-                                        res.pieces, total_blocks)
+    with trace("device_decode.spec_dispatch"):
+        links, member, marks = speculative_cuda.sync(plan, words, nbits,
+                                                     rows, cb, sb, pb)
+        res = speculative_cuda.resolve(plan, words, nbits, rows, links,
+                                       member, marks, cb, sb, pb, max_rounds)
+        # K10 reads none of K8's outputs: free the membership map before
+        # the coefficients are allocated
+        links = member = marks = None
+        # K10 runs on an unresolved batch too (its unsettled rows hold no
+        # blocks), so that the batch needs one host read.
+        coeffs, ok = speculative_cuda.final(plan, words, nbits, rows,
+                                            res.pieces, total_blocks)
     # The one host read: per frame, the resolve stats, the rows that did
     # not decode their blocks, and the blocks decoded.
-    frame = rows.frame
-    zero = torch.zeros(rows.F, dtype=torch.int64, device=device)
-    check = torch.cat([
-        res.frame.t().to(torch.int64),
-        zero.index_add(0, frame, (ok == 0).to(torch.int64))[None],
-        zero.index_add(0, frame, res.row[R_NBLK].to(torch.int64))[None],
-    ]).cpu().numpy()
+    with trace("device_decode.spec_readback"):
+        frame = rows.frame
+        zero = torch.zeros(rows.F, dtype=torch.int64, device=device)
+        check = torch.cat([
+            res.frame.t().to(torch.int64),
+            zero.index_add(0, frame, (ok == 0).to(torch.int64))[None],
+            zero.index_add(0, frame, res.row[R_NBLK].to(torch.int64))[None],
+        ]).cpu().numpy()
     rounds = int(check[S_ROUNDS].max())
     default_metrics.count("speculative.resolve_rounds", rounds)
     default_metrics.count("speculative.recovery_rows",

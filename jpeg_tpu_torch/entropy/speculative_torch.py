@@ -61,6 +61,7 @@ from typing import Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..device import upload
 from .lockstep import ScanPlan
 from .lockstep_torch import _plan_tensors
 from .place_cuda import C_MAX, _slot_affinities, huffval_pad, kernel_m_x
@@ -204,8 +205,7 @@ class Rows:
         first = row0[:-1][frame]
         local = np.arange(row0[-1], dtype=np.int64) - first
         last = (local == counts[frame] - 1).astype(np.int64)
-        t = torch.from_numpy(np.concatenate(
-            [frame, local, last, first, row0])).to(dev)
+        t = upload(np.concatenate([frame, local, last, first, row0]), dev)
         R = frame.size
         return Rows(row0, t[:R], t[R:2 * R], t[2 * R:3 * R] > 0,
                     t[3 * R:4 * R], t[4 * R:].to(torch.int32),

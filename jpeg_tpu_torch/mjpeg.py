@@ -25,7 +25,7 @@ import torch
 
 from .api import DecodedImage, decode_jpeg
 from .errors import FileIOError, JpegError
-from .utils.metrics import default_metrics
+from .utils.metrics import default_metrics, trace
 
 # RST-less frames above this size take the speculative engine; smaller
 # ones decode one lane per frame (the JAX package's threshold,
@@ -117,7 +117,9 @@ def decode_stream_device(data: bytes, device, chunk: int = 8):
     ``device``), its pixels uploaded and counted in
     ``mjpeg.rstless_host_frames``.  Raises on malformed streams -- use
     ``decode_stream`` when per-frame fault isolation matters more than
-    throughput.
+    throughput.  The call is one ``device_decode.stream`` span, holding
+    ``device_decode.split`` (``split_stream``) and
+    ``device_decode.for_stream``.
     """
     from .models.device_decode import (
         DeviceDecoder,
@@ -126,28 +128,33 @@ def decode_stream_device(data: bytes, device, chunk: int = 8):
         decode_stream_rstless,
     )
 
-    parts = split_stream(data)
-    if not parts:
-        raise FileIOError("no JPEG frames in stream")
-    dec = DeviceDecoder.for_stream(parts[0], device)
-    if dec.segs_per_frame > 1 or len(parts[0]) <= RSTLESS_DEVICE_MAX_BYTES:
-        return dec.decode_batch(parts, chunk=chunk)
-    step = chunk if chunk > 0 else len(parts)
-    outs = []
-    for lo in range(0, len(parts), step):
-        batch = parts[lo : lo + step]
-        try:
-            outs.append(decode_stream_rstless(batch, dec.device, chunk=step))
-            continue
-        except JpegError:
-            default_metrics.count("mjpeg.rstless_batch_fallbacks")
-        for p in batch:
+    with trace("device_decode.stream"):
+        with trace("device_decode.split"):
+            parts = split_stream(data)
+        if not parts:
+            raise FileIOError("no JPEG frames in stream")
+        with trace("device_decode.for_stream"):
+            dec = DeviceDecoder.for_stream(parts[0], device)
+        if dec.segs_per_frame > 1 or \
+                len(parts[0]) <= RSTLESS_DEVICE_MAX_BYTES:
+            return dec.decode_batch(parts, chunk=chunk)
+        step = chunk if chunk > 0 else len(parts)
+        outs = []
+        for lo in range(0, len(parts), step):
+            batch = parts[lo : lo + step]
             try:
-                outs.append(decode_frame_rstless(p, dec.device)[None])
+                outs.append(decode_stream_rstless(batch, dec.device,
+                                                  chunk=step))
+                continue
             except JpegError:
-                default_metrics.count("mjpeg.rstless_host_frames")
-                outs.append(_host_pixels(p, dec.geom, dec.device)[None])
-    return outs[0] if len(outs) == 1 else torch.cat(outs)
+                default_metrics.count("mjpeg.rstless_batch_fallbacks")
+            for p in batch:
+                try:
+                    outs.append(decode_frame_rstless(p, dec.device)[None])
+                except JpegError:
+                    default_metrics.count("mjpeg.rstless_host_frames")
+                    outs.append(_host_pixels(p, dec.geom, dec.device)[None])
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
 def warm_stream_device(data: bytes, device, chunk: int = 8,

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from ..device import upload as _upload
 from ..entropy.lockstep import ScanPlan
 from ..entropy.lockstep_torch import _cached_plan, pack_words
 from ..entropy.place_cuda import (
@@ -67,12 +68,6 @@ from ..utils.metrics import default_metrics, trace
 PREP_MODES = ("auto", "rows", "flat")
 PLACE_MODES = ("auto", "pallas", "scatter")
 _UPLOAD_RATE: dict = {}  # measured host->device B/s by device, once each
-
-
-def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """A host array on ``dev``: a pageable copy to a card, the array
-    itself on the CPU."""
-    return torch.from_numpy(a).to(dev)
 
 
 def _measured_upload_rate(device: torch.device) -> float:
@@ -252,7 +247,7 @@ class DeviceDecoder:
             htable_key=htable_key,
             device=dev,
             qtables_host=qt,
-            qtables=torch.from_numpy(qt[None]).to(dev),
+            qtables=_upload(qt[None], dev),
             header=sample_jpeg[:scan_start],
             scan_start=scan_start,
             wn=_row_words(int(lens.max())),
@@ -328,12 +323,12 @@ class DeviceDecoder:
             np.concatenate(lens_parts) if lens_parts else np.zeros(0, np.int64),
         )
         dev = self.device
-        words_t = torch.from_numpy(words.view(np.int32)).to(dev)
-        nbits_t = torch.from_numpy(nbits.astype(np.int32)).to(dev)
+        words_t = _upload(words.view(np.int32), dev)
+        nbits_t = _upload(nbits.astype(np.int32), dev)
         if all(np.array_equal(q, self.qtables_host) for q in qts):
             qt = self.qtables.expand(len(qts), 4, 64)
         else:
-            qt = torch.from_numpy(np.stack(qts)).to(dev)
+            qt = _upload(np.stack(qts), dev)
         default_metrics.count("device_decode.python_prep_chunks")
         return Prepared(words_t, nbits_t, qt, "mat", nbits.max(initial=0))
 
@@ -641,9 +636,11 @@ class DeviceDecoder:
         # come back in one device round trip.
         if sums:
             learning = [rec for rec in flight if rec.nsteps is not None]
-            got = torch.cat([s.reshape(1) for s in sums] + [
-                f.reshape(1) for _, f in flags] + [
-                rec.nsteps.to(torch.int64) for rec in learning]).cpu().numpy()
+            with trace("device_decode.readback"):
+                got = torch.cat([s.reshape(1) for s in sums] + [
+                    f.reshape(1) for _, f in flags] + [
+                    rec.nsteps.to(torch.int64) for rec in learning]
+                ).cpu().numpy()
             for rec, mcus in zip(flight, got[:len(sums)].tolist()):
                 rec.mcus = mcus
             at = len(sums)
@@ -682,7 +679,6 @@ class DeviceDecoder:
         """Redo a starved "mats" chunk as jpeg_tpu does (:761-782): the
         frame-major prep, a decode that learns (max-folded into the lane
         order), one host read of its MCUs and steps.  -> its output."""
-        default_metrics.count("device_decode.starve_retries")
         default_metrics.count("device_decode.phase_inflate")
         prepared = self.prepare(jpegs)
         coeffs, counts, nsteps, _ = self._dispatch(
@@ -690,8 +686,10 @@ class DeviceDecoder:
         out = finish(coeffs, prepared[2])
         rec.prepared, rec.nsteps, rec.starved = prepared, nsteps, False
         rec.steps = max(self.max_steps, self._steps_for(prepared))
-        got = torch.cat([counts.sum()[None]] + (
-            [] if nsteps is None else [nsteps.to(torch.int64)])).cpu().numpy()
+        with trace("device_decode.readback"):
+            got = torch.cat([counts.sum()[None]] + (
+                [] if nsteps is None else [nsteps.to(torch.int64)])
+            ).cpu().numpy()
         rec.mcus = int(got[0])
         if nsteps is not None:
             self._learn_chunk(rec, got[1:])
@@ -772,8 +770,7 @@ class DeviceDecoder:
 
     def decode_batch(self, jpegs: Sequence[bytes], chunk: int = 8):
         """-> device-resident pixel batch [F, H, W, C] (uint8/uint16)."""
-        px = len(jpegs) * self.geom.height * self.geom.width
-        with default_metrics.stage("device_decode.batch", items=px):
+        with trace("device_decode.batch"):
             return self._run(
                 jpegs, chunk,
                 lambda c, qt: _dense_from_coeffs(c, self.geom, qt),
@@ -840,7 +837,7 @@ def _host_pixels(data: bytes, geom: FrameGeometry,
     if px.shape != (geom.height, geom.width, c):
         raise UnsupportedError("mixed-size frame in batch: decode it "
                                "separately")
-    return torch.from_numpy(px).to(device)
+    return _upload(px, device)
 
 
 def _dense_only(geom: FrameGeometry, coeffs: torch.Tensor,
@@ -887,12 +884,11 @@ def decode_frame_device(data: bytes, device) -> torch.Tensor:
             np.concatenate(segments) if lens.sum() else np.zeros(0, np.uint8),
             lens)
         c_i, _ = decode_segments(
-            plan, torch.from_numpy(words.view(np.int32)).to(dev),
-            torch.from_numpy(nbits.astype(np.int32)).to(dev), 1, spf,
-            scan.ri, nb)
+            plan, _upload(words.view(np.int32), dev),
+            _upload(nbits.astype(np.int32), dev), 1, spf, scan.ri, nb)
         o = comp_off[scan.info.component_ids[0]]
         coeffs[o : o + nb] = c_i
-    qt = torch.from_numpy(cs.qtables.astype(np.int32)[None]).to(dev)
+    qt = _upload(cs.qtables.astype(np.int32)[None], dev)
     return _dense_only(geom, coeffs[None], qt)[0]
 
 
@@ -932,24 +928,28 @@ def decode_stream_rstless(parts: Sequence[bytes], device,
     dev = resolve(device)
     if not parts:
         raise ValueError("no frames to decode")
-    cs0, _, key0 = _rstless_scan(parts[0])
-    geom = cs0.geometry
-    plan = _cached_plan(geom, cs0.scans[0].info, key0)
+    with trace("device_decode.spec_parse"):
+        cs0, _, key0 = _rstless_scan(parts[0])
+        geom = cs0.geometry
+        plan = _cached_plan(geom, cs0.scans[0].info, key0)
     tb = sum(c.n_blocks for c in geom.components)
     step = chunk if chunk > 0 else len(parts)
     outs = []
     for lo in range(0, len(parts), step):
         segs, qts = [], []
-        for p in parts[lo : lo + step]:
-            cs, seg, _ = _rstless_scan(p, geom, key0)
-            segs.append(seg)
-            qts.append(cs.qtables.astype(np.int32))
+        with trace("device_decode.spec_parse"):
+            for p in parts[lo : lo + step]:
+                cs, seg, _ = _rstless_scan(p, geom, key0)
+                segs.append(seg)
+                qts.append(cs.qtables.astype(np.int32))
         res = speculative_core_batch(plan, tb, segs, dev)
         if res is None:
             raise UnsupportedError("speculative resolution refused the batch; "
                                    "decode frame by frame")
-        qt = torch.from_numpy(np.stack(qts)).to(dev)
-        outs.append(_dense_only(geom, res[0].reshape(len(segs), tb, 64), qt))
+        with trace("device_decode.spec_dense"):
+            qt = _upload(np.stack(qts), dev)
+            outs.append(_dense_only(geom, res[0].reshape(len(segs), tb, 64),
+                                    qt))
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 

@@ -59,7 +59,7 @@ from ..format import emit
 from ..geometry import FrameGeometry, ScanInfo
 from ..models.encode_dense import pixels_to_zz
 from ..tables import HuffSpec, derive_table, optimize_table
-from ..utils.metrics import default_metrics, trace
+from ..utils.metrics import trace
 
 
 @dataclass
@@ -409,10 +409,7 @@ class DeviceEncoder:
             return []
         step = chunk if chunk > 0 else frames
         spans = [(i, min(i + step, frames)) for i in range(0, frames, step)]
-        with default_metrics.stage(
-            "device_encode.batch",
-            items=frames * self.geom.height * self.geom.width,
-        ):
+        with trace("device_encode.batch"):
             if not optimize:
                 out: List[bytes] = []
                 for lo, hi in spans:
@@ -462,14 +459,15 @@ class DeviceEncoder:
                   header: bytes = b""):
         """Shared tail: byte-stuff the concatenated live segment bytes,
         then drop RSTn/EOI markers into the per-frame gaps."""
-        ends = np.cumsum(nbytes)
-        is_ff = flat == 0xFF
-        out = np.zeros(flat.size + int(is_ff.sum()), dtype=np.uint8)
-        dst = np.arange(flat.size) + np.cumsum(is_ff) - is_ff
-        out[dst] = flat
-        ffcum = np.concatenate(([0], np.cumsum(is_ff)))
-        s_end = ends + ffcum[ends]  # stuffed end offset per segment
-        s_start = np.concatenate(([0], s_end[:-1]))
+        with trace("device_encode.stuff"):
+            ends = np.cumsum(nbytes)
+            is_ff = flat == 0xFF
+            out = np.zeros(flat.size + int(is_ff.sum()), dtype=np.uint8)
+            dst = np.arange(flat.size) + np.cumsum(is_ff) - is_ff
+            out[dst] = flat
+            ffcum = np.concatenate(([0], np.cumsum(is_ff)))
+            s_end = ends + ffcum[ends]  # stuffed end offset per segment
+            s_start = np.concatenate(([0], s_end[:-1]))
 
         # Assemble each frame in one vectorized pass: every stuffed byte
         # shifts right by 2 per preceding in-frame segment boundary (the
@@ -477,16 +475,20 @@ class DeviceEncoder:
         res: List[bytes] = []
         ns = self.n_segments
         hdr = np.frombuffer(header or self.header, np.uint8)
-        for f in range(frames):
-            seg_lens = s_end[f * ns:(f + 1) * ns] - s_start[f * ns:(f + 1) * ns]
-            body = out[s_start[f * ns]:s_end[(f + 1) * ns - 1]]
-            buf = np.empty(hdr.size + body.size + 2 * (ns - 1) + 2, np.uint8)
-            buf[: hdr.size] = hdr
-            shift = np.repeat(np.arange(ns, dtype=np.int64), seg_lens)
-            buf[hdr.size + np.arange(body.size) + 2 * shift] = body
-            gap = hdr.size + np.cumsum(seg_lens[:-1]) + 2 * np.arange(ns - 1)
-            buf[gap] = 0xFF
-            buf[gap + 1] = 0xD0 + (np.arange(ns - 1) & 7)
-            buf[-2:] = (0xFF, 0xD9)
-            res.append(buf.tobytes())
+        with trace("device_encode.assemble"):
+            for f in range(frames):
+                seg_lens = (s_end[f * ns:(f + 1) * ns]
+                            - s_start[f * ns:(f + 1) * ns])
+                body = out[s_start[f * ns]:s_end[(f + 1) * ns - 1]]
+                buf = np.empty(hdr.size + body.size + 2 * (ns - 1) + 2,
+                               np.uint8)
+                buf[: hdr.size] = hdr
+                shift = np.repeat(np.arange(ns, dtype=np.int64), seg_lens)
+                buf[hdr.size + np.arange(body.size) + 2 * shift] = body
+                gap = (hdr.size + np.cumsum(seg_lens[:-1])
+                       + 2 * np.arange(ns - 1))
+                buf[gap] = 0xFF
+                buf[gap + 1] = 0xD0 + (np.arange(ns - 1) & 7)
+                buf[-2:] = (0xFF, 0xD9)
+                res.append(buf.tobytes())
         return res

@@ -1,82 +1,73 @@
-"""Observability: structured per-stage metrics and profiler hooks.
+"""Observability: structured per-stage timings and counters.
 
 Replaces the reference's printf narration (SURVEY §5: decoder.c:495,
 imgproc.c:38, common.c:174 ...) with structured timings and counters a
-production service can export.  ``trace()`` additionally wraps a region
-in a torch.profiler range (Perfetto-compatible) when profiling is enabled.
+production service can export.
+
+A span (``with trace(name):``) adds its calls and host seconds to
+``default_metrics.stages[name]``.  While a ``torch.profiler`` records,
+it also opens a ``record_function`` range of its name, so the profiler's
+trace shows the program's spans on the device trace's clock; otherwise
+it costs two clock reads.  Spans nest on one thread: the spans of one
+call are those inside its outermost span (``device_decode.stream``,
+``device_decode.batch``, ``device_encode.batch``).  Every span name
+starts with ``device_decode.`` or ``device_encode.``.
 """
 
 from __future__ import annotations
 
-import contextlib
-import os
-import time
 from collections import defaultdict
 from dataclasses import dataclass
-from typing import Dict, Iterator
+from time import perf_counter
+from typing import Dict
+
+import torch
+
+# Whether a torch.profiler records on this thread (0.1 us a call).
+_profiling = torch._C._autograd._profiler_enabled
 
 
 @dataclass
 class StageStats:
     calls: int = 0
     total_s: float = 0.0
-    items: int = 0  # e.g. pixels, blocks, bytes
-
-    @property
-    def mean_ms(self) -> float:
-        return self.total_s / self.calls * 1e3 if self.calls else 0.0
-
-    def rate(self, unit_scale: float = 1e6) -> float:
-        """items per second / unit_scale (e.g. Mpix/s)."""
-        return self.items / self.total_s / unit_scale if self.total_s else 0.0
 
 
 class Metrics:
-    """Per-stage wall-clock + throughput accumulator."""
+    """Per-stage wall-clock accumulator and event counters."""
 
     def __init__(self) -> None:
         self.stages: Dict[str, StageStats] = defaultdict(StageStats)
         self.counters: Dict[str, int] = defaultdict(int)
 
-    @contextlib.contextmanager
-    def stage(self, name: str, items: int = 0) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            s = self.stages[name]
-            s.calls += 1
-            s.total_s += time.perf_counter() - t0
-            s.items += items
-
     def count(self, name: str, n: int = 1) -> None:
         self.counters[name] += n
-
-    def report(self) -> str:
-        lines = []
-        for name, s in sorted(self.stages.items()):
-            lines.append(
-                f"{name}: {s.calls} calls, {s.mean_ms:.2f} ms avg"
-                + (f", {s.rate():.1f} M items/s" if s.items else "")
-            )
-        for name, v in sorted(self.counters.items()):
-            lines.append(f"{name}: {v}")
-        return "\n".join(lines)
 
 
 # Global default collector (opt-in use).
 default_metrics = Metrics()
 
 
-@contextlib.contextmanager
-def trace(name: str) -> Iterator[None]:
-    """torch.profiler record_function when JPEG_TPU_PROFILE=1, else no-op."""
-    if os.environ.get("JPEG_TPU_PROFILE") == "1":
-        import torch.profiler
+class trace:
+    """``with trace(name):`` times the block into ``default_metrics``
+    and, while a profiler records, mirrors it as a profiler range."""
 
-        with torch.profiler.record_function(name):
-            with default_metrics.stage(name):
-                yield
-    else:
-        with default_metrics.stage(name):
-            yield
+    __slots__ = ("name", "_t0", "_range")
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+
+    def __enter__(self) -> None:
+        self._range = None
+        if _profiling():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        self._t0 = perf_counter()
+
+    def __exit__(self, *exc) -> None:
+        dt = perf_counter() - self._t0
+        s = default_metrics.stages[self.name]
+        s.calls += 1
+        s.total_s += dt
+        if self._range is not None:
+            self._range.__exit__(*exc)
