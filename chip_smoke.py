@@ -183,7 +183,11 @@ process exits non-zero without printing the result line:
     (``device_decode.native_prep_chunks``, none in
     ``python_prep_chunks``) and one launch of each kernel a chunk, its
     pixels equal to the Python prep's; ``host_prep_ms`` and the stream
-    rate under each prep, in turns; ``decode_jpeg(..., exact=True,
+    rate under each prep, in turns; ``encode_batch`` of the 16 bench
+    frames with every chunk counted in
+    ``device_encode.native_finalize_chunks`` (none in
+    ``python_finalize_chunks``), byte-identical to the NumPy host tail's,
+    each timed; ``decode_jpeg(..., exact=True,
     entropy="native")`` of bench frame 0 to jpeg_tpu's digest and
     ``encode_jpeg`` with ``entropy_backend="native"`` byte-identical to
     the numpy backend and to jpeg_tpu's digests; ``exact_decode_ms``,
@@ -2591,7 +2595,8 @@ def fast_phase(card: str, dev: torch.device, streams: dict) -> list:
 
 @contextlib.contextmanager
 def python_prep():
-    """``DeviceDecoder.prepare`` takes the Python prep while the block
+    """``DeviceDecoder.prepare`` takes the Python prep, and
+    ``DeviceEncoder._finalize_flat`` the NumPy host tail, while the block
     runs (the native library reads as not available)."""
     from jpeg_tpu_torch import native
 
@@ -2730,6 +2735,39 @@ def native_phase(card: str, dev: torch.device, streams: dict) -> None:
         log(f"time e2e_stream_Mpix_s[{label} prep]={r[len(r) // 2]} "
             f"(median of {len(r)} runs of {STREAM_FRAMES} ri=4 frames from "
             f"bytes, host clock; runs {r}) [{card}]")
+
+    # -- the encode host tail: every chunk native, bytes equal to the
+    # NumPy tail's, and both timed on the 16 bench frames
+    enc = DeviceEncoder.for_config(synth.HEIGHT, synth.WIDTH, 3,
+                                   BENCH_PARAMS, device=dev)
+    px16 = bench_pixels(dev)
+    keys = ("device_encode.native_finalize_chunks",
+            "device_encode.python_finalize_chunks")
+    tails = {}
+    for label in ("native", "python"):
+        with python_prep() if label == "python" else \
+                contextlib.nullcontext():
+            n0 = [default_metrics.counters[k] for k in keys]
+            out = enc.encode_batch(px16, chunk=CHUNK)
+            got = tuple(default_metrics.counters[k] - n
+                        for k, n in zip(keys, n0))
+            med, runs = median_s(lambda: enc.encode_batch(px16, chunk=CHUNK),
+                                 E2E_RUNS)
+        want = (len(chunks), 0) if label == "native" else (0, len(chunks))
+        if got != want:
+            raise AssertionError(f"{label} encode tail: (native, python) "
+                                 f"chunk counts {got}, want {want}")
+        tails[label] = out
+        log(f"time encode_batch_ms[{label} tail]={med * 1e3} (median of "
+            f"{len(runs)} runs of {STREAM_FRAMES} 1080p frames, chunk "
+            f"{CHUNK}, host clock; run ms "
+            f"{[round(r * 1e3, 3) for r in runs]}) [{card}]")
+    if tails["native"] != tails["python"]:
+        raise AssertionError("the native encode tail's bytes differ from "
+                             "the NumPy tail's")
+    log(f"native: encode_batch of {STREAM_FRAMES} frames, every chunk "
+        f"through the native tail, byte-identical to the NumPy tail "
+        f"({sum(map(len, tails['native']))} bytes)")
 
     # -- single images with native host entropy
     exact = json.loads((CORPUS / "exact.json").read_text())

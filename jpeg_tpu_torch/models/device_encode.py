@@ -14,11 +14,16 @@ in device memory compress on the card --
 
 -- and only the words (~the compressed size) come back to the host, which
 finishes with the byte-serial work: 1-padding, 0xFF byte stuffing and
-marker assembly (vectorized numpy over the whole chunk, copied unchanged
-from the JAX package).  With ``optimize=True`` the chunks' symbol
-histograms (entropy.encode_cuda.block_histogram) sum into per-batch
-Annex K.2 tables first, and the entropy stage re-packs the quantized
-blocks still in device memory.
+marker assembly, in one native pass over the chunk
+(``native.finalize_flat_native``) or, where the native library is not
+available, in its plain version (vectorized numpy over the whole chunk):
+the JAX package's ``_finalize_flat`` with one fix, that an empty (0-bit)
+segment pads nothing, where the JAX package's last write of its clipped
+offset could undo the pad bits of the byte before it.  On a card a
+failed build of the library raises instead.  With ``optimize=True`` the
+chunks' symbol histograms (entropy.encode_cuda.block_histogram) sum into
+per-batch Annex K.2 tables first, and the entropy stage re-packs the
+quantized blocks still in device memory.
 
 Output is byte-identical to the JAX package's ``DeviceEncoder`` wherever
 the quantized blocks agree (they may differ by 1 on rare rounding
@@ -50,6 +55,7 @@ from ..constants import (
     STD_LUMINANCE_QUANT,
     scale_qtable,
 )
+from .. import native
 from ..device import resolve
 from ..encoder import EncodeParams, geometry_for_image
 from ..entropy.encode import build_visit_order
@@ -59,7 +65,7 @@ from ..format import emit
 from ..geometry import FrameGeometry, ScanInfo
 from ..models.encode_dense import pixels_to_zz
 from ..tables import HuffSpec, derive_table, optimize_table
-from ..utils.metrics import trace
+from ..utils.metrics import default_metrics, trace
 
 
 @dataclass
@@ -436,9 +442,32 @@ class DeviceEncoder:
             return out
 
     def _finalize_flat(self, flat_words: np.ndarray, seg_bits: np.ndarray,
-                       frames: int, header: bytes = b""):
-        """_finalize for the device-compacted word stream (no padded
-        matrix): per-segment live bytes come straight from word offsets."""
+                       frames: int, header: bytes = b"") -> List[bytes]:
+        """The device-compacted word stream of ``frames`` frames -> one
+        JPEG byte string a frame: one native pass while the native
+        library is available (as ``DeviceDecoder.prepare``'s native prep),
+        else the plain ``_finalize_flat_ref``; the bytes are equal.
+        ``device_encode.native_finalize_chunks`` and
+        ``python_finalize_chunks`` count which ran.  An encoder on a card
+        raises where the library failed to build: there the plain version
+        would take most of the frame's time."""
+        if native.available():
+            default_metrics.count("device_encode.native_finalize_chunks")
+            return native.finalize_flat_native(
+                flat_words, seg_bits, frames, self.n_segments,
+                header or self.header)
+        if self.device.type != "cpu" and native.load_error():
+            raise RuntimeError("the native encode host tail is unavailable "
+                               f"on {self.device}: {native.load_error()}")
+        default_metrics.count("device_encode.python_finalize_chunks")
+        return self._finalize_flat_ref(flat_words, seg_bits, frames, header)
+
+    def _finalize_flat_ref(self, flat_words: np.ndarray,
+                           seg_bits: np.ndarray, frames: int,
+                           header: bytes = b"") -> List[bytes]:
+        """The plain version of ``native.finalize_flat_native``: vectorized
+        NumPy passes over the chunk, per-segment live bytes straight from
+        word offsets."""
         nbytes = (seg_bits + 7) // 8
         nw = (seg_bits + 31) // 32
         base = np.cumsum(nw) - nw
@@ -446,11 +475,12 @@ class DeviceEncoder:
         ).view(np.uint8)
         if arr.size == 0:
             return self._assemble(arr, nbytes, frames, header)
-        pad = nbytes * 8 - seg_bits
-        lastpos = np.minimum(4 * base + np.maximum(nbytes - 1, 0),
-                             arr.size - 1)
-        padded_last = arr[lastpos] | ((1 << pad) - 1).astype(np.uint8)
-        arr[lastpos] = np.where(nbytes > 0, padded_last, arr[lastpos])
+        # Only segments with bytes have a last byte to pad: an empty
+        # segment's offset is the next segment's first byte.
+        live_seg = nbytes > 0
+        pad = (nbytes * 8 - seg_bits)[live_seg]
+        arr[4 * base[live_seg] + nbytes[live_seg] - 1] |= (
+            (1 << pad) - 1).astype(np.uint8)
         off = np.arange(arr.size) - np.repeat(4 * base, 4 * nw)
         live = off < np.repeat(nbytes, 4 * nw)
         return self._assemble(arr[live], nbytes, frames, header)

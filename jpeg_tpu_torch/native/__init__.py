@@ -1,17 +1,22 @@
-"""ctypes bindings for the native host entropy kernel (``scanner.cpp``).
+"""ctypes bindings for the native host library: ``scanner.cpp``, the
+JAX package's entropy kernel, and ``encode_tail.cpp``, the port's
+encode host tail.
 
-The port's copy of ``jpeg_tpu/native``: the same functions with the
-same signatures over a byte-for-byte copy of its C++ source.  Only the
-build differs.  ``load_library`` compiles ``scanner.cpp`` with ``g++``
-(the JAX package Makefile's flags) into ``build/jpeg_tpu_torch/`` under
-the repository root, named by a hash of the source, the flags and the
-target that ``-march=native`` resolves to, through a temporary file and
-an atomic rename, so concurrent processes never load a half-written
+``scanner.cpp`` is a byte-for-byte copy of ``jpeg_tpu/native``'s source,
+bound here with the same functions and signatures; only the build
+differs.  ``encode_tail.cpp`` is the port's own: ``finalize_flat_native``
+pads, byte-stuffs and frames a chunk's encoded segments in one pass.
+``load_library`` compiles both sources with one ``g++`` command (the JAX
+package Makefile's flags) into one library in ``build/jpeg_tpu_torch/``
+under the repository root, named by a hash of the sources, the flags and
+the target that ``-march=native`` resolves to, through a temporary file
+and an atomic rename, so concurrent processes never load a half-written
 library.  The build runs at first use, never at import time.
 
 ``available()`` keeps the JAX package's meaning: False when the library
 cannot be built or loaded, and the NumPy backends take over.  Such a
-failure warns once, with the tail of the compiler's output.
+failure is tried once a process and warns once, with the tail of the
+compiler's output; ``load_error()`` returns that output.
 """
 
 from __future__ import annotations
@@ -26,13 +31,14 @@ import warnings
 from dataclasses import dataclass
 from functools import lru_cache
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
 from ..kernels import BUILD_DIR
 
-SOURCE = Path(__file__).resolve().parent / "scanner.cpp"
+SOURCES = tuple(Path(__file__).resolve().parent / name
+                for name in ("scanner.cpp", "encode_tail.cpp"))
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-shared",
              "-pthread")
@@ -82,6 +88,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         i32p, i32p, i32p, i64p, ctypes.c_int32, i32p, i32p,
         i8p, ctypes.c_int64, i64p, i32p, ctypes.c_int32,
     ]
+    lib.jt_finalize_flat.restype = ctypes.c_int64
+    lib.jt_finalize_flat.argtypes = [
+        u32p, ctypes.c_int64, i64p, ctypes.c_int64, ctypes.c_int64,
+        i8p, ctypes.c_int64, i8p, ctypes.c_int64, i64p,
+    ]
 
 
 def _run(cmd) -> subprocess.CompletedProcess:
@@ -90,7 +101,7 @@ def _run(cmd) -> subprocess.CompletedProcess:
 
 @lru_cache(maxsize=None)
 def load_library() -> NativeLibrary:
-    """Build (if needed) and load ``scanner.cpp``; raises ``RuntimeError``
+    """Build (if needed) and load the library; raises ``RuntimeError``
     with the compiler's output when it cannot."""
     try:
         # -march=native differs between hosts that share the build
@@ -103,7 +114,8 @@ def load_library() -> NativeLibrary:
                            f"({target.returncode}):\n{target.stderr}")
     h = hashlib.sha256(" ".join((CXX, *CXX_FLAGS)).encode())
     h.update(target.stdout.encode())
-    h.update(SOURCE.read_bytes())
+    for src in SOURCES:
+        h.update(src.read_bytes())
     so = BUILD_DIR / f"libjpeg_tpu_torch_host_{h.hexdigest()[:16]}.so"
     seconds = 0.0
     if not so.exists():
@@ -112,7 +124,8 @@ def load_library() -> NativeLibrary:
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
             tmp = Path(work) / so.name
             try:
-                res = _run([CXX, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)])
+                res = _run([CXX, *CXX_FLAGS, "-o", str(tmp),
+                            *map(str, SOURCES)])
             except (OSError, subprocess.TimeoutExpired) as e:
                 raise RuntimeError(f"{CXX} could not run: {e}") from e
             if res.returncode != 0:
@@ -129,19 +142,29 @@ def load_library() -> NativeLibrary:
 
 
 @lru_cache(maxsize=None)
-def _load() -> Optional[ctypes.CDLL]:
+def _attempt() -> Tuple[Optional[ctypes.CDLL], str]:
+    """The library, or None and the build's error: tried once a process."""
     try:
-        return load_library().lib
+        return load_library().lib, ""
     except RuntimeError as e:
         tail = "\n".join(str(e).splitlines()[-20:])
         warnings.warn(f"native host library unavailable, the NumPy "
                       f"backends take over: {tail}", RuntimeWarning,
-                      stacklevel=3)
-        return None
+                      stacklevel=4)
+        return None, str(e)
+
+
+def _load() -> Optional[ctypes.CDLL]:
+    return _attempt()[0]
 
 
 def available() -> bool:
     return _load() is not None
+
+
+def load_error() -> str:
+    """Why the library could not be built or loaded ("" when it was)."""
+    return _attempt()[1]
 
 
 def _ptr(a: np.ndarray, ct):
@@ -346,3 +369,38 @@ def prep_ecs_native(
             ctypes.byref(end_off),
         )
     )
+
+
+def finalize_flat_native(
+    words: np.ndarray,  # [W] uint32, the chunk's compacted segment words
+    seg_bits: np.ndarray,  # [frames * ns] bits a segment, frame-major
+    frames: int,
+    ns: int,  # segments a frame
+    header: bytes,  # SOI..SOS
+) -> List[bytes]:
+    """One JPEG byte string a frame: the header, each segment's bytes
+    padded with 1s and byte-stuffed, RSTn between segments, EOI
+    (``jt_finalize_flat``; ``DeviceEncoder._finalize_flat_ref`` is the
+    plain version)."""
+    lib = _load()
+    assert lib is not None
+    words = np.ascontiguousarray(words, dtype=np.uint32)
+    seg_bits = np.ascontiguousarray(seg_bits, dtype=np.int64)
+    if seg_bits.size != frames * ns:
+        raise ValueError(f"{seg_bits.size} bit counts for {frames} frames "
+                         f"of {ns} segments")
+    hdr = np.frombuffer(header, dtype=np.uint8)
+    # Live bytes are at most 4 a word: the worst case stuffs every one.
+    cap = frames * hdr.size + 8 * words.size + 2 * seg_bits.size
+    out = np.empty(cap, dtype=np.uint8)
+    off = np.empty(frames + 1, dtype=np.int64)
+    n = int(lib.jt_finalize_flat(
+        _ptr(words, ctypes.c_uint32), ctypes.c_int64(words.size),
+        _ptr(seg_bits, ctypes.c_int64), ctypes.c_int64(frames),
+        ctypes.c_int64(ns), _ptr(hdr, ctypes.c_uint8),
+        ctypes.c_int64(hdr.size), _ptr(out, ctypes.c_uint8),
+        ctypes.c_int64(cap), _ptr(off, ctypes.c_int64)))
+    if n < 0:
+        raise ValueError(f"jt_finalize_flat refused the chunk ({n}): "
+                         f"{words.size} words for {seg_bits.sum()} bits")
+    return [out[off[f]:off[f + 1]].tobytes() for f in range(frames)]

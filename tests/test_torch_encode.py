@@ -13,8 +13,11 @@ package's device programs on the same seeded inputs:
 
 and the port's ``DeviceEncoder`` on the CPU against jpeg_tpu's: bytes
 identical wherever the quantized blocks agree, and every output decodes
-on jpeg_tpu's serial oracle to exactly the port's blocks.
+on jpeg_tpu's serial oracle to exactly the port's blocks, with every
+chunk through the native host tail (``native.finalize_flat_native``).
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -47,6 +50,7 @@ from jpeg_tpu_torch.models import encode_dense
 from jpeg_tpu_torch.models.encode_dense import pixels_to_zz, raster_to_zz
 from jpeg_tpu_torch.ops import color, dct, quant, resample
 from jpeg_tpu_torch.utils import synth
+from jpeg_tpu_torch.utils.metrics import default_metrics
 from jpeg_tpu_torch.utils.pnm import read_pnm
 from refbin import make_pgm, make_ppm
 
@@ -283,12 +287,32 @@ def _blocks_of(jpeg, prev_idx):
                         torch.from_numpy(prev_idx)).numpy()
 
 
-@pytest.mark.parametrize("optimize", [False, True])
-def test_device_encoder_matches_jax(optimize):
+def _assert_matches_jax(case, optimize, chunk=8):
+    """The port's ``encode_batch`` against jpeg_tpu's on 3 frames: each
+    frame decodes to exactly the port's blocks, is within 1 of
+    jpeg_tpu's, and byte-identical wherever the blocks agree; every
+    chunk takes the native host tail.  Restart interval 0: both encoders
+    (which need one) at one segment a frame, with the header's DRI
+    dropped."""
+    comps, h, v, height, width, precision, ri = case
     set_precision()
-    port, ref = _encoders(3, 2, 2, 72, 96, 8, 3)
-    px = _frames(3, 72, 96, 8, 3)
-    got = port.encode_batch(torch.from_numpy(px), optimize=optimize)
+    port, ref = _encoders(comps, h, v, height, width, precision,
+                          ri or 0xFFFF)
+    if not ri:
+        assert port.n_segments == 1 and port.header == ref.header
+        dri = port.header.index(b"\xff\xdd\x00\x04")
+        header = port.header[:dri] + port.header[dri + 6:]
+        port = dataclasses.replace(port, header=header)
+        ref = dataclasses.replace(ref, header=header)
+    px = _frames(comps, height, width, precision, 3)
+    c = default_metrics.counters
+    before = (c["device_encode.native_finalize_chunks"],
+              c["device_encode.python_finalize_chunks"])
+    got = port.encode_batch(torch.from_numpy(px), optimize=optimize,
+                            chunk=chunk)
+    assert (c["device_encode.native_finalize_chunks"] - before[0],
+            c["device_encode.python_finalize_chunks"] - before[1]) \
+        == (-(-3 // chunk), 0)
     want = ref.encode_batch(px, optimize=optimize)
     blocks = port.dense(torch.from_numpy(px)).numpy().reshape(3, -1, 64)
     agree = []
@@ -304,6 +328,31 @@ def test_device_encoder_matches_jax(optimize):
         if same[i]:
             assert got[i] == want[i]
     assert any(same)
+
+
+@pytest.mark.parametrize("optimize", [False, True])
+def test_device_encoder_matches_jax(optimize):
+    _assert_matches_jax((3, 2, 2, 72, 96, 8, 3), optimize)
+
+
+# name -> ((components, h, v, height, width, precision, restart
+# interval), optimize): the native host tail under each restart layout,
+# sampling and precision, with default and per-batch tables.
+TAIL_CASES = {
+    "420_one_segment": ((3, 2, 2, 32, 48, 8, 6), False),  # 6 MCUs: no RSTn
+    "420_ri0": ((3, 2, 2, 40, 56, 8, 0), False),  # no DRI
+    "420_ri2_optimized": ((3, 2, 2, 38, 54, 8, 2), True),
+    "444_ri4": ((3, 1, 1, 24, 40, 8, 4), False),
+    "gray_ri4_optimized": ((1, 1, 1, 37, 45, 8, 4), True),
+    "p12_420_ri2": ((3, 2, 2, 32, 48, 12, 2), False),
+    "p12_420_ri2_optimized": ((3, 2, 2, 32, 48, 12, 2), True),
+}
+
+
+@pytest.mark.parametrize("case", list(TAIL_CASES))
+def test_device_encoder_native_tail_matches_jax(case):
+    geometry, optimize = TAIL_CASES[case]
+    _assert_matches_jax(geometry, optimize, chunk=2)
 
 
 @pytest.mark.parametrize("optimize", [False, True])

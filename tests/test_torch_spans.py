@@ -14,7 +14,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import jpeg_tpu_torch as jt
-from jpeg_tpu_torch import mjpeg
+from jpeg_tpu_torch import mjpeg, native
 from jpeg_tpu_torch.encoder import EncodeParams
 from jpeg_tpu_torch.models.device_encode import DeviceEncoder
 from jpeg_tpu_torch.utils import metrics
@@ -130,15 +130,26 @@ def test_rstless_stream_spans_once_a_batch(chunk, batches):
     assert got["device_decode.upload"][1] < holders
 
 
-def test_encode_finalize_splits_into_stuff_and_assemble():
+ENCODE_SPANS = {"device_encode.batch": 1, "device_encode.dense": 2,
+                "device_encode.scan": 2, "device_encode.pull": 2,
+                "device_encode.finalize": 2}
+
+
+def test_encode_finalize_splits_into_stuff_and_assemble(monkeypatch):
+    """The NumPy tail, taken without the native library."""
+    monkeypatch.setattr(native, "available", lambda: False)
     got = spans_of(encode_batch)
     calls = {k: c for k, (c, _) in got.items()}
-    assert calls == {"device_encode.batch": 1, "device_encode.dense": 2,
-                     "device_encode.scan": 2, "device_encode.pull": 2,
-                     "device_encode.finalize": 2, "device_encode.stuff": 2,
+    assert calls == {**ENCODE_SPANS, "device_encode.stuff": 2,
                      "device_encode.assemble": 2}
     assert got["device_encode.stuff"][1] + got["device_encode.assemble"][1] \
         < got["device_encode.finalize"][1]
+
+
+def test_encode_native_finalize_is_one_span():
+    assert native.available()
+    calls = {k: c for k, (c, _) in spans_of(encode_batch).items()}
+    assert calls == ENCODE_SPANS
 
 
 RUNS = {
