@@ -3602,12 +3602,14 @@ def phased_phase(card: str, dev: torch.device, streams: dict) -> dict:
     # -- times: K2 sorted against frame-major on the same chunk, in turns
     fm_args = (dec.plan, *frame_major[:2], CHUNK, spf, tb)
     so_args = (dec.plan, words, nbits, CHUNK, spf, tb)
+    # The decoder's own order, checked above: timed as the decoder
+    # launches it, with no host read of its values (a graph captures it).
     runs = {"frame-major": lambda: decode_segments_general(*fm_args),
             "sorted": lambda: decode_segments_general(
-                *so_args, perm=perm, want_nsteps=True)}
+                *so_args, perm=perm, want_nsteps=True, perm_checked=True)}
     walks = {"frame-major": lambda: place_cuda._general_layout(*fm_args),
-             "sorted": lambda: place_cuda._general_layout(*so_args,
-                                                          perm=perm)}
+             "sorted": lambda: place_cuda._general_layout(
+                 *so_args, perm=perm, perm_checked=True)}
     times = {k: [] for k in runs}
     walk_times = {k: [] for k in runs}
     for order in ("frame-major", "sorted", "sorted", "frame-major"):
@@ -3682,6 +3684,7 @@ def phased_phase(card: str, dev: torch.device, streams: dict) -> dict:
         log(f"time host_prep_ms[ri=7 rows {order}]={p[len(p) // 2]} (median "
             f"of {len(p)} runs: prep and upload of {STREAM_FRAMES} frames, "
             f"host clock; run ms {p}) [{card}]")
+    foreign_perm_phase(card, dec7, frames7)
     redo_phase(card, dec7, frames7)
     for order in ("frame-major", "sorted"):
         phased = "0" if order == "frame-major" else None
@@ -3698,6 +3701,78 @@ def phased_phase(card: str, dev: torch.device, streams: dict) -> dict:
             "replaces": "jpeg_tpu/entropy/lockstep_jax.py:499",
             "launches": launches, "max_abs_err": err, "ms": k_ms,
             "device_ms": kd_ms, "plain_ms": p_ms, **b}
+
+
+def foreign_perm_phase(card: str, dec, frames: list) -> None:
+    """A lane order from a caller is checked on the card, the decoder's
+    own is not: a repeated lane and one out of range raise ValueError
+    through ``DeviceDecoder.decode_prepared`` and
+    ``decode_segments_general``; a valid foreign order (a copy of the
+    decoder's) decodes as the decoder's own does; and a sorted batch of
+    the kept decoder makes no host sync in ``place_cuda.py`` and one host
+    read (``device_decode.readback``)."""
+    with env_vars(JPEG_TPU_PREP="rows", JPEG_TPU_PHASED=None):
+        prepared = dec.prepare(frames[:CHUNK], lane_order=True)
+    if prepared.kind != "mats":
+        raise AssertionError(f"foreign perm: a {prepared.kind} chunk")
+    words, nbits, _ = prepared
+    own = prepared.perm
+    S, spf, tb = own.numel(), dec.segs_per_frame, dec.total_blocks
+    repeated, outside = own.clone(), own.clone()
+    repeated[1] = repeated[0]
+    outside[-1] = S
+    entries = {
+        "decode_prepared": lambda p: dec.decode_prepared(
+            words, nbits, CHUNK, perm=p),
+        "decode_segments_general": lambda p: decode_segments_general(
+            dec.plan, words, nbits, CHUNK, spf, tb, perm=p)}
+    for entry, run in entries.items():
+        for label, bad in (("a repeated lane", repeated),
+                           ("a lane out of range", outside)):
+            try:
+                run(bad)
+            except ValueError as e:
+                log(f"foreign perm: {entry} with {label} raises ValueError "
+                    f"({e})")
+            else:
+                raise AssertionError(f"foreign perm: {entry} took an order "
+                                     f"with {label}")
+        want = run(own)
+        got = run(own.clone())
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"foreign perm: {entry} with a copy of the "
+                                 "decoder's order decodes otherwise")
+    sites = []
+
+    def on_warning(message, category, filename, lineno, file=None,
+                   line=None):
+        if "called a synchronizing CUDA operation" in str(message):
+            stack = traceback.extract_stack()
+            sites.append((any(f.filename.endswith("place_cuda.py")
+                              for f in stack), f"{Path(filename).name}:"
+                          f"{lineno}"))
+
+    reads = default_metrics.stages["device_decode.readback"].calls
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(), \
+            env_vars(JPEG_TPU_PREP="rows", JPEG_TPU_PHASED=None):
+        warnings.simplefilter("always")
+        warnings.showwarning = on_warning
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            dec.decode_batch(frames, chunk=CHUNK)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    reads = default_metrics.stages["device_decode.readback"].calls - reads
+    in_check = [site for inside, site in sites if inside]
+    log(f"foreign perm: a sorted {len(frames)}-frame batch of the kept "
+        f"decoder: {len(sites)} host syncs (uploads included) at "
+        f"{[site for _, site in sites]}, {reads} host read(s), none in "
+        f"place_cuda.py: {not in_check} [{card}]")
+    if in_check or reads != 1:
+        raise AssertionError(f"foreign perm: the decoder's own order made "
+                             f"syncs in place_cuda.py at {in_check}, "
+                             f"{reads} host reads")
 
 
 def redo_phase(card: str, dec, frames: list) -> None:

@@ -587,20 +587,23 @@ def partial_lanes(counts: torch.Tensor, em_key: torch.Tensor) -> torch.Tensor:
 
 
 def _check_perm(perm: Optional[torch.Tensor], S: int,
-                device: torch.device) -> int:
+                device: torch.device, checked: bool = False) -> int:
     """Validate a lane order for a CUDA launch; -> its pointer (0 for
     None).  ``perm`` must be a permutation of ``range(S)``, as
     ``DeviceDecoder.prepare(..., lane_order=True)`` gives it
     (``Prepared.perm``): the kernel writes each lane's outputs at
     ``perm[lane]`` and counts a frame laid out when ``spf`` of its lanes
-    have stored.  Its dtype, device and length are checked; its values
-    are not read back here (that would sync), only by the plain version
-    (``_check_perm_ref``)."""
+    have stored, so a lane repeated or out of range writes outside them.
+    Its dtype, device and length are checked; unless ``checked`` (the
+    caller built it as a permutation), its values too, by the plain
+    version's check on a host copy (one host read, ValueError)."""
     if perm is None:
         return 0
     _check_tensor("perm", perm, 1, device)
     if perm.shape[0] != S:
         raise ValueError(f"perm holds {perm.shape[0]} lanes, words {S}")
+    if not checked:
+        _check_perm_ref(perm.cpu(), S)
     return perm.data_ptr()
 
 
@@ -611,8 +614,8 @@ def _count_walk(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
     """The general path's first launch on a CUDA tensor: the count walk
     with the layout folded in, on the word route ``staged`` (``_route``).
     ``tickets`` holds ``frames`` int32 zeros (the walk's per-frame count of
-    lanes stored; zeros again when it ends).  ``perm`` (checked by
-    ``_check_perm``) is the lane order of ``words`` and ``nbits``;
+    lanes stored; zeros again when it ends).  ``perm`` (checked by the
+    caller, ``_check_perm``) is the lane order of ``words`` and ``nbits``;
     ``nsteps``, where given, an [S] int32 tensor that receives each lane's
     steps begun alive.  -> (counts, partial, lane_off, lane_first [S],
     contested [frames * (spf + 1)], all int32 and frame-major; bkey, the
@@ -637,7 +640,8 @@ def _count_walk(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
             _device_tables(plan, dev).data_ptr(), words.data_ptr(),
             nbits.data_ptr(), counts.data_ptr(), partial.data_ptr(),
             off.data_ptr(), first.data_ptr(), contested.data_ptr(),
-            bkey.data_ptr(), tickets.data_ptr(), _check_perm(perm, S, dev),
+            bkey.data_ptr(), tickets.data_ptr(),
+            0 if perm is None else perm.data_ptr(),
             0 if nsteps is None else nsteps.data_ptr(), S, wn, spf,
             bpm, plan.n_mcus, int(plan.interleaved), kernel_m_x(plan),
             huffval_pad(plan), _staged_ints(plan), staged, cuda_stream(dev))
@@ -649,10 +653,12 @@ def _count_walk(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
 
 def _general_layout(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
                     frames: int, spf: int, total_blocks: int,
-                    perm: Optional[torch.Tensor] = None):
+                    perm: Optional[torch.Tensor] = None,
+                    perm_checked: bool = False):
     """The general path's placement inputs, for checks: (counts, partial,
     lane_off, lane_first [S], contested [frames * (spf + 1)]), all int32
-    and frame-major (``perm`` as ``decode_segments_general``).  A CUDA
+    and frame-major (``perm`` and ``perm_checked`` as
+    ``decode_segments_general``).  A CUDA
     tensor runs the count walk alone (its layout folded in; no launch
     counted); a CPU tensor the plain scan (``scan_lanes``,
     ``partial_lanes``), ``lane_layout`` and ``contested_rows``.  Anything
@@ -666,6 +672,7 @@ def _general_layout(plan: ScanPlan, words: torch.Tensor, nbits: torch.Tensor,
         return (counts, partial, *lane_layout(counts, frames, spf),
                 contested_rows(counts, partial, frames, spf, plan.n_mcus))
     dev = _check_launch(plan, words, nbits, frames, spf, total_blocks)
+    _check_perm(perm, words.shape[0], dev, perm_checked)
     tickets = torch.zeros(frames, dtype=torch.int32, device=dev)
     return _count_walk(plan, words, nbits, frames, spf, tickets,
                        _route(words), perm)[:5]
@@ -675,7 +682,8 @@ def decode_segments_general(plan: ScanPlan, words: torch.Tensor,
                             nbits: torch.Tensor, frames: int, spf: int,
                             total_blocks: int, lane_base: LaneBase = None,
                             perm: Optional[torch.Tensor] = None,
-                            want_nsteps: bool = False):
+                            want_nsteps: bool = False,
+                            perm_checked: bool = False):
     """Decode ``frames * spf`` restart segments of any shape the kernel
     tables hold (prefix-sum placement).  Arguments and result as
     ``decode_segments``; the restart interval plays no part.
@@ -700,9 +708,11 @@ def decode_segments_general(plan: ScanPlan, words: torch.Tensor,
     sorted lane -> frame-major lane, with the rows of ``words`` and
     ``nbits`` in sorted order (``DeviceDecoder``'s sorted rows prep, the
     input of jpeg_tpu's phased scan: take it from that prep's
-    ``Prepared.perm``).  The CUDA launch does not read its values back
-    (``_check_perm``); the plain version raises ValueError for one that
-    is not a permutation.  Lanes decode in that order, where
+    ``Prepared.perm``).  One that is not a permutation raises ValueError:
+    the plain version checks it on the device, the CUDA launch on a host
+    copy (one host read, ``_check_perm``), unless ``perm_checked`` says
+    the caller built it as one (``DeviceDecoder``'s own order, so that a
+    batch keeps its one host read).  Lanes decode in that order, where
     two lanes write one coefficient the latest in (step, sorted lane)
     order wins (jpeg_tpu's ``_place_emissions(perm=...)``), and the MCU
     counts come back frame-major all the same.  ``want_nsteps`` adds a
@@ -716,7 +726,7 @@ def decode_segments_general(plan: ScanPlan, words: torch.Tensor,
                                            perm=perm, want_nsteps=want_nsteps)
     dev = _check_launch(plan, words, nbits, frames, spf, total_blocks)
     S, wn = words.shape
-    perm_ptr = _check_perm(perm, S, dev)
+    perm_ptr = _check_perm(perm, S, dev, perm_checked)
     staged = _route(words)
     # One zero fill serves the coefficients (the place walk writes into
     # zeros) and, past them, the count walk's per-frame tickets.

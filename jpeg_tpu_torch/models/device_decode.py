@@ -510,7 +510,9 @@ class DeviceDecoder:
         chunk's ``Prepared.perm``: the rows are in that lane order) and
         ``want_nsteps`` (a third result, each lane's steps begun alive,
         frame-major) take the general kernel, whatever ``place_ri`` says
-        short of the region kernel."""
+        short of the region kernel.  A ``perm`` other than this decoder's
+        own order must be a permutation of the rows, else ValueError (on
+        the card a host read checks it; the decoder's own is trusted)."""
         tb, spf = self.total_blocks, self.segs_per_frame
         if perm is not None or want_nsteps:
             if place_ri:
@@ -518,9 +520,10 @@ class DeviceDecoder:
                                        "the general kernel's")
             place_ri = 0
         if place_ri == 0:
-            out = decode_segments_general(self.plan, words, nbits, frames,
-                                          spf, tb, perm=perm,
-                                          want_nsteps=want_nsteps)
+            out = decode_segments_general(
+                self.plan, words, nbits, frames, spf, tb, perm=perm,
+                want_nsteps=want_nsteps,
+                perm_checked=perm is self._lane_order[1])
         else:
             ri = self.ri if place_ri is None else place_ri
             if place_ri is not None and not region_path(self.plan, spf, ri,
@@ -599,7 +602,9 @@ class DeviceDecoder:
         ``device_decode.phase_inflate``: the port's kernel never starves,
         but the redo gives jpeg_tpu's classic result on a damaged chunk
         (where two lanes write one coefficient, the lane order picks the
-        winner) and moves the learned bounds as jpeg_tpu's does."""
+        winner) and moves the learned bounds as jpeg_tpu's does.  The
+        frames of the "mats" chunks that stand, decoded in the learned
+        order, count in ``device_decode.lane_order_frames``."""
         n = len(jpegs)
         if n == 0:
             raise ValueError("no frames to decode")
@@ -654,6 +659,9 @@ class DeviceDecoder:
             if rec.starved:
                 outs[rec.slot] = self._inflate(jpegs[rec.lo:rec.hi], rec,
                                                finish)
+            elif rec.prepared.kind == "mats":
+                default_metrics.count("device_decode.lane_order_frames",
+                                      rec.hi - rec.lo)
             self._ladder(rec)
             self.max_steps = max(self.max_steps, rec.steps)
             want = self.plan.n_mcus * (rec.hi - rec.lo)
@@ -678,18 +686,20 @@ class DeviceDecoder:
     def _inflate(self, jpegs: Sequence[bytes], rec: _Chunk, finish):
         """Redo a starved "mats" chunk as jpeg_tpu does (:761-782): the
         frame-major prep, a decode that learns (max-folded into the lane
-        order), one host read of its MCUs and steps.  -> its output."""
+        order), one host read of its MCUs and steps, all in the span
+        ``device_decode.inflate``.  -> its output."""
         default_metrics.count("device_decode.phase_inflate")
-        prepared = self.prepare(jpegs)
-        coeffs, counts, nsteps, _ = self._dispatch(
-            prepared, len(jpegs), learn=prepared.kind == "mat")
-        out = finish(coeffs, prepared[2])
-        rec.prepared, rec.nsteps, rec.starved = prepared, nsteps, False
-        rec.steps = max(self.max_steps, self._steps_for(prepared))
-        with trace("device_decode.readback"):
-            got = torch.cat([counts.sum()[None]] + (
-                [] if nsteps is None else [nsteps.to(torch.int64)])
-            ).cpu().numpy()
+        with trace("device_decode.inflate"):
+            prepared = self.prepare(jpegs)
+            coeffs, counts, nsteps, _ = self._dispatch(
+                prepared, len(jpegs), learn=prepared.kind == "mat")
+            out = finish(coeffs, prepared[2])
+            rec.prepared, rec.nsteps, rec.starved = prepared, nsteps, False
+            rec.steps = max(self.max_steps, self._steps_for(prepared))
+            with trace("device_decode.readback"):
+                got = torch.cat([counts.sum()[None]] + (
+                    [] if nsteps is None else [nsteps.to(torch.int64)])
+                ).cpu().numpy()
         rec.mcus = int(got[0])
         if nsteps is not None:
             self._learn_chunk(rec, got[1:])

@@ -32,7 +32,13 @@ eligible one under ``JPEG_TPU_PLACE=scatter`` (both sides):
   ``make_sharded_stream_decoder`` decode it as a fresh decoder does;
 * the general kernel's plain version with an identity lane order equals
   it with none, any lane order gives the same layout, and one that is not
-  a permutation raises.
+  a permutation raises;
+* a kept decoder on ri=7, which does not tile the MCU rows, counts the
+  frames of its "mats" chunks in ``device_decode.lane_order_frames``; a
+  forced redo opens ``device_decode.inflate`` once and counts none of its
+  chunk's frames;
+* the CUDA launch's check of a caller's lane order (its host half) raises
+  as the plain version does, and the decoder trusts only its own order.
 
 jpeg_tpu's jitted programs compile on the CPU (~10-25 s each), so the
 cases share a few schedules: a module cache keeps each stream's decoders
@@ -521,3 +527,160 @@ def test_general_ref_rejects_bad_perm(bad):
     with pytest.raises(ValueError, match="perm"):
         place_cuda._general_layout(pd.plan, words, nbits, F, spf, tb,
                                    perm=perm)
+
+
+# A kept decoder on a restart interval that does not tile the MCU rows:
+# 160x96 4:2:0 is 10x6 MCUs, so ri=7 gives 9 segments a frame, the last of
+# 4, most of them across a row break (the benchmark's ri=7 shape, small).
+RI7 = (160, 96, 7)
+_RI7 = {}
+
+
+def ri7_frames():
+    """Three ri=7 frames encoded by jpeg_tpu."""
+    if "frames" not in _RI7:
+        w, h, ri = RI7
+        params = JParams(h=2, v=2, quality=75, restart_interval=ri,
+                         optimize=False)
+        _RI7["frames"] = [jax_encode(make_ppm(w, h, seed=900 + i), params)
+                          for i in range(FRAMES)]
+    return _RI7["frames"]
+
+
+def ri7_kept():
+    """A copy of a kept ri=7 decoder in "rows" prep after its learning
+    batch."""
+    if "dec" not in _RI7:
+        frames = ri7_frames()
+        with env(JPEG_TPU_PREP="rows", JPEG_TPU_PLACE=None,
+                 JPEG_TPU_PHASED=None):
+            dec = DeviceDecoder.for_stream(frames[0], "cpu")
+            assert dec.place_ri == 0 and dec.segs_per_frame == 9
+            dec.decode_batch(frames, chunk=2)
+        assert dec.sort_order is not None
+        _RI7["dec"] = dec
+    return copy.copy(_RI7["dec"])
+
+
+def _deltas(before_counters, before_spans):
+    keys = ("device_decode.mats_chunks", "device_decode.lane_order_frames",
+            "device_decode.phase_inflate")
+    got = {k: default_metrics.counters.get(k, 0) - before_counters.get(k, 0)
+           for k in keys}
+    for name in ("device_decode.inflate", "device_decode.readback"):
+        got[name] = default_metrics.stages[name].calls - before_spans.get(
+            name, 0)
+    return got
+
+
+def _snapshot():
+    return (dict(default_metrics.counters),
+            {k: s.calls for k, s in default_metrics.stages.items()})
+
+
+def test_ri7_kept_rows_counts_the_frames_in_the_lane_order():
+    """A kept ri=7 rows decoder's later batch runs in "mats" chunks:
+    ``device_decode.lane_order_frames`` counts their frames, with one host
+    read a batch and no redo; the coefficients equal jpeg_tpu's and the
+    pixels are within 1 of its ``decode_jpeg(exact=False)``."""
+    dec = ri7_kept()
+    frames = ri7_frames()
+    batch = frames * 2  # chunks of 4 and 2 frames
+    with env(JPEG_TPU_PREP="rows", JPEG_TPU_PHASED=None):
+        before = _snapshot()
+        px = dec.decode_batch(batch, chunk=4).numpy()
+        got = _deltas(*before)
+        coeffs = dec.decode_coeffs_batch(frames, chunk=4)
+    assert got == {"device_decode.mats_chunks": 2,
+                   "device_decode.lane_order_frames": len(batch),
+                   "device_decode.phase_inflate": 0,
+                   "device_decode.inflate": 0,
+                   "device_decode.readback": 1}
+    for i, f in enumerate(frames):
+        cs, planes = jpeg_tpu.decode_coefficients(f)
+        host = np.concatenate([np.asarray(planes[c.cid], np.int32)
+                               .reshape(-1, 64) for c in cs.geometry.components])
+        np.testing.assert_array_equal(coeffs[i].numpy(), host)
+        want = jpeg_tpu.decode_jpeg(f, exact=False).pixels().astype(int)
+        for k in (i, i + FRAMES):
+            assert np.abs(px[k].astype(int) - want).max() <= 1
+
+
+def test_ri7_redo_opens_inflate_and_counts_none_of_its_frames():
+    """Bounds of 8 steps a segment starve a chunk of more than 128 lanes
+    (16 frames, 144 lanes): it is redone frame-major inside one
+    ``device_decode.inflate`` span, and only the frames of the chunk that
+    stood (2 frames, 18 lanes: one phase, which cannot starve) count in
+    ``device_decode.lane_order_frames``; the pixels are the learned
+    decoder's."""
+    dec = ri7_kept()
+    frames = ri7_frames()
+    batch = (frames * 6)[:18]
+    with env(JPEG_TPU_PREP="rows", JPEG_TPU_PHASED=None):
+        want = ri7_kept().decode_batch(batch, chunk=16)
+        dec.lane_steps = np.full(dec.segs_per_frame, 8, np.int64)
+        dec.sort_order = np.arange(dec.segs_per_frame)
+        assert len(dec._phases_for(16, dec.max_steps)) > 1
+        assert len(dec._phases_for(2, dec.max_steps)) == 1
+        before = _snapshot()
+        got_px = dec.decode_batch(batch, chunk=16)
+        got = _deltas(*before)
+    assert got == {"device_decode.mats_chunks": 2,
+                   "device_decode.lane_order_frames": 2,
+                   "device_decode.phase_inflate": 1,
+                   "device_decode.inflate": 1,
+                   "device_decode.readback": 2}
+    assert dec.lane_steps.min() > 8
+    assert torch.equal(got_px, want)
+
+
+@pytest.mark.parametrize("bad", ["repeated lane", "out of range", "short"])
+def test_cuda_perm_check_host_half(bad):
+    """The CUDA launch's check of a caller's lane order (``_check_perm``),
+    run on CPU tensors: one that repeats a lane or leaves the lanes raises
+    ValueError, as the plain version does; one the caller marks as built
+    by it (``checked``) is not read."""
+    S = 18
+    perm = torch.arange(S, dtype=torch.int32)
+    if bad == "repeated lane":
+        perm[1] = 0
+    elif bad == "out of range":
+        perm[-1] = S
+    else:
+        perm = perm[:-1]
+    cpu = torch.device("cpu")
+    with pytest.raises(ValueError, match="perm"):
+        place_cuda._check_perm(perm, S, cpu)
+    if bad != "short":
+        assert place_cuda._check_perm(perm, S, cpu, checked=True) == \
+            perm.data_ptr()
+    good = torch.arange(S, dtype=torch.int32).flip(0).contiguous()
+    assert place_cuda._check_perm(good, S, cpu) == good.data_ptr()
+    assert place_cuda._check_perm(None, S, cpu) == 0
+
+
+def test_decoder_trusts_only_its_own_lane_order(monkeypatch):
+    """``decode_prepared`` marks the decoder's own cached order as checked
+    (no host read on the card) and a caller's copy of it as not."""
+    dec = ri7_kept()
+    frames = ri7_frames()
+    with env(JPEG_TPU_PREP="rows", JPEG_TPU_PHASED=None):
+        p = dec.prepare(frames, lane_order=True)
+    assert p.kind == "mats"
+    seen = []
+    real = dd.decode_segments_general
+
+    def spy(*a, perm_checked=False, **k):
+        seen.append(perm_checked)
+        return real(*a, **k)
+
+    monkeypatch.setattr(dd, "decode_segments_general", spy)
+    own = dec.decode_prepared(p[0], p[1], FRAMES, perm=p.perm)
+    copied = dec.decode_prepared(p[0], p[1], FRAMES, perm=p.perm.clone())
+    assert seen == [True, False]
+    for a, b in zip(own, copied):
+        assert torch.equal(a, b)
+    bad = p.perm.clone()
+    bad[1] = bad[0]
+    with pytest.raises(ValueError, match="perm"):
+        dec.decode_prepared(p[0], p[1], FRAMES, perm=bad)
