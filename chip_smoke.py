@@ -145,7 +145,8 @@ process exits non-zero without printing the result line:
     ``rstless_device_resident_Mpix_s``, the card's busy share, the
     device time of K8's head and tail walks, K9, and K10's piece walk and
     DC pass apart, and K8's survivors (the distinct decodes that walk past
-    the strip) in the 8-frame batch;
+    the strip) in the 8-frame batch; every batch of the main path takes
+    the native prep (``speculative.native_prep_chunks``);
 14. fast mode: ``decode_frame_fast`` (K11) against ``decode_frame_fast_ref``
     on bench frame 0, every frame of the small corpus streams and the
     crafted frames of ``synth.CRAFTED`` (a sampling ratio that does not
@@ -258,7 +259,15 @@ process exits non-zero without printing the result line:
     ``JPEG_TPU_PHASED=0`` for frame-major); what a misprediction costs
     (bounds of 8 steps: both chunks redone frame-major, pixels equal to
     the sorted batch's), timed against the sorted batch in turns; and
-    each order's profile.
+    each order's profile;
+19. the RST-less engine's host preps: an 8-frame chunk of phase 13's
+    stream through the native prep (``prepare_batch_native``) and the
+    Python prep (``prepare_batch`` of each frame's parsed segment): words
+    equal over ``pack_words``' width and zero past it, bit counts and
+    rows equal, the engine's coefficients equal, and
+    ``decode_stream_rstless`` with the stream's decoder to equal pixels
+    with and without the native library (one chunk counted by each
+    prep); both preps timed a frame (``rstless_host_prep_ms``).
 
 Every kernel's time is printed beside its bound (``bound``: the bytes it
 must move at 3.35 TB/s or its operations at the peak rate of their type
@@ -2055,7 +2064,8 @@ def rstless_phase(card: str, dev: torch.device) -> list:
              for k in ("speculative.fallbacks", "mjpeg.rstless_host_frames",
                        "speculative.resolve_rounds",
                        "speculative.recovery_rows", "speculative.mispredicts",
-                       "speculative.batches")}
+                       "speculative.batches", "speculative.native_prep_chunks",
+                       "speculative.python_prep_chunks")}
     batches = STREAM_FRAMES // CHUNK
     want_launches = {"rstless_sync": batches, "rstless_final": batches,
                      "rstless_resolve": batches}
@@ -2067,6 +2077,10 @@ def rstless_phase(card: str, dev: torch.device) -> list:
                              f"{want_launches}, {batches} each)")
     if delta["speculative.fallbacks"] or delta["mjpeg.rstless_host_frames"]:
         raise AssertionError(f"rstless main path fell back: {delta}")
+    if delta["speculative.native_prep_chunks"] != batches or \
+            delta["speculative.python_prep_chunks"]:
+        raise AssertionError(f"rstless main path: not every batch took the "
+                             f"native prep: {delta}")
     want = (STREAM_FRAMES, synth.HEIGHT, synth.WIDTH, 3)
     if tuple(out.shape) != want or out.dtype != torch.uint8 or \
             out.device.type != dev.type:
@@ -2078,7 +2092,7 @@ def rstless_phase(card: str, dev: torch.device) -> list:
         f"{delta['speculative.resolve_rounds'] / batches}, recovery rows "
         f"{delta['speculative.recovery_rows'] / batches}, mispredicts "
         f"{delta['speculative.mispredicts'] / batches}; fallbacks 0, host "
-        f"frames 0")
+        f"frames 0; native prep every batch")
 
     # ---- decoded blocks and pixels --------------------------------------
     prev = torch.from_numpy(enc.prev_idx).to(dev)
@@ -2272,6 +2286,85 @@ def rstless_phase(card: str, dev: torch.device) -> list:
              "device_ms": times[name][1], "plain_ms": times[name][2],
              **bounds[name]}
             for name in calls]
+
+
+def rstless_prep_phase(card: str, dev: torch.device) -> None:
+    """Phase 19 (the RST-less engine's two host preps): an 8-frame 1080p
+    chunk of phase 13's stream through the native prep
+    (``prepare_batch_native``, ``jt_prep_ecs`` a frame) and the Python
+    prep (``_rstless_scan`` a frame, ``prepare_batch``) on the card:
+    words equal over ``pack_words``' width and zero past it, bit counts
+    and rows equal, the engine's coefficients equal, and
+    ``decode_stream_rstless`` with the stream's decoder gives equal
+    pixels with and without the native library, each chunk counted by
+    its prep; each prep timed, host clock."""
+    mark("19")
+    from jpeg_tpu_torch import native
+    from jpeg_tpu_torch.models.device_decode import (
+        _rstless_scan,
+        decode_stream_rstless,
+    )
+
+    core, _, _ = rstless_modules()
+    _, _, frames, plan, tb, segs = rstless_stream(dev)
+    chunk = frames[:CHUNK]
+    dec = DeviceDecoder.for_stream(chunk[0], dev)
+    if not native.available():
+        raise AssertionError(f"native library: {native.load_error()}")
+    got = core.prepare_batch_native(chunk, dec.scan_start, dev)
+    if got is None:
+        raise AssertionError("the native prep refused the RST-less chunk")
+    want = core.prepare_batch(segs[:CHUNK], dev)
+    wn = want[0].shape[1]
+    if not (torch.equal(got[0][:, :wn], want[0])
+            and not bool(got[0][:, wn:].any())
+            and torch.equal(got[1], want[1])
+            and np.array_equal(got[2].row0, want[2].row0)
+            and torch.equal(got[2].frame, want[2].frame)):
+        raise AssertionError("rstless native prep: words, bit counts or rows"
+                             " differ from the Python prep's")
+    c_native = core.speculative_core(plan, tb, *got)
+    c_python = core.speculative_core(plan, tb, *want)
+    if c_native is None or c_python is None or \
+            not torch.equal(c_native[0], c_python[0]):
+        raise AssertionError("rstless native prep: coefficients differ from "
+                             "the Python prep's (or a batch was refused)")
+    counts = ("speculative.native_prep_chunks",
+              "speculative.python_prep_chunks")
+    c0 = [default_metrics.counters.get(k, 0) for k in counts]
+    px_native = decode_stream_rstless(chunk, dev, chunk=CHUNK, dec=dec)
+    c1 = [default_metrics.counters.get(k, 0) for k in counts]
+    available = native.available
+    native.available = lambda: False
+    try:
+        px_python = decode_stream_rstless(chunk, dev, chunk=CHUNK, dec=dec)
+    finally:
+        native.available = available
+    c2 = [default_metrics.counters.get(k, 0) for k in counts]
+    torch.cuda.synchronize()
+    if [b - a for a, b in zip(c0, c1)] != [1, 0] or \
+            [b - a for a, b in zip(c1, c2)] != [0, 1]:
+        raise AssertionError(f"rstless preps counted {c0} -> {c1} -> {c2} "
+                             f"(native, python): want one chunk each")
+    if not torch.equal(px_native, px_python):
+        raise AssertionError("rstless native prep: pixels differ from the "
+                             "Python prep's")
+    native_s, native_runs = median_s(
+        lambda: core.prepare_batch_native(chunk, dec.scan_start, dev),
+        E2E_RUNS)
+    python_s, python_runs = median_s(
+        lambda: core.prepare_batch([_rstless_scan(f, dec.geom,
+                                                  dec.htable_key)[1]
+                                    for f in chunk], dev), E2E_RUNS)
+    log(f"rstless prep: {CHUNK}-frame 1080p chunk, words [{CHUNK}, "
+        f"{got[0].shape[1]}] native against [{CHUNK}, {wn}] Python, equal "
+        f"over {wn} and zero past it; bit counts, rows, coefficients and "
+        f"pixels equal")
+    log(f"time rstless_host_prep_ms[native]={native_s * 1e3 / CHUNK} "
+        f"rstless_host_prep_ms[python]={python_s * 1e3 / CHUNK} a frame "
+        f"(median of {E2E_RUNS}, parse, unstuff, pack and upload, host "
+        f"clock; run ms native {[round(r * 1e3, 3) for r in native_runs]} "
+        f"python {[round(r * 1e3, 3) for r in python_runs]}) [{card}]")
 
 
 def encode_inputs(ppm: bytes, params: EncodeParams,
@@ -4249,6 +4342,7 @@ def main() -> None:
     entries += general
     entries += single_image_phase(card, dev, streams, ri7)
     entries += rstless_phase(card, dev)
+    rstless_prep_phase(card, dev)
     entries += fast_phase(card, dev, streams)
     native_phase(card, dev, streams)
     sharded = parallel_phase(card, dev, streams)

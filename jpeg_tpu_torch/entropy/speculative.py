@@ -38,7 +38,10 @@ here: no phase-variant lane roster, no capped record lists (TCAP, HCAP),
 no learned step bounds, no environment knobs.  The chunk, strip and
 piece sizes are module constants, checked once by ``check_capacity``.
 The host reads the device once a batch: the frame checks and the
-resolve stats together, after K10.
+resolve stats together, after K10.  The host prep is ``prepare_batch``
+(unstuffed segments through ``pack_words``) or, for frames that share
+one header up to their segment, ``prepare_batch_native`` (one
+``jt_prep_ecs`` pass a frame); ``speculative_core`` decodes either.
 """
 
 from __future__ import annotations
@@ -130,13 +133,48 @@ def prepare_batch(segments: Sequence[np.ndarray], device: torch.device,
     """Host prep: pack each frame's unstuffed segment into one row of
     big-endian words (``pack_words``, as ``DeviceDecoder.prepare``) and
     cut it into chunk rows; upload.  -> (words [F, wn] int32, nbits [F]
-    int32, ``Rows``), all on ``device``."""
+    int32, ``Rows``), all on ``device``.  Counted in
+    ``speculative.python_prep_chunks``."""
     segs = [np.asarray(s, np.uint8) for s in segments]
     sizes = np.array([s.size for s in segs], np.int64)
     words, nbits = pack_words(np.concatenate(segs), sizes)
     rows = Rows.build(row_layout(sizes, chunk_bytes), device)
+    default_metrics.count("speculative.python_prep_chunks")
     return (upload(words.view(np.int32), device),
             upload(nbits.astype(np.int32), device), rows)
+
+
+def prepare_batch_native(frames: Sequence[bytes], scan_start: int,
+                         device: torch.device,
+                         chunk_bytes: int = CHUNK_BYTES):
+    """The native host prep of frames that share one header up to their
+    entropy-coded segment, which starts at byte ``scan_start`` of each:
+    one C++ pass a frame (``jt_prep_ecs``) unstuffs the segment into its
+    row of a zeroed [F, wn] word matrix; upload.  ``wn`` is
+    ``pack_words``' width for the longest stuffed segment, which bounds
+    the unstuffed one, so no row overflows.  -> ``prepare_batch``'s
+    (words, nbits, ``Rows``) on ``device``: equal bit counts and rows,
+    equal words over ``pack_words``' width and zeros past it; or None
+    when the library is not available or a frame is not one segment
+    closed by EOI (malformed, truncated, another marker, RSTn inside the
+    segment): the Python prep then decides.  Counted in
+    ``speculative.native_prep_chunks``."""
+    from .. import native
+
+    if not frames or not native.available():
+        return None
+    F = len(frames)
+    wn = (max(map(len, frames)) - scan_start + 8 + 63) // 64 * 16
+    words = np.zeros((F, wn), np.uint32)
+    lens = np.zeros(F, np.int32)
+    for f, data in enumerate(frames):
+        if native.prep_ecs_native(data, scan_start, words[f:f + 1],
+                                  lens[f:f + 1]) != 1:
+            return None
+    rows = Rows.build(row_layout(lens, chunk_bytes), device)
+    default_metrics.count("speculative.native_prep_chunks")
+    return (upload(words.view(np.int32), device), upload(lens * 8, device),
+            rows)
 
 
 def speculative_core_batch(plan: ScanPlan, total_blocks: int,
@@ -146,9 +184,28 @@ def speculative_core_batch(plan: ScanPlan, total_blocks: int,
                            strip_bytes: int = STRIP_BYTES,
                            piece_bytes: Optional[int] = None):
     """Decode F same-plan RST-less segments (unstuffed uint8) on
-    ``device``.
+    ``device``: ``prepare_batch`` in a ``device_decode.spec_prepare``
+    span, then ``speculative_core``, whose result this is."""
+    check_capacity(chunk_bytes, strip_bytes, piece_bytes)
+    if not segments:
+        return _fallback("empty batch")
+    with trace("device_decode.spec_prepare"):
+        words, nbits, rows = prepare_batch(segments, device, chunk_bytes)
+    return speculative_core(plan, total_blocks, words, nbits, rows,
+                            chunk_bytes, strip_bytes, piece_bytes)
 
-    -> (coeffs [F * total_blocks, 64] int32 on ``device``, plane order,
+
+def speculative_core(plan: ScanPlan, total_blocks: int, words: torch.Tensor,
+                     nbits: torch.Tensor, rows: Rows,
+                     chunk_bytes: int = CHUNK_BYTES,
+                     strip_bytes: int = STRIP_BYTES,
+                     piece_bytes: Optional[int] = None):
+    """Decode a prepared batch of F same-plan RST-less frames (words [F,
+    wn] int32, nbits [F] int32 and their ``Rows`` of ``chunk_bytes``, as
+    ``prepare_batch`` or ``prepare_batch_native`` give them) on their
+    device.
+
+    -> (coeffs [F * total_blocks, 64] int32 on the device, plane order,
     n_use: each frame's decoded blocks, at most ``total_blocks``), or
     ``None`` when the batch is refused (counted).  The resolve rounds are
     bounded by the largest frame's row count plus one, which always
@@ -162,11 +219,10 @@ def speculative_core_batch(plan: ScanPlan, total_blocks: int,
         check_plan(plan)
     except UnsupportedError as e:
         return _fallback(f"plan: {e}")
-    if not segments:
+    if rows.F == 0:
         return _fallback("empty batch")
-    with trace("device_decode.spec_prepare"):
-        words, nbits, rows = prepare_batch(segments, device, chunk_bytes)
-        max_rounds = int(np.diff(rows.row0).max()) + 1
+    device = words.device
+    max_rounds = int(np.diff(rows.row0).max()) + 1
     default_metrics.count("speculative.batches")
     cb, sb, pb = chunk_bytes * 8, strip_bytes * 8, piece_bytes * 8
     with trace("device_decode.spec_dispatch"):

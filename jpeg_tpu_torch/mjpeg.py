@@ -110,8 +110,9 @@ def decode_stream_device(data: bytes, device, chunk: int = 8):
     chunks and the pixels stay there (``DeviceDecoder``: any restart
     layout, and small RST-less frames as one lane each).  RST-less frames
     over ``RSTLESS_DEVICE_MAX_BYTES`` bytes take the speculative engine
-    (``decode_stream_rstless``), each chunk down the JAX package's ladder
-    (jpeg_tpu/mjpeg.py:112-135): the chunk as one batch; if the engine
+    (``decode_stream_rstless`` with the decoder built for frame 0, whose
+    header selects the native prep), each chunk down the JAX package's
+    ladder (jpeg_tpu/mjpeg.py:112-135): the chunk as one batch; if the engine
     refuses it, one frame at a time; a frame it refuses too decodes with
     ``decode_jpeg(exact=False)`` (entropy on the host, dense stage on
     ``device``), its pixels uploaded and counted in
@@ -144,7 +145,7 @@ def decode_stream_device(data: bytes, device, chunk: int = 8):
             batch = parts[lo : lo + step]
             try:
                 outs.append(decode_stream_rstless(batch, dec.device,
-                                                  chunk=step))
+                                                  chunk=step, dec=dec))
                 continue
             except JpegError:
                 default_metrics.count("mjpeg.rstless_batch_fallbacks")

@@ -920,45 +920,70 @@ def _rstless_scan(data: bytes, geom=None, htable_key=None):
     return cs, unstuff(data[s:e]), key
 
 
-def decode_stream_rstless(parts: Sequence[bytes], device,
-                          chunk: int = 8) -> torch.Tensor:
+def decode_stream_rstless(parts: Sequence[bytes], device, chunk: int = 8,
+                          dec: Optional[DeviceDecoder] = None
+                          ) -> torch.Tensor:
     """RST-less frames of one geometry and Huffman tables -> pixels [F, H,
     W, C] on ``device``.
 
     Each ``chunk`` frames ride one batch of the speculative engine
     (``entropy/speculative.py``: K8-K10 on the card), then the dense tail
     (``coeffs_to_pixels``, K3) with each frame's own quantization tables.
-    Raises ``UnsupportedError`` for a mixed stream (another geometry,
-    more than one scan, restart markers, other Huffman tables: the checks
-    of ``jpeg_tpu/models/device_decode.py:941-954``) or when the engine
-    refuses a batch (counted in ``speculative.fallbacks``).
+    ``dec``, the stream's ``DeviceDecoder`` on ``device`` (as
+    ``mjpeg.decode_stream_device`` builds it), gives the geometry, plan
+    and Huffman tables, so no frame is parsed for them; without it the
+    first frame's are taken.  With ``dec``, a chunk whose frames all start
+    with ``dec.header`` takes the native prep (``prepare_batch_native``:
+    no parse, the cached tables); every other chunk, and one the native
+    pass refuses, the Python prep (``_rstless_scan`` a frame, then
+    ``prepare_batch``).  Raises ``UnsupportedError`` for a mixed stream
+    (another geometry, more than one scan, restart markers, other Huffman
+    tables: the checks of ``jpeg_tpu/models/device_decode.py:941-954``)
+    or when the engine refuses a batch (counted in
+    ``speculative.fallbacks``).
     """
-    from ..entropy.speculative import speculative_core_batch
+    from .. import native
+    from ..entropy import speculative
 
     dev = resolve(device)
     if not parts:
         raise ValueError("no frames to decode")
-    with trace("device_decode.spec_parse"):
-        cs0, _, key0 = _rstless_scan(parts[0])
-        geom = cs0.geometry
-        plan = _cached_plan(geom, cs0.scans[0].info, key0)
+    if dec is None:
+        with trace("device_decode.spec_parse"):
+            cs0, _, key0 = _rstless_scan(parts[0])
+            geom = cs0.geometry
+            plan = _cached_plan(geom, cs0.scans[0].info, key0)
+    else:
+        geom, plan, key0 = dec.geom, dec.plan, dec.htable_key
     tb = sum(c.n_blocks for c in geom.components)
     step = chunk if chunk > 0 else len(parts)
     outs = []
     for lo in range(0, len(parts), step):
-        segs, qts = [], []
-        with trace("device_decode.spec_parse"):
-            for p in parts[lo : lo + step]:
-                cs, seg, _ = _rstless_scan(p, geom, key0)
-                segs.append(seg)
-                qts.append(cs.qtables.astype(np.int32))
-        res = speculative_core_batch(plan, tb, segs, dev)
+        batch = parts[lo : lo + step]
+        prepared = None
+        if dec is not None and native.available() and \
+                all(p.startswith(dec.header) for p in batch):
+            with trace("device_decode.spec_prepare"):
+                prepared = speculative.prepare_batch_native(
+                    batch, dec.scan_start, dev)
+        if prepared is not None:
+            res = speculative.speculative_core(plan, tb, *prepared)
+            qt = dec.qtables.expand(len(batch), 4, 64)
+        else:
+            segs, qts = [], []
+            with trace("device_decode.spec_parse"):
+                for p in batch:
+                    cs, seg, _ = _rstless_scan(p, geom, key0)
+                    segs.append(seg)
+                    qts.append(cs.qtables.astype(np.int32))
+            res = speculative.speculative_core_batch(plan, tb, segs, dev)
         if res is None:
             raise UnsupportedError("speculative resolution refused the batch; "
                                    "decode frame by frame")
         with trace("device_decode.spec_dense"):
-            qt = _upload(np.stack(qts), dev)
-            outs.append(_dense_only(geom, res[0].reshape(len(segs), tb, 64),
+            if prepared is None:
+                qt = _upload(np.stack(qts), dev)
+            outs.append(_dense_only(geom, res[0].reshape(len(batch), tb, 64),
                                     qt))
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 

@@ -107,23 +107,33 @@ def test_restart_stream_spans_once_a_call_and_a_chunk(name, chunk, chunks):
     assert got["device_decode.upload"][1] < holders
 
 
+@pytest.mark.parametrize("prep", ["native", "python"])
 @pytest.mark.parametrize("chunk,batches", [(2, 2), (4, 1)])
-def test_rstless_stream_spans_once_a_batch(chunk, batches):
+def test_rstless_stream_spans_once_a_batch(monkeypatch, chunk, batches, prep):
+    """The stream's decoder gives the plan, so no frame is parsed for it.
+    Native prep: no parse, and the tables are the decoder's, with no
+    upload; the Python prep parses a batch's frames in one span and
+    uploads their tables."""
+    if prep == "python":
+        monkeypatch.setattr(native, "available", lambda: False)
     data = rstless_stream()
     got = spans_of(lambda: mjpeg.decode_stream_device(data, "cpu",
                                                       chunk=chunk))
     calls = {k: c for k, (c, _) in got.items()}
     up = calls.pop("device_decode.upload")
-    assert calls == {
+    want = {
         "device_decode.stream": 1, "device_decode.split": 1,
         "device_decode.for_stream": 1,
-        # each batch's first frame for its plan, then its frames
-        "device_decode.spec_parse": 2 * batches,
         "device_decode.spec_prepare": batches,
         "device_decode.spec_dispatch": batches,
         "device_decode.spec_readback": batches,
         "device_decode.spec_dense": batches}
-    assert up >= 1 + 3 * batches  # the tables; words, bits, rows, tables
+    if prep == "python":
+        want["device_decode.spec_parse"] = batches
+        assert up >= 1 + 3 * batches  # the tables; words, bits, rows, tables
+    else:
+        assert up == 1 + 3 * batches  # the tables; words, bits, rows
+    assert calls == want
     holders = sum(got[k][1] for k in (
         "device_decode.for_stream", "device_decode.spec_prepare",
         "device_decode.spec_dense"))

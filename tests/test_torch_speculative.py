@@ -23,6 +23,8 @@ past this file's ~60 s budget.  Its semantics are the serial oracle's,
 which every test here holds the port to.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -638,3 +640,171 @@ def test_survivors_on_bench_content_are_few():
     srv = head.group[:, st.G_SRV]
     survivors = int((srv == torch.arange(rows.R * bpm) % bpm).sum())
     assert rows.R > 8 and 0 < survivors < rows.R * bpm // 2
+
+
+# ---- the native prep (prepare_batch_native) -------------------------------
+
+def stream_frames(name):
+    data = (Path(__file__).resolve().parent / "data" / "torch_port"
+            / f"{name}.mjpeg").read_bytes()
+    return jt.mjpeg.split_stream(data)
+
+
+def big_frames(seeds=(1, 2, 3), quality=95, restart_interval=0):
+    """Frames over ``RSTLESS_DEVICE_MAX_BYTES``, of another coded size
+    each and, at one quality, one header up to the scan."""
+    params = EncodeParams(h=2, v=2, quality=quality,
+                          restart_interval=restart_interval, optimize=False,
+                          exact=False)
+    return [encode_jpeg(make_ppm(192, 128, seed=s), params) for s in seeds]
+
+
+def drop_dri(jpeg):
+    """The frame without its DRI segment: its restart markers stay in
+    the entropy-coded segment."""
+    at = jpeg.find(b"\xff\xdd\x00\x04")
+    assert 0 <= at < jpeg.find(b"\xff\xda")
+    return jpeg[:at] + jpeg[at + 6:]
+
+
+def rstless_stream(frames, dec=None):
+    from jpeg_tpu_torch.models.device_decode import decode_stream_rstless
+
+    return decode_stream_rstless(frames, "cpu", chunk=2, dec=dec)
+
+
+def outcome(fn):
+    """What ``fn()`` ends in: its result, or its exception's type and
+    message."""
+    try:
+        return fn()
+    except jt.JpegError as e:
+        return type(e), str(e)
+
+
+def same_outcome(a, b):
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor) \
+            and torch.equal(a, b)
+    return a == b
+
+
+PREP_CASES = {
+    "rstless_420": lambda: stream_frames("rstless_420"),
+    "sizes": lambda: big_frames((4, 5, 6)),
+}
+
+
+@pytest.mark.parametrize("case", list(PREP_CASES))
+def test_native_prep_equals_python_prep(case):
+    """Words equal to ``pack_words``' over its width and zero past it;
+    bit counts and rows equal."""
+    frames = PREP_CASES[case]()
+    dec = jt.DeviceDecoder.for_stream(frames[0], "cpu")
+    assert all(f.startswith(dec.header) for f in frames)
+    if case == "sizes":
+        assert len({len(f) for f in frames}) == len(frames)
+    native = counter("speculative.native_prep_chunks")
+    for chunk_bytes in (64, speculative.CHUNK_BYTES):
+        got = speculative.prepare_batch_native(frames, dec.scan_start, CPU,
+                                               chunk_bytes)
+        want = speculative.prepare_batch([segment_of(f) for f in frames],
+                                         CPU, chunk_bytes)
+        w, wn = got[0], want[0].shape[1]
+        assert w.shape[0] == len(frames) and w.shape[1] >= wn
+        assert torch.equal(w[:, :wn], want[0])
+        assert not w[:, wn:].any()
+        assert torch.equal(got[1], want[1])
+        np.testing.assert_array_equal(got[2].row0, want[2].row0)
+        for name in ("frame", "local", "last", "first", "r0", "frame32"):
+            assert torch.equal(getattr(got[2], name), getattr(want[2], name))
+    # the coefficients, at the engine's sizes (the loop's last)
+    plan, tb = plan_of(frames[0])
+    assert torch.equal(speculative.speculative_core(plan, tb, *got)[0],
+                       speculative.speculative_core(plan, tb, *want)[0])
+    assert counter("speculative.native_prep_chunks") == native + 2
+
+
+def test_stream_takes_the_native_prep_with_the_library(monkeypatch):
+    """``decode_stream_device`` gives the same pixels with and without
+    the native library: with it every chunk's prep is native, without it
+    every chunk's is the Python prep."""
+    frames = big_frames((1, 2, 3))
+    stream = b"".join(frames)
+    native0 = counter("speculative.native_prep_chunks")
+    python0 = counter("speculative.python_prep_chunks")
+    px = jt.mjpeg.decode_stream_device(stream, "cpu", chunk=2)
+    assert counter("speculative.native_prep_chunks") == native0 + 2
+    assert counter("speculative.python_prep_chunks") == python0
+    monkeypatch.setattr(jt.native, "available", lambda: False)
+    py = jt.mjpeg.decode_stream_device(stream, "cpu", chunk=2)
+    assert counter("speculative.native_prep_chunks") == native0 + 2
+    assert counter("speculative.python_prep_chunks") == python0 + 2
+    assert torch.equal(px, py)
+
+
+def test_decode_stream_rstless_with_and_without_the_library(monkeypatch):
+    """Identical pixels from the native prep, the Python prep with the
+    stream's decoder, and the Python prep without one."""
+    frames = stream_frames("rstless_420")
+    dec = jt.DeviceDecoder.for_stream(frames[0], "cpu")
+    native0 = counter("speculative.native_prep_chunks")
+    got = rstless_stream(frames, dec)
+    assert counter("speculative.native_prep_chunks") == native0 + 1
+    monkeypatch.setattr(jt.native, "available", lambda: False)
+    assert torch.equal(rstless_stream(frames, dec), got)
+    assert torch.equal(rstless_stream(frames), got)
+    assert counter("speculative.native_prep_chunks") == native0 + 1
+
+
+def test_chunk_with_another_dqt_takes_the_python_prep():
+    """A frame whose quantization tables differ from the sample's sends
+    its whole chunk to the Python prep, which dequantizes it with its
+    own tables; the chunk before it stays native."""
+    same = big_frames((1, 2, 3))
+    other = big_frames((4,), quality=80)[0]
+    dec = jt.DeviceDecoder.for_stream(same[0], "cpu")
+    assert not other.startswith(dec.header)
+    native0 = counter("speculative.native_prep_chunks")
+    python0 = counter("speculative.python_prep_chunks")
+    px = rstless_stream(same + [other], dec)
+    assert counter("speculative.native_prep_chunks") == native0 + 1
+    assert counter("speculative.python_prep_chunks") == python0 + 1
+    assert torch.equal(px[3], jt.decode_frame_rstless(other, "cpu"))
+    want = jpeg_tpu.decode_jpeg(other, exact=False).pixels()
+    assert np.abs(px[3].numpy().astype(int) - want).max() <= 1
+
+
+def test_restart_markers_inside_the_segment_raise_as_before(monkeypatch):
+    """A frame with the sample's header whose segment holds RSTn: the
+    native pass refuses it, and the Python prep raises as it does
+    without the library."""
+    a = big_frames((1,))[0]
+    rst = drop_dri(big_frames((2,), restart_interval=4)[0])
+    dec = jt.DeviceDecoder.for_stream(a, "cpu")
+    assert rst.startswith(dec.header)
+    assert speculative.prepare_batch_native([a, rst], dec.scan_start,
+                                            CPU) is None
+    python0 = counter("speculative.python_prep_chunks")
+    with pytest.raises(jt.UnsupportedError, match="restart markers"):
+        rstless_stream([a, rst], dec)
+    monkeypatch.setattr(jt.native, "available", lambda: False)
+    with pytest.raises(jt.UnsupportedError, match="restart markers"):
+        rstless_stream([a, rst], dec)
+    assert counter("speculative.python_prep_chunks") == python0
+
+
+@pytest.mark.parametrize("cut", ["no_eoi", "eoi"])
+def test_truncated_frame_ends_where_the_python_prep_ends(monkeypatch, cut):
+    """A frame cut mid-segment, without EOI (the native pass refuses it)
+    or closed by one (the engine refuses it): the stream ends as it ends
+    with the Python prep, with or without the stream's decoder."""
+    a, b = big_frames((1, 2))
+    t = b[:len(b) * 2 // 3] + (b"\xff\xd9" if cut == "eoi" else b"")
+    dec = jt.DeviceDecoder.for_stream(a, "cpu")
+    native = speculative.prepare_batch_native([a, t], dec.scan_start, CPU)
+    assert (native is None) == (cut == "no_eoi")
+    got = outcome(lambda: rstless_stream([a, t], dec))
+    monkeypatch.setattr(jt.native, "available", lambda: False)
+    assert same_outcome(got, outcome(lambda: rstless_stream([a, t], dec)))
+    assert same_outcome(got, outcome(lambda: rstless_stream([a, t])))
