@@ -38,10 +38,11 @@ process exits non-zero without printing the result line:
 4. against JAX: every single-scan corpus frame's coefficients against the
    sha256 digests jpeg_tpu produced (``digests.json``);
 5. the slice: ``mjpeg.decode_stream_device`` on a 16-frame 1080p stream,
-   with the kernels' launch counts (``coeffs_to_pixels`` and, "auto" prep
-   being flat on the card, ``rows_from_flat`` exactly once per chunk,
-   every chunk counted flat), checked against the CPU decode;
-6. times, each labelled with the prep mode "auto" resolved to:
+   with the kernels' launch counts (``coeffs_to_pixels`` and, the
+   decoder's default prep on the card being flat, ``rows_from_flat``
+   exactly once per chunk, every chunk counted flat), checked against the
+   CPU decode;
+6. times, each labelled with the prep mode (flat):
    end-to-end stream rate, device-resident rate, host prep, per
    8-frame chunk each kernel (``decode_segments``, ``coeffs_to_pixels``:
    ``dense_tail_ms``) against its plain version, their bounds and
@@ -220,25 +221,23 @@ process exits non-zero without printing the result line:
     warm), its wall time, peak device memory (per rank) and kernel
     launches printed, and the launches of both runs added to the kernels
     line (``sharded_launches``);
-17. the flat prep (``DeviceDecoder.prep_mode`` "flat", or
-    ``JPEG_TPU_PREP=flat``): K13 ``rows_from_flat`` against
+17. the flat prep (``DeviceDecoder.prep_mode`` "flat", the default on
+    the card): K13 ``rows_from_flat`` against
     ``rows_from_flat_ref`` bit for bit on the flat buffers of the 16-frame
     ri=4 and ri=7 streams' chunks, of 8-frame chunks damaged
     (``damage_frame``) and cut (``cut_frame``: segments that end inside a
     symbol), and on rows that clip at both ends; the flat decode against
     the rows decode on each (coefficients, lane MCU counts and pixels
     equal, word routes equal, the ri=4 chunks staged);
-    ``decode_stream_device`` of the 16 ri=4 frames with
-    ``JPEG_TPU_PREP=flat`` (counts set to 0 before it): K13, the segment
-    kernel and the dense tail once a chunk, every chunk counted flat, its
-    pixels equal to rows'; K13's times, bound and share; the upload bytes
+    ``decode_stream_device`` of the 16 ri=4 frames (counts set to 0
+    before it): K13, the segment kernel and the dense tail once a chunk,
+    every chunk counted flat, its pixels equal to those of a rows decoder
+    (``stream_decode``); K13's times, bound and share; the upload bytes
     of a chunk in each mode; ``host_prep_ms[rows]`` / ``[flat]`` and the
-    ri=4 and ri=7 stream rates in each mode, in turns; the measured upload
-    rate, the break-even derived from the bytes and K13's device-only time
-    beside ``ROWS_MIN_UPLOAD_BPS``, and the mode "auto" picks (phases 3-16
-    run "auto": flat on an H100; its rows batches run frame-major,
-    ``JPEG_TPU_PHASED=0``, and its counts come from ``prepare``'s
-    frame-major rows of a kept, learned decoder);
+    ri=4 and ri=7 stream rates in each mode, in turns; the break-even
+    upload rate derived from the bytes and K13's device-only time (each
+    batch there is a fresh decoder's first, frame-major, and its counts
+    come from ``prepare``'s frame-major rows);
 18. the learned lane order (jpeg_tpu's phased scan): on the 8-frame ri=7
     1080p chunk in the order its learning batch gives it, K2
     ``decode_segments_general`` with ``perm`` and ``want_nsteps`` against
@@ -252,14 +251,12 @@ process exits non-zero without printing the result line:
     K2 with a lane order twice (``lane_order_launches``, the kernels
     line's launches), no ``phase_inflate``, pixels equal to the first's,
     and a third decode gives the encoder's blocks; the same on the ri=4
-    bench stream under ``JPEG_TPU_PLACE=scatter``; times in turns of K2
-    sorted and frame-major (a call and device-only) and of the count walk
-    with its layouts, K2's bound, the plain version's time, the two
-    streams' rates and the ri=7 host prep in each order (a kept decoder,
-    ``JPEG_TPU_PHASED=0`` for frame-major); what a misprediction costs
-    (bounds of 8 steps: both chunks redone frame-major, pixels equal to
-    the sorted batch's), timed against the sorted batch in turns; and
-    each order's profile;
+    bench stream with ``place_ri = 0`` (K2); times in turns of K2 sorted
+    and frame-major (a call and device-only) and of the count walk with
+    its layouts, K2's bound, the plain version's time; what a
+    misprediction costs (bounds of 8 steps: both chunks redone
+    frame-major, pixels equal to the sorted batch's), timed against the
+    sorted batch in turns; and the sorted batch's profile;
 19. the RST-less engine's host preps: an 8-frame chunk of phase 13's
     stream through the native prep (``prepare_batch_native``) and the
     Python prep (``prepare_batch`` of each frame's parsed segment): words
@@ -377,6 +374,10 @@ except ImportError:
     # tail kernel; it times that checkout's _dense_from_coeffs instead.
     if sys.argv[1:2] != ["--time-tree"]:
         raise
+    from jpeg_tpu_torch.models.device_decode import _dense_from_coeffs
+
+    def coeffs_to_pixels(coeffs, qtables, geom):
+        return _dense_from_coeffs(coeffs, geom, qtables)
 try:
     from jpeg_tpu_torch.models.dense_fast import (
         decode_frame_fast,
@@ -389,10 +390,7 @@ except ImportError:
     # mode's kernels; it skips their cases.
     if sys.argv[1:2] != ["--time-tree"]:
         raise
-from jpeg_tpu_torch.models.device_decode import (
-    DeviceDecoder,
-    _dense_from_coeffs,
-)
+from jpeg_tpu_torch.models.device_decode import DeviceDecoder
 try:
     from jpeg_tpu_torch.models.flat_rows import rows_from_flat
 except ImportError:
@@ -3276,18 +3274,20 @@ def parallel_phase(card: str, dev: torch.device, streams: dict) -> dict:
     return launches
 
 
-@contextlib.contextmanager
-def prep_env(mode: str):
-    """``JPEG_TPU_PREP`` set to ``mode`` while the block runs."""
-    saved = os.environ.get("JPEG_TPU_PREP")
-    os.environ["JPEG_TPU_PREP"] = mode
-    try:
-        yield
-    finally:
-        if saved is None:
-            os.environ.pop("JPEG_TPU_PREP")
-        else:
-            os.environ["JPEG_TPU_PREP"] = saved
+def decoder(frame: bytes, dev: torch.device, mode: str) -> DeviceDecoder:
+    """A fresh ``DeviceDecoder`` of ``frame``'s stream in the prep
+    ``mode``."""
+    dec = DeviceDecoder.for_stream(frame, dev)
+    dec.prep_mode = mode
+    return dec
+
+
+def stream_decode(data: bytes, dev: torch.device, mode: str):
+    """``mjpeg.decode_stream_device`` of a stream with restart markers,
+    in the prep ``mode``: a fresh decoder of its first frame decodes the
+    whole stream."""
+    parts = jpeg_tpu_torch.mjpeg.split_stream(data)
+    return decoder(parts[0], dev, mode).decode_batch(parts, chunk=CHUNK)
 
 
 def flat_inputs(dec: DeviceDecoder, chunk: list, dev: torch.device) -> tuple:
@@ -3315,8 +3315,7 @@ def flat_phase(card: str, dev: torch.device, streams: dict,
                main_launches: int) -> dict:
     """Phase 17: the flat prep mode and K13 ``rows_from_flat``; -> the
     kernel's JSON entry, with ``main_launches``, K13's launches in phase
-    5's main-path run ("auto" prep)."""
-    from jpeg_tpu_torch.models import device_decode as dd
+    5's main-path run (flat prep, the card's default)."""
     from jpeg_tpu_torch.models.flat_rows import rows_from_flat_ref
 
     mark("17")
@@ -3366,19 +3365,20 @@ def flat_phase(card: str, dev: torch.device, streams: dict,
         f"for bit on {len(checked)} chunks ({', '.join(checked)}) and on rows that "
         f"clip at both ends")
 
-    # -- flat decode == rows decode on the card (the batches' rows
-    # frame-major: a kept decoder's second batch would take the learned
-    # lane order, phase 18; ``prepare`` is frame-major unless asked)
+    # -- flat decode == rows decode on the card (each batch a fresh
+    # decoder's first, whose rows are frame-major: a kept decoder's second
+    # batch would take the learned lane order, phase 18; ``prepare`` is
+    # frame-major unless asked)
     routes = {}
     for label, frames in {**cases, **damaged}.items():
         outs = {}
         for mode in ("rows", "flat"):
-            dec = DeviceDecoder.for_stream(frames[0], dev)
-            dec.prep_mode = mode
             before = dict(place_cuda.ROUTE_LAUNCHES)
-            with warnings.catch_warnings(), env_vars(JPEG_TPU_PHASED="0"):
+            with warnings.catch_warnings():
                 warnings.simplefilter("ignore", RuntimeWarning)  # damage
-                coeffs = dec.decode_coeffs_batch(frames, chunk=CHUNK)
+                coeffs = decoder(frames[0], dev, mode).decode_coeffs_batch(
+                    frames, chunk=CHUNK)
+                dec = decoder(frames[0], dev, mode)
                 px = dec.decode_batch(frames, chunk=CHUNK)
             counts = torch.cat([
                 dec.decode_prepared(*dec.prepare(frames[i:i + CHUNK])[:2],
@@ -3412,9 +3412,8 @@ def flat_phase(card: str, dev: torch.device, streams: dict,
     default_metrics.counters["device_decode.rows_prep_chunks"] = 0
     rows_from_flat.launches = 0
     decode_segments.launches = coeffs_to_pixels.launches = 0
-    with prep_env("flat"):
-        px_flat = jpeg_tpu_torch.mjpeg.decode_stream_device(stream4, dev,
-                                                            chunk=CHUNK)
+    px_flat = jpeg_tpu_torch.mjpeg.decode_stream_device(stream4, dev,
+                                                        chunk=CHUNK)
     torch.cuda.synchronize()
     launches = rows_from_flat.launches
     got = (launches, decode_segments.launches, coeffs_to_pixels.launches,
@@ -3424,15 +3423,13 @@ def flat_phase(card: str, dev: torch.device, streams: dict,
         raise AssertionError(f"flat stream decode: (rows_from_flat, "
                              f"decode_segments, coeffs_to_pixels) launches, "
                              f"(flat, rows) chunks {got}")
-    with prep_env("rows"):
-        px_rows = jpeg_tpu_torch.mjpeg.decode_stream_device(stream4, dev,
-                                                            chunk=CHUNK)
+    px_rows = stream_decode(stream4, dev, "rows")
     if not torch.equal(px_flat, px_rows):
         raise AssertionError("flat stream decode: pixels differ from rows")
-    log(f"flat: decode_stream_device of {STREAM_FRAMES} ri=4 frames with "
-        f"JPEG_TPU_PREP=flat: launches rows_from_flat {launches}, "
+    log(f"flat: decode_stream_device of {STREAM_FRAMES} ri=4 frames (flat "
+        f"prep, the card's default): launches rows_from_flat {launches}, "
         f"decode_segments {got[1]}, coeffs_to_pixels {got[2]}, flat chunks "
-        f"{got[3]}; pixels equal to JPEG_TPU_PREP=rows")
+        f"{got[3]}; pixels equal to a rows decoder's")
 
     # -- K13's times and bound on the bench chunk
     dec = DeviceDecoder.for_stream(bench[0], dev)
@@ -3473,16 +3470,14 @@ def flat_phase(card: str, dev: torch.device, streams: dict,
             torch.cuda.synchronize()
             if turn:
                 preps[mode].append((time.perf_counter() - t0) * 1e3)
-            with prep_env(mode):
-                for key, data in streams_b.items():
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    jpeg_tpu_torch.mjpeg.decode_stream_device(data, dev,
-                                                              chunk=CHUNK)
-                    torch.cuda.synchronize()
-                    if turn:
-                        rates[(key, mode)].append(
-                            mpix / (time.perf_counter() - t0))
+            for key, data in streams_b.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                stream_decode(data, dev, mode)
+                torch.cuda.synchronize()
+                if turn:
+                    rates[(key, mode)].append(
+                        mpix / (time.perf_counter() - t0))
     for mode in ("rows", "flat"):
         p = sorted(preps[mode])
         log(f"time host_prep_ms[{mode}]={p[len(p) // 2]} (median of {len(p)}"
@@ -3494,46 +3489,19 @@ def flat_phase(card: str, dev: torch.device, streams: dict,
                 f"(median of {len(r)} runs of {STREAM_FRAMES} frames from "
                 f"bytes, host clock; runs {r}) [{card}]")
 
-    # -- the upload rate, the break-even and what "auto" picks
-    rate = dd._measured_upload_rate(dev)
+    # -- the upload rate at which rows would beat flat
     even = (up["rows"] - up["flat"]) / (kd_ms / 1e3)
     even_call = (up["rows"] - up["flat"]) / (k_ms / 1e3)
-    auto = DeviceDecoder.for_stream(bench[0], dev)
-    auto.prepare(chunk)
-    log(f"flat: measured upload rate {rate} B/s "
-        f"(device_decode.upload_Bps "
-        f"{default_metrics.counters['device_decode.upload_Bps']}); "
-        f"break-even {even} B/s ({up['rows'] - up['flat']} more bytes for "
-        f"rows over K13's device-only {kd_ms} ms; {even_call} B/s over "
-        f"its whole call, {k_ms} ms), source constant "
-        f"ROWS_MIN_UPLOAD_BPS {dd.ROWS_MIN_UPLOAD_BPS}; \"auto\" picks "
-        f"{auto.prep_mode} (by the derived break-even: "
-        f"{'rows' if rate >= even else 'flat'}) [{card}]")
+    log(f"flat: break-even upload rate {even} B/s ({up['rows'] - up['flat']}"
+        f" more bytes for rows over K13's device-only {kd_ms} ms; "
+        f"{even_call} B/s over its whole call, {k_ms} ms): rows would beat "
+        f"flat only over a faster link [{card}]")
     log(f"time flat_phase_s={time.perf_counter() - t_phase} [{card}]")
     return {"name": "rows_from_flat", "route": "cuda",
             "source": "jpeg_tpu_torch/csrc/flat_rows.cu",
             "replaces": "jpeg_tpu/models/device_decode.py:272",
             "launches": main_launches, "max_abs_err": err, "ms": k_ms,
             "device_ms": kd_ms, "plain_ms": p_ms, **k_bound}
-
-
-@contextlib.contextmanager
-def env_vars(**values):
-    """Environment variables set while the block runs (None: unset)."""
-    saved = {k: os.environ.get(k) for k in values}
-    try:
-        for k, v in values.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-        yield
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
 
 
 def lane_order_case(label: str, plan: ScanPlan, words: torch.Tensor,
@@ -3577,16 +3545,14 @@ def phased_phase(card: str, dev: torch.device, streams: dict) -> dict:
                                     GENERAL_PARAMS, device=dev)
     px7 = bench_pixels(dev)
     frames7 = enc7.encode_batch(px7, optimize=False, chunk=CHUNK)
-    rows_env = dict(JPEG_TPU_PREP="rows", JPEG_TPU_PHASED=None)
 
     # -- K2 with a lane order against its plain version, on the 8-frame
     # ri=7 chunk in the order its learning batch gives it
     chunk = frames7[:CHUNK]
-    with env_vars(**rows_env, JPEG_TPU_PLACE=None):
-        dec = DeviceDecoder.for_stream(chunk[0], dev)
-        dec.decode_coeffs_batch(chunk, chunk=CHUNK)  # the learning batch
-        prepared = dec.prepare(chunk, lane_order=True)
-        frame_major = dec.prepare(chunk)
+    dec = decoder(chunk[0], dev, "rows")
+    dec.decode_coeffs_batch(chunk, chunk=CHUNK)  # the learning batch
+    prepared = dec.prepare(chunk, lane_order=True)
+    frame_major = dec.prepare(chunk)
     if dec.lane_steps is None or prepared.kind != "mats" or \
             frame_major.kind != "mat":
         raise AssertionError(f"ri=7 chunk: prep kinds {prepared.kind}, "
@@ -3640,30 +3606,27 @@ def phased_phase(card: str, dev: torch.device, streams: dict) -> dict:
             "contested MCUs)")
 
     # -- a kept decoder: its first batch learns, its second runs sorted
-    def kept(label: str, frames: list, place) -> tuple:
-        with env_vars(**rows_env, JPEG_TPU_PLACE=place):
-            d = DeviceDecoder.for_stream(frames[0], dev)
-            if d.place_ri:
-                raise AssertionError(f"{label}: takes the region kernel")
-            first = d.decode_batch(frames, chunk=CHUNK)
-            torch.cuda.synchronize()
-            if d.lane_steps is None:
-                raise AssertionError(f"{label}: the first batch learned "
-                                     "nothing")
-            keys = ("mats_chunks", "learn_chunks", "phase_inflate")
-            for k in keys:
-                default_metrics.counters[f"device_decode.{k}"] = 0
-            decode_segments_general.launches = 0
-            decode_segments_general.lane_order_launches = 0
-            decode_segments.launches = coeffs_to_pixels.launches = 0
-            second = d.decode_batch(frames, chunk=CHUNK)
-            torch.cuda.synchronize()
-            got = {k: default_metrics.counters[f"device_decode.{k}"]
-                   for k in keys}
-            got.update(k2=decode_segments_general.launches,
-                       k2_lane_order=decode_segments_general.lane_order_launches,
-                       k1=decode_segments.launches,
-                       k3=coeffs_to_pixels.launches)
+    def kept(label: str, frames: list) -> tuple:
+        d = decoder(frames[0], dev, "rows")
+        d.place_ri = 0  # K2, also where the region kernel takes the shape
+        first = d.decode_batch(frames, chunk=CHUNK)
+        torch.cuda.synchronize()
+        if d.lane_steps is None:
+            raise AssertionError(f"{label}: the first batch learned nothing")
+        keys = ("mats_chunks", "learn_chunks", "phase_inflate")
+        for k in keys:
+            default_metrics.counters[f"device_decode.{k}"] = 0
+        decode_segments_general.launches = 0
+        decode_segments_general.lane_order_launches = 0
+        decode_segments.launches = coeffs_to_pixels.launches = 0
+        second = d.decode_batch(frames, chunk=CHUNK)
+        torch.cuda.synchronize()
+        got = {k: default_metrics.counters[f"device_decode.{k}"]
+               for k in keys}
+        got.update(k2=decode_segments_general.launches,
+                   k2_lane_order=decode_segments_general.lane_order_launches,
+                   k1=decode_segments.launches,
+                   k3=coeffs_to_pixels.launches)
         chunks = -(-len(frames) // CHUNK)
         want = {"mats_chunks": chunks, "learn_chunks": 0, "phase_inflate": 0,
                 "k2": chunks, "k2_lane_order": chunks, "k1": 0, "k3": chunks}
@@ -3678,9 +3641,8 @@ def phased_phase(card: str, dev: torch.device, streams: dict) -> dict:
             f"second batch {got}: pixels equal to the first's")
         return d, got["k2_lane_order"]
 
-    dec7, launches = kept(f"ri=7 x{STREAM_FRAMES}", frames7, None)
-    with env_vars(**rows_env):
-        coeffs = dec7.decode_coeffs_batch(frames7, chunk=CHUNK)
+    dec7, launches = kept(f"ri=7 x{STREAM_FRAMES}", frames7)
+    coeffs = dec7.decode_coeffs_batch(frames7, chunk=CHUNK)
     blocks = torch.cat([enc7.dense(px7[i:i + CHUNK])
                         for i in range(0, STREAM_FRAMES, CHUNK)])
     prev = torch.from_numpy(enc7.prev_idx).to(dev)
@@ -3689,8 +3651,7 @@ def phased_phase(card: str, dev: torch.device, streams: dict) -> dict:
                              "encoder's")
     log("phased ri=7: a third, sorted decode_coeffs_batch gives the "
         "encoder's blocks")
-    dec4, launches4 = kept(f"ri=4 JPEG_TPU_PLACE=scatter x{STREAM_FRAMES}",
-                           frames4, "scatter")
+    _, launches4 = kept(f"ri=4 place_ri=0 x{STREAM_FRAMES}", frames4)
 
     # -- times: K2 sorted against frame-major on the same chunk, in turns
     fm_args = (dec.plan, *frame_major[:2], CHUNK, spf, tb)
@@ -3732,61 +3693,13 @@ def phased_phase(card: str, dev: torch.device, streams: dict) -> dict:
         f"lane order) [{card}]")
     log_bound("decode_segments_general (lane order)", k_ms, b, card, kd_ms)
 
-    # -- stream rates, kept decoders, frame-major (JPEG_TPU_PHASED=0) and
-    # sorted in turns
-    mpix = STREAM_FRAMES * synth.WIDTH * synth.HEIGHT / 1e6
-    rates = {(k, o): [] for k in ("ri=7", "ri=4 scatter")
-             for o in ("frame-major", "sorted")}
-    for turn in range(E2E_RUNS + 1):  # turn 0 warms up
-        for order in (("frame-major", "sorted") if turn % 2
-                      else ("sorted", "frame-major")):
-            phased = "0" if order == "frame-major" else None
-            for key, d, frames in (("ri=7", dec7, frames7),
-                                   ("ri=4 scatter", dec4, frames4)):
-                with env_vars(JPEG_TPU_PREP="rows", JPEG_TPU_PHASED=phased):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    d.decode_batch(frames, chunk=CHUNK)
-                    torch.cuda.synchronize()
-                if turn:
-                    rates[(key, order)].append(
-                        mpix / (time.perf_counter() - t0))
-    for (key, order), r in rates.items():
-        r = sorted(r)
-        log(f"time e2e_stream_Mpix_s[{key} rows {order}]={r[len(r) // 2]} "
-            f"(median of {len(r)} runs of {STREAM_FRAMES} frames from bytes, "
-            f"a kept decoder, host clock; runs {r}) [{card}]")
-    # Where a sorted stream's time goes against a frame-major one: the
-    # host prep alone, in turns, and each order's spans and card busy
-    # share under the profiler.
-    preps = {o: [] for o in ("frame-major", "sorted")}
-    for turn in range(E2E_RUNS + 1):
-        for order in (("frame-major", "sorted") if turn % 2
-                      else ("sorted", "frame-major")):
-            phased = "0" if order == "frame-major" else None
-            with env_vars(JPEG_TPU_PREP="rows", JPEG_TPU_PHASED=phased):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for i in range(0, STREAM_FRAMES, CHUNK):
-                    dec7.prepare(frames7[i:i + CHUNK], lane_order=True)
-                torch.cuda.synchronize()
-            if turn:
-                preps[order].append((time.perf_counter() - t0) * 1e3)
-    for order, p in preps.items():
-        p = sorted(p)
-        log(f"time host_prep_ms[ri=7 rows {order}]={p[len(p) // 2]} (median "
-            f"of {len(p)} runs: prep and upload of {STREAM_FRAMES} frames, "
-            f"host clock; run ms {p}) [{card}]")
     foreign_perm_phase(card, dec7, frames7)
     redo_phase(card, dec7, frames7)
-    for order in ("frame-major", "sorted"):
-        phased = "0" if order == "frame-major" else None
-        with env_vars(JPEG_TPU_PREP="rows", JPEG_TPU_PHASED=phased):
-            profile_window(lambda: dec7.decode_batch(frames7, chunk=CHUNK),
-                           "device_decode.", card,
-                           f"{STREAM_FRAMES}-frame ri=7 decode, a kept "
-                           f"decoder, rows {order}")
-    log(f"phased: lane-order launches ri=7 {launches}, ri=4 scatter "
+    profile_window(lambda: dec7.decode_batch(frames7, chunk=CHUNK),
+                   "device_decode.", card,
+                   f"{STREAM_FRAMES}-frame ri=7 decode, a kept decoder, "
+                   f"rows sorted")
+    log(f"phased: lane-order launches ri=7 {launches}, ri=4 place_ri=0 "
         f"{launches4}")
     log(f"time phased_phase_s={time.perf_counter() - t_phase} [{card}]")
     return {"name": "decode_segments_general (lane order)", "route": "cuda",
@@ -3804,8 +3717,7 @@ def foreign_perm_phase(card: str, dec, frames: list) -> None:
     decoder's) decodes as the decoder's own does; and a sorted batch of
     the kept decoder makes no host sync in ``place_cuda.py`` and one host
     read (``device_decode.readback``)."""
-    with env_vars(JPEG_TPU_PREP="rows", JPEG_TPU_PHASED=None):
-        prepared = dec.prepare(frames[:CHUNK], lane_order=True)
+    prepared = dec.prepare(frames[:CHUNK], lane_order=True)
     if prepared.kind != "mats":
         raise AssertionError(f"foreign perm: a {prepared.kind} chunk")
     words, nbits, _ = prepared
@@ -3847,8 +3759,7 @@ def foreign_perm_phase(card: str, dec, frames: list) -> None:
 
     reads = default_metrics.stages["device_decode.readback"].calls
     torch.cuda.synchronize()
-    with warnings.catch_warnings(), \
-            env_vars(JPEG_TPU_PREP="rows", JPEG_TPU_PHASED=None):
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
         warnings.showwarning = on_warning
         torch.cuda.set_sync_debug_mode("warn")
@@ -3878,8 +3789,7 @@ def redo_phase(card: str, dec, frames: list) -> None:
     and none of a sorted one, is redone, and unless both give the same
     pixels."""
     chunks = -(-len(frames) // CHUNK)
-    with env_vars(JPEG_TPU_PREP="rows", JPEG_TPU_PHASED=None):
-        ref = dec.decode_batch(frames, chunk=CHUNK)
+    ref = dec.decode_batch(frames, chunk=CHUNK)
     keep = (dec.lane_steps, dec.sort_order, dec.max_steps)
     ms = {"sorted": [], "mispredicted": []}
     for turn in range(E2E_RUNS + 1):  # turn 0 warms up
@@ -3889,12 +3799,11 @@ def redo_phase(card: str, dec, frames: list) -> None:
                 dec.lane_steps = np.full(dec.segs_per_frame, 8, np.int64)
                 dec.sort_order = np.arange(dec.segs_per_frame)
             default_metrics.counters["device_decode.phase_inflate"] = 0
-            with env_vars(JPEG_TPU_PREP="rows", JPEG_TPU_PHASED=None):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                px = dec.decode_batch(frames, chunk=CHUNK)
-                torch.cuda.synchronize()
-                dt = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            px = dec.decode_batch(frames, chunk=CHUNK)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) * 1e3
             redone = default_metrics.counters["device_decode.phase_inflate"]
             dec.lane_steps, dec.sort_order, dec.max_steps = keep
             want = chunks if order == "mispredicted" else 0
@@ -3958,8 +3867,8 @@ def time_tree(tree: str) -> dict:
               for i in range(0, STREAM_FRAMES, CHUNK)]
 
     def resident():
-        return tuple(_dense_from_coeffs(dec4.decode_prepared(w, n, CHUNK)[0],
-                                        dec4.geom, q) for w, n, q in prep16)
+        return tuple(coeffs_to_pixels(dec4.decode_prepared(w, n, CHUNK)[0],
+                                      q, dec4.geom) for w, n, q in prep16)
     enc = DeviceEncoder.for_config(synth.HEIGHT, synth.WIDTH, 3,
                                    GENERAL_PARAMS, device=dev)
     px = bench_pixels(dev)[:CHUNK]
@@ -4009,7 +3918,7 @@ def time_tree(tree: str) -> dict:
     cases = {
         "decode_segments ri=4": (lambda: decode_segments(*a4), digest,
                                  "routed"),
-        "dense_tail ri=4": (lambda: _dense_from_coeffs(c4, dec4.geom, q4),
+        "dense_tail ri=4": (lambda: coeffs_to_pixels(c4, q4, dec4.geom),
                             digest, "device"),
         f"device_resident ri=4 x{STREAM_FRAMES}": (resident, digest,
                                                    "device"),
@@ -4209,13 +4118,15 @@ def main() -> None:
         raise AssertionError(f"main path launched decode_segments "
                              f"{launches} times, coeffs_to_pixels "
                              f"{tail_launches} (want {chunks})")
-    # "auto" prep is flat on the card (the measured upload rate is far
-    # below ROWS_MIN_UPLOAD_BPS): every chunk through K13, once each.
-    if flat_launches != chunks or preps != {"rows": 0, "flat": chunks}:
-        raise AssertionError(f"main path launched rows_from_flat "
-                             f"{flat_launches} times, (rows, flat) prep "
-                             f"chunks {preps} (want {chunks} flat)")
-    prep = "auto=flat"
+    # The decoder's default prep on the card is flat: every chunk through
+    # K13, once each.
+    prep = decs["bench"].prep_mode
+    if prep != "flat" or flat_launches != chunks or \
+            preps != {"rows": 0, "flat": chunks}:
+        raise AssertionError(f"main path: default prep {prep}, launched "
+                             f"rows_from_flat {flat_launches} times, (rows, "
+                             f"flat) prep chunks {preps} (want {chunks} "
+                             f"flat)")
     want = (STREAM_FRAMES, 1080, 1920, 3)
     if tuple(px.shape) != want or px.dtype != torch.uint8 or not px.is_cuda:
         raise AssertionError(f"stream output {tuple(px.shape)} {px.dtype} "
@@ -4267,7 +4178,7 @@ def main() -> None:
     def resident():
         for words, nbits, qt in prepared:
             c, _ = dec.decode_prepared(words, nbits, CHUNK)
-            _dense_from_coeffs(c, dec.geom, qt)
+            coeffs_to_pixels(c, qt, dec.geom)
 
     resident()
     reps = 10
@@ -4288,7 +4199,7 @@ def main() -> None:
     log_bound("decode_segments", k_ms, region_bound, card, kd_ms)
     coeffs, _ = dec.decode_prepared(words, nbits, CHUNK)
     d_ms, dd_ms = kernel_ms(
-        "coeffs_to_pixels", lambda: _dense_from_coeffs(coeffs, dec.geom, qt),
+        "coeffs_to_pixels", lambda: coeffs_to_pixels(coeffs, qt, dec.geom),
         20, card)
     dp_ms = cuda_ms(lambda: coeffs_to_pixels_ref(coeffs, qt, dec.geom), 3)
     log(f"time dense_tail_ms={d_ms} device_ms={dd_ms} plain_ms={dp_ms} per "
@@ -4297,7 +4208,7 @@ def main() -> None:
     # K3, the dense decode tail: coefficients and the chunk's one set of
     # tables (frame stride 0) in, pixels out; a separable IDCT per block,
     # as K4 counts.
-    tail_px = _dense_from_coeffs(coeffs, dec.geom, qt)
+    tail_px = coeffs_to_pixels(coeffs, qt, dec.geom)
     tail_bound = bound(nbytes(coeffs, qt[:1], tail_px),
                        coeffs.shape[0] * coeffs.shape[1] * 2 * 64 * 8 * 2,
                        "float32")

@@ -1,8 +1,8 @@
 // coeffs_to_pixels: the dense decode tail for Hopper (sm_90a), plane-major
 // quantized coefficients to interleaved pixel frames.
 //
-// Replaces the JAX package's XLA device program
-// jpeg_tpu/models/device_decode.py::_dense_from_coeffs (dequantize
+// Replaces the JAX package's XLA dense device program
+// (jpeg_tpu/models/device_decode.py:149: dequantize
 // ops/quant.dequantize, IDCT + level shift models/batch.decode_blocks_batch,
 // nearest-neighbour upsampling ops/resample.upsample_nn, colour
 // ops/color.ycc_to_rgb_planar / to_rgb, roundf, clip and the interleave).

@@ -1,8 +1,9 @@
 """Dense decode tail: plane-major coefficients -> pixel frames.
 
-``coeffs_to_pixels`` is the port of the JAX package's device program
-``device_decode._dense_from_coeffs`` (dequantize -> IDCT -> level shift
--> nearest-neighbour upsample -> colour -> round/clip -> uint8/uint16).
+``coeffs_to_pixels`` is the port of the JAX package's dense device
+program (``jpeg_tpu/models/device_decode.py:149``: dequantize -> IDCT ->
+level shift -> nearest-neighbour upsample -> colour -> round/clip ->
+uint8/uint16).
 On a CUDA tensor it launches the hand-written kernel
 ``csrc/decode_dense.cu``, a persistent grid whose CTAs walk the tiles of
 MCUs (``tile_plan``), each tile's coefficients copied in by its runs

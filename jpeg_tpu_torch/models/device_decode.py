@@ -23,13 +23,13 @@ kernel (K2) in "rows" prep, the first batch of a kept decoder learns each
 segment's symbol count (``_learn``), and later batches write their rows
 longest first (``"mats"`` chunks) and decode them with that lane order,
 so that a warp's lanes are of like length.  ``decode_batch`` takes the
-order by default, as jpeg_tpu does, for parity with it (on the H100 it
-has shown no gain over frame-major rows yet; ``JPEG_TPU_PHASED=0`` turns
-it off); ``prepare`` gives it only when asked.  jpeg_tpu's step bounds
-(``max_steps``, ``_phases_for``) are tracked as jpeg_tpu tracks them; the
-phase schedule decides only whether a chunk would have starved there
-(``device_decode.phase_inflate``: it is then redone frame-major, learning
-again, as jpeg_tpu redoes it).
+order, as jpeg_tpu does, for parity with it (on the H100 it has shown no
+gain over frame-major rows yet); ``prepare`` gives it only when asked,
+and ``decode_prepared`` decodes its frame-major rows.  jpeg_tpu's step
+bounds (``max_steps``, ``_phases_for``) are tracked as jpeg_tpu tracks
+them; the phase schedule decides only whether a chunk would have starved
+there (``device_decode.phase_inflate``: it is then redone frame-major,
+learning again, as jpeg_tpu redoes it).
 
 ``decode_frame_device`` is the single-frame entry: every scan of a
 multi-scan (e.g. non-interleaved) frame decodes on the device into its
@@ -38,8 +38,6 @@ slice of the planes, then the dense stage runs once.
 
 from __future__ import annotations
 
-import os
-import time
 import warnings
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
@@ -65,58 +63,19 @@ from ..models.decode_dense import coeffs_to_pixels
 from ..models.flat_rows import rows_from_flat
 from ..utils.metrics import default_metrics, trace
 
-PREP_MODES = ("auto", "rows", "flat")
-PLACE_MODES = ("auto", "pallas", "scatter")
-_UPLOAD_RATE: dict = {}  # measured host->device B/s by device, once each
+PREP_MODES = ("rows", "flat")
 
 
-def _measured_upload_rate(device: torch.device) -> float:
-    """The sustained host->device rate of ``_upload`` in bytes a second,
-    measured once per process and device; "auto" prep picks by it.
-
-    A 4 MB warm-up, then a 32 MB buffer timed to a synchronize (jpeg_tpu's
-    probe, ``jpeg_tpu/models/device_decode.py:50``), recorded in
-    ``device_decode.upload_Bps``.  A failed upload raises.  On the CPU
-    nothing is uploaded (the prep's tensors are its arrays): the rate is
-    infinite, "auto" takes rows, and nothing is recorded."""
-    key = str(device)
-    if key in _UPLOAD_RATE:
-        return _UPLOAD_RATE[key]
-    if device.type == "cpu":
-        _UPLOAD_RATE[key] = float("inf")
-        return _UPLOAD_RATE[key]
-    _upload(np.ones(1 << 20, np.uint32), device)
-    torch.cuda.synchronize(device)
-    buf = np.ones(8 << 20, np.uint32)
-    t0 = time.perf_counter()
-    _upload(buf, device)
-    torch.cuda.synchronize(device)
-    rate = _UPLOAD_RATE[key] = buf.nbytes / (time.perf_counter() - t0)
-    default_metrics.counters["device_decode.upload_Bps"] = int(rate)
-    return rate
-
-
-# "auto" takes rows at or above this measured upload rate, flat below it.
-# It is the break-even of the 8-frame 1080p 4:2:0 q75 ri=4 chunk: the
-# 2,277,632 bytes that rows upload beyond flat's, over the 0.00279 ms that
-# K13 (flat's one extra step) takes on the card, device only, as
-# chip_smoke.py phase 17 derives it on an NVIDIA H100 80GB HBM3 at
-# 700.00 W.  Later runs there derived 6.26e11-6.59e11 B/s (K13 at
-# 0.0035-0.0036 ms); the constant keeps the first reading, since any
-# value in that range picks the same mode.  That card's pageable uploads
-# measured 4.8e9-7.7e9 B/s, so "auto" is flat on it, and so it stays on
-# any PCIe-class link (PCIe 5.0 x16 peaks at 6.4e10 B/s), even against a
-# break-even timed by K13's whole call (0.0228-0.0330 ms: 6.9e10-1.0e11
-# B/s).  jpeg_tpu's 800 MB/s is a TPU figure, not used.
-ROWS_MIN_UPLOAD_BPS = 8.16e11
-
-
-def _dense_from_coeffs(coeffs: torch.Tensor, geom: FrameGeometry,
-                       qtables: torch.Tensor) -> torch.Tensor:
-    """[F, total_blocks, 64] plane-ordered coefficients and [F, 4, 64]
-    per-frame tables -> device pixels [F, H, W, C] (uint8, or uint16
-    above 8 bits): the dense tail kernel, or its plain version on CPU."""
-    return coeffs_to_pixels(coeffs, qtables, geom)
+def default_prep_mode(device: torch.device) -> str:
+    """The native prep's mode on ``device``: "flat" on a CUDA card, else
+    "rows".  On the CPU the upload hands back the host array itself, so
+    the rows cost no copy.  On a card, rows would beat flat only over a
+    link of 6.3e11-8.2e11 B/s or more: the 2,277,632 bytes a rows upload
+    moves beyond flat's per 8-frame 1080p 4:2:0 ri=4 chunk, over K13's
+    0.0028-0.0036 ms of device time (chip_smoke.py phase 17, H100 80GB
+    HBM3 at 700 W, whose pageable uploads ran at 4.8e9-7.7e9 B/s).  PCIe
+    5.0 x16 peaks at 6.4e10 B/s, Grace Hopper's C2C at about 4.5e11."""
+    return "flat" if device.type == "cuda" else "rows"
 
 
 class Prepared(tuple):
@@ -189,26 +148,22 @@ class DeviceDecoder:
     # zero-padded [S, wn] lane matrix on the host and uploads it; "flat"
     # packs the segments back to back in one buffer (about the compressed
     # size), uploads that and rebuilds the matrix on the device
-    # (``rows_from_flat``, K13); "auto" measures the upload rate once
-    # (``_measured_upload_rate``) and becomes "rows" at or above
-    # ``ROWS_MIN_UPLOAD_BPS``, else "flat".  ``JPEG_TPU_PREP`` overrides.
-    prep_mode: str = "auto"
+    # (``rows_from_flat``, K13).  ``for_stream`` sets it from the device
+    # (``default_prep_mode``); a caller may set either mode later.
+    prep_mode: str
     flat_blen: int = 0  # sticky flat buffer length in words (only grows)
     # jpeg_tpu's learned lane order: each segment's predicted steps (the
     # most any frame's lane took in the learning pass, plus 4, max-folded
     # over chunks) and the segments by descending prediction.  Set by the
     # first batch of "mat" chunks on the general kernel; "rows" chunks
-    # after it are written in this order ("mats").  JPEG_TPU_PHASED=0
-    # keeps them frame-major.
+    # after it are written in this order ("mats").
     lane_steps: Optional[np.ndarray] = None  # [spf] predicted steps
     sort_order: Optional[np.ndarray] = None  # [spf] seg ids, desc pred
     # The placement, jpeg_tpu's ``place_ri``: the stream's restart
     # interval for the one-pass region kernel (K1), 0 for the general
-    # kernel (K2).  JPEG_TPU_PLACE picks it: "auto" (default) takes K1
-    # wherever ``region_path`` holds, "scatter" never; "pallas" is an alias
-    # of "auto" (jpeg_tpu's "pallas" forces its region kernel where the
-    # shape is eligible, which the port's "auto" already does on every
-    # device).  Only K2 learns a lane order.
+    # kernel (K2).  ``for_stream`` takes K1 wherever ``region_path``
+    # holds; set 0 before the first batch to force K2.  Only K2 learns a
+    # lane order.
     place_ri: int = 0
     # The last lane order, (key, perm on the device, perm), and the phase
     # budgets of its last schedule, (key, frame-major budgets): a "mats"
@@ -234,11 +189,6 @@ class DeviceDecoder:
         qt = cs.qtables.astype(np.int32)
         lens = _segment_bytes(sample_jpeg, scan.ecs_ranges)
         scan_start = scan.ecs_ranges[0][0]
-        mode = os.environ.get("JPEG_TPU_PLACE", "auto")
-        if mode not in PLACE_MODES:
-            raise ValueError(f"JPEG_TPU_PLACE={mode!r}: one of {PLACE_MODES}")
-        region = mode != "scatter" and region_path(plan, spf, scan.ri,
-                                                   total_blocks)
         return DeviceDecoder(
             plan=plan,
             geom=cs.geometry,
@@ -252,7 +202,9 @@ class DeviceDecoder:
             scan_start=scan_start,
             wn=_row_words(int(lens.max())),
             max_steps=_max_steps_for(lens * 8, plan, scan.ri),
-            place_ri=scan.ri if region else 0,
+            prep_mode=default_prep_mode(dev),
+            place_ri=(scan.ri if region_path(plan, spf, scan.ri, total_blocks)
+                      else 0),
         )
 
     @property
@@ -270,10 +222,9 @@ class DeviceDecoder:
         frame-major (lane ``f * segs_per_frame + k``), as
         ``decode_prepared`` and the sharded decoders read them, unless
         ``lane_order`` asks for the learned order: in the native "rows"
-        mode, once ``sort_order`` is learned (and ``JPEG_TPU_PHASED`` is
-        not "0"), the chunk is then "mats", its rows and bit counts in
-        that order, and its ``perm`` must go to ``decode_prepared`` with
-        them (``decode_batch`` does this).
+        mode, once ``sort_order`` is learned, the chunk is then "mats",
+        its rows and bit counts in that order, and its ``perm`` must go
+        to ``decode_prepared`` with them (``decode_batch`` does this).
 
         A chunk whose frames all start with the sample frame's header
         takes the native prep (``_prepare_native``) when the native
@@ -334,33 +285,27 @@ class DeviceDecoder:
 
     def _prepare_native(self, jpegs: Sequence[bytes],
                         lane_order: bool = False):
-        """The native prep, in the mode ``prep_mode`` (or
-        ``JPEG_TPU_PREP``) names; "auto" resolves once, by the measured
-        upload rate, and the decoder keeps the mode it picked.  Frames
-        that start with the sample frame's header bytes share its
-        geometry, Huffman tables, restart interval and quantization
-        tables, so the tables are the cached set, with no upload.
-        -> ``prepare``'s ``Prepared``, or None for the Python prep: the library
-        is not available, a frame's header differs (e.g. a DQT that
-        changes from frame to frame), or a frame is not ``segs_per_frame``
-        segments closed by EOI (malformed, truncated, other markers), so
-        that every bad frame fails one way.  A "rows" chunk the rows
-        refuse (rows that still overflow after their widenings, or a bad
-        frame) goes to the flat prep, as in jpeg_tpu."""
+        """The native prep, in the mode ``prep_mode`` names (any other
+        value raises ValueError).  Frames that start with the sample
+        frame's header bytes share its geometry, Huffman tables, restart
+        interval and quantization tables, so the tables are the cached
+        set, with no upload.  -> ``prepare``'s ``Prepared``, or None for
+        the Python prep: the library is not available, a frame's header
+        differs (e.g. a DQT that changes from frame to frame), or a frame
+        is not ``segs_per_frame`` segments closed by EOI (malformed,
+        truncated, other markers), so that every bad frame fails one way.
+        A "rows" chunk the rows refuse (rows that still overflow after
+        their widenings, or a bad frame) goes to the flat prep, as in
+        jpeg_tpu."""
         from .. import native
 
+        if self.prep_mode not in PREP_MODES:
+            raise ValueError(f"prep mode {self.prep_mode!r}: one of "
+                             f"{PREP_MODES}")
         if not native.available() or \
                 not all(d.startswith(self.header) for d in jpegs):
             return None
-        mode = os.environ.get("JPEG_TPU_PREP", self.prep_mode)
-        if mode not in PREP_MODES:
-            raise ValueError(f"prep mode {mode!r}: one of {PREP_MODES}")
-        if mode == "auto":
-            self.prep_mode = mode = (
-                "rows"
-                if _measured_upload_rate(self.device) >= ROWS_MIN_UPLOAD_BPS
-                else "flat")
-        if mode == "rows":
+        if self.prep_mode == "rows":
             prepared = self._prepare_native_rows(jpegs, lane_order)
             if prepared is not None:
                 default_metrics.count("device_decode.rows_prep_chunks")
@@ -387,8 +332,7 @@ class DeviceDecoder:
         8 bytes of slack, widens ``wn`` and redoes the chunk.
 
         Asked for the lane order (``lane_order``), once one is learned
-        (``sort_order``, and ``JPEG_TPU_PHASED`` is not "0"), the rows
-        are written in it, as
+        (``sort_order``), the rows are written in it, as
         jpeg_tpu's (``jpeg_tpu/models/device_decode.py:441-499``,
         ``jt_prep_ecs_rows``): row ``rank * frames + f`` holds frame
         ``f``'s segment of rank ``rank``, the bit counts follow the rows,
@@ -398,9 +342,7 @@ class DeviceDecoder:
         from .. import native
 
         spf, frames = self.segs_per_frame, len(jpegs)
-        sort = (self.sort_order
-                if lane_order and self.sort_order is not None
-                and os.environ.get("JPEG_TPU_PHASED", "1") != "0" else None)
+        sort = self.sort_order if lane_order else None
         if sort is not None:
             rank_of = np.empty(spf, np.int64)
             rank_of[sort] = np.arange(spf)
@@ -783,7 +725,7 @@ class DeviceDecoder:
         with trace("device_decode.batch"):
             return self._run(
                 jpegs, chunk,
-                lambda c, qt: _dense_from_coeffs(c, self.geom, qt),
+                lambda c, qt: coeffs_to_pixels(c, qt, self.geom),
                 fallback=self._fallback_chunk,
             )
 
@@ -850,13 +792,6 @@ def _host_pixels(data: bytes, geom: FrameGeometry,
     return _upload(px, device)
 
 
-def _dense_only(geom: FrameGeometry, coeffs: torch.Tensor,
-                qtables: torch.Tensor) -> torch.Tensor:
-    """[F, total_blocks, 64] coefficients and [F, 4, 64] tables ->
-    [F, H, W, C] device pixels."""
-    return _dense_from_coeffs(coeffs, geom, qtables)
-
-
 def decode_frame_device(data: bytes, device) -> torch.Tensor:
     """One JPEG (any scan structure the kernel tables hold) -> pixels
     [H, W, C] on ``device``.
@@ -899,7 +834,7 @@ def decode_frame_device(data: bytes, device) -> torch.Tensor:
         o = comp_off[scan.info.component_ids[0]]
         coeffs[o : o + nb] = c_i
     qt = _upload(cs.qtables.astype(np.int32)[None], dev)
-    return _dense_only(geom, coeffs[None], qt)[0]
+    return coeffs_to_pixels(coeffs[None], qt, geom)[0]
 
 
 def _rstless_scan(data: bytes, geom=None, htable_key=None):
@@ -983,8 +918,8 @@ def decode_stream_rstless(parts: Sequence[bytes], device, chunk: int = 8,
         with trace("device_decode.spec_dense"):
             if prepared is None:
                 qt = _upload(np.stack(qts), dev)
-            outs.append(_dense_only(geom, res[0].reshape(len(batch), tb, 64),
-                                    qt))
+            outs.append(coeffs_to_pixels(
+                res[0].reshape(len(batch), tb, 64), qt, geom))
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 

@@ -222,7 +222,7 @@ def make_sharded_stream_decoder(dec, mesh: DeviceMesh, frames: int,
     fits).  ``mcu_counts`` takes the place of JAX's ``starved``: a frame
     decoded whole has ``dec.plan.n_mcus`` MCUs.
     """
-    from ..models.device_decode import _dense_from_coeffs
+    from ..models.decode_dense import coeffs_to_pixels
 
     _, n, _ = _frame_index(mesh)
     if frames % n:
@@ -242,7 +242,7 @@ def make_sharded_stream_decoder(dec, mesh: DeviceMesh, frames: int,
             raise ValueError(f"words hold {w.shape[0]} lanes a rank, want "
                              f"{fpd} frames x {spf}")
         coeffs, counts = dec.decode_prepared(w, nb, fpd, place_ri=place_ri)
-        px = _dense_from_coeffs(coeffs, dec.geom, qt)
+        px = coeffs_to_pixels(coeffs, qt, dec.geom)
         return (DTensor.from_local(px, mesh, part, run_check=False),
                 DTensor.from_local(counts, mesh, part, run_check=False))
 

@@ -1,6 +1,6 @@
 """PyTorch port: dense decode tail vs jpeg_tpu (CPU).
 
-The port's ``_dense_from_coeffs`` -- on the CPU the plain version
+The port's ``coeffs_to_pixels`` -- on the CPU the plain version
 ``decode_dense.coeffs_to_pixels_ref`` (dequant -> Kronecker IDCT matmul ->
 upsample -> colour -> round/clip) -- against the JAX package's
 ``device_decode._dense_only`` on the same coefficients: within +-1 per
@@ -47,7 +47,6 @@ from jpeg_tpu_torch.models.decode_dense import (
     tile_plan,
     tile_runs,
 )
-from jpeg_tpu_torch.models.device_decode import _dense_from_coeffs
 from jpeg_tpu_torch.ops import color, dct
 from jpeg_tpu_torch.ops.resample import upsample_nn
 from jpeg_tpu_torch.utils.floatops import roundf
@@ -96,9 +95,9 @@ def test_dense_tail_matches_jax(name, noise):
     qt = pcs.qtables.astype(np.int32)
     ref = np.asarray(_dense_only(jcs.geometry, jnp.asarray(coeffs),
                                  jnp.asarray(qt)))
-    got = _dense_from_coeffs(
-        torch.from_numpy(coeffs), pcs.geometry,
-        torch.from_numpy(qt).expand(len(frames), 4, 64))
+    got = coeffs_to_pixels(
+        torch.from_numpy(coeffs),
+        torch.from_numpy(qt).expand(len(frames), 4, 64), pcs.geometry)
     assert got.is_contiguous()
     assert got.dtype == (torch.uint8 if pcs.geometry.precision <= 8
                          else torch.uint16)

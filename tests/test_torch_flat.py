@@ -19,11 +19,14 @@ do.  Held here:
   zeros); the intact frames equal jpeg_tpu's host decode, and the whole
   chunk jpeg_tpu's flat device program (its flat prep, the gather, its
   scan and placement);
-* "auto" picks by the measured upload rate, ``JPEG_TPU_PREP`` overrides
-  the field, "rows" that keep overflowing fall through to flat, bad
-  frames and another header go to the Python prep, and the counters
-  count the mode that ran;
-* the upload probe raises when its upload raises, and measures once.
+* ``for_stream`` takes rows on the CPU and flat on a card, the
+  ``prep_mode`` field set later takes effect on the next chunk and any
+  other mode raises, "rows" that keep overflowing fall through to flat,
+  bad frames and another header go to the Python prep, and the counters
+  count the mode that ran.
+
+jpeg_tpu's decoder takes its mode from ``JPEG_TPU_PREP``, which the tests
+set for it; the port's from its field.
 """
 
 import numpy as np
@@ -75,6 +78,7 @@ def streams():
 
 @pytest.fixture(autouse=True)
 def no_env_mode(monkeypatch):
+    """jpeg_tpu's decoder in its default mode unless a test sets one."""
     monkeypatch.delenv("JPEG_TPU_PREP", raising=False)
 
 
@@ -106,11 +110,12 @@ def cut(frame):
 def test_flat_prep_equals_jpeg_tpu(streams, name, grow, monkeypatch):
     """Buffer, starts, bit counts, wn and blen byte for byte, on a large
     chunk and then a smaller one (the length sticks)."""
-    monkeypatch.setenv("JPEG_TPU_PREP", "flat")
+    monkeypatch.setenv("JPEG_TPU_PREP", "flat")  # jpeg_tpu's mode
     frames = frames_of(name) if name == "bench" else streams[name]
     big = [frames[i % len(frames)] for i in range(2 * FRAMES)]
     jd = JaxDecoder.for_stream(frames[0])
     pd = DeviceDecoder.for_stream(frames[0], "cpu")
+    pd.prep_mode = "flat"
     assert pd.wn == jd.wn
     if grow:
         jd.wn = pd.wn = 4  # every segment of more than 8 bytes widens it
@@ -242,46 +247,44 @@ def test_flat_decode_equals_rows_and_jpeg_tpu(streams, name, monkeypatch):
     np.testing.assert_array_equal(lanes, j_counts)
 
 
-@pytest.mark.parametrize("rate,mode", [(0.5, "flat"), (1.0, "rows"),
-                                       (2.0, "rows")])
-def test_auto_picks_by_the_measured_rate(streams, rate, mode, monkeypatch):
+@pytest.mark.parametrize("device,mode", [("cpu", "rows"), ("cuda", "flat")])
+def test_for_stream_takes_the_device_default(streams, device, mode,
+                                              monkeypatch):
+    """``default_prep_mode`` of the device, set by ``for_stream``: rows on
+    the CPU, flat on a card (here a stand-in: the card's tensors are the
+    host arrays, so no card is needed)."""
     frames = streams["420_ri2"]
-    seen = []
-
-    def measured(device):
-        seen.append(device)
-        return rate * dd.ROWS_MIN_UPLOAD_BPS
-
-    monkeypatch.setattr(dd, "_measured_upload_rate", measured)
-    dec = DeviceDecoder.for_stream(frames[0], "cpu")
-    assert dec.prep_mode == "auto"
-    for _ in range(2):  # "auto" resolves once
-        before = _counts()
-        dec.prepare(frames)
-        assert _delta(before) == ((1, 0, 1, 0) if mode == "rows"
-                                  else (1, 0, 0, 1))
-    assert dec.prep_mode == mode and seen == [dec.device]
+    dev = torch.device(device)
+    assert dd.default_prep_mode(dev) == mode
+    if device == "cuda":
+        monkeypatch.setattr(dd, "resolve", lambda d: dev)
+        monkeypatch.setattr(dd, "_upload", lambda a, d: torch.from_numpy(a))
+    dec = DeviceDecoder.for_stream(frames[0], device)
+    assert dec.device == dev and dec.prep_mode == mode
+    before = _counts()
+    dec.prepare(frames)
+    assert _delta(before) == ((1, 0, 1, 0) if mode == "rows"
+                              else (1, 0, 0, 1))
 
 
-def test_env_overrides_the_field(streams, monkeypatch):
+@pytest.mark.parametrize("mode", ["rows", "flat", "auto", "padded"])
+def test_the_field_set_later_takes_effect(streams, mode):
+    """A mode set after construction (and after a chunk in the other mode)
+    takes the next chunk; "auto" and every other name raise."""
     frames = streams["422_ri3"]
     dec = DeviceDecoder.for_stream(frames[0], "cpu")
-    for field, env, counted in (("rows", "flat", (1, 0, 0, 1)),
-                                ("flat", "rows", (1, 0, 1, 0)),
-                                ("rows", None, (1, 0, 1, 0)),
-                                ("flat", None, (1, 0, 0, 1))):
-        dec.prep_mode = field
-        if env is None:
-            monkeypatch.delenv("JPEG_TPU_PREP", raising=False)
-        else:
-            monkeypatch.setenv("JPEG_TPU_PREP", env)
-        before = _counts()
-        dec.prepare(frames)
-        assert _delta(before) == counted, (field, env)
-        assert dec.prep_mode == field
-    monkeypatch.setenv("JPEG_TPU_PREP", "padded")
-    with pytest.raises(ValueError, match="prep mode"):
-        dec.prepare(frames)
+    dec.prep_mode = "flat" if mode == "rows" else "rows"
+    dec.prepare(frames)
+    dec.prep_mode = mode
+    if mode not in dd.PREP_MODES:
+        with pytest.raises(ValueError, match="prep mode"):
+            dec.prepare(frames)
+        return
+    before = _counts()
+    dec.prepare(frames)
+    assert _delta(before) == ((1, 0, 1, 0) if mode == "rows"
+                              else (1, 0, 0, 1))
+    assert dec.prep_mode == mode
 
 
 def test_rows_overflow_falls_through_to_flat(streams, monkeypatch):
@@ -306,12 +309,12 @@ def test_rows_overflow_falls_through_to_flat(streams, monkeypatch):
     assert torch.equal(got, want)
 
 
-def test_bad_frames_take_the_python_prep_in_flat_mode(streams, monkeypatch):
+def test_bad_frames_take_the_python_prep_in_flat_mode(streams):
     """A truncated frame (fewer segments) and a frame whose header
     differs (another quality) go to the Python prep."""
-    monkeypatch.setenv("JPEG_TPU_PREP", "flat")
     frames = streams["420_ri2"]
     dec = DeviceDecoder.for_stream(frames[0], "cpu")
+    dec.prep_mode = "flat"
     other = jax_encode(make_ppm(64, 48, seed=99), JParams(
         h=2, v=2, quality=50, restart_interval=2, optimize=False))
     for chunk in ([frames[0], _truncated(frames[1])], [frames[0], other]):
@@ -320,31 +323,3 @@ def test_bad_frames_take_the_python_prep_in_flat_mode(streams, monkeypatch):
         assert _delta(before) == (0, 1, 0, 0)
     np.testing.assert_array_equal(
         qt.numpy()[1], parse_codestream(other).qtables.astype(np.int32))
-
-
-def test_upload_probe_raises_when_the_upload_raises(monkeypatch):
-    monkeypatch.setattr(dd, "_UPLOAD_RATE", {})
-
-    def fail(a, dev):
-        raise RuntimeError("upload failed")
-
-    monkeypatch.setattr(dd, "_upload", fail)
-    for _ in range(2):  # nothing is cached after a failure
-        with pytest.raises(RuntimeError, match="upload failed"):
-            dd._measured_upload_rate(torch.device("cuda"))
-    assert dd._UPLOAD_RATE == {}
-
-
-def test_upload_probe_measures_once_per_device(monkeypatch):
-    monkeypatch.setattr(dd, "_UPLOAD_RATE", {})
-    sent = []
-    monkeypatch.setattr(dd, "_upload", lambda a, dev: sent.append(a.nbytes))
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
-    cuda = torch.device("cuda")
-    rate = dd._measured_upload_rate(cuda)
-    assert sent == [4 << 20, 32 << 20] and 0 < rate < float("inf")
-    assert default_metrics.counters["device_decode.upload_Bps"] == int(rate)
-    assert dd._measured_upload_rate(cuda) == rate and len(sent) == 2
-    assert dd._measured_upload_rate(torch.device("cpu")) == float("inf")
-    assert len(sent) == 2  # nothing moves on the CPU, nothing is recorded
-    assert default_metrics.counters["device_decode.upload_Bps"] == int(rate)

@@ -7,9 +7,11 @@ native ``jt_prep_ecs_rows``), which its phased scan narrows over
 (``_scan_lanes_phased`` + ``_place_emissions(perm=...)``).  The port keeps
 the learning, the order, the schedule and the starvation rule, and
 decodes a "mats" chunk with the general kernel's lane order (its plain
-version here).  Held against jpeg_tpu run on the CPU, with
-``JPEG_TPU_PREP=rows``, on a general-shape 4:2:0 stream and on an
-eligible one under ``JPEG_TPU_PLACE=scatter`` (both sides):
+version here).  Held against jpeg_tpu run on the CPU in "rows" prep, on
+a general-shape 4:2:0 stream and on an eligible one on the general
+kernel (jpeg_tpu under ``JPEG_TPU_PREP=rows`` and
+``JPEG_TPU_PLACE=scatter``, the port's decoder with ``prep_mode`` "rows"
+and ``place_ri`` 0):
 
 * the copies of ``_max_steps_for`` and ``_grow_steps`` equal the
   originals over a seeded grid;
@@ -25,8 +27,9 @@ eligible one under ``JPEG_TPU_PLACE=scatter`` (both sides):
   phase budget) equals ``_scan_lanes_phased``'s at the exact boundary;
 * a misprediction starves, redoes the chunk frame-major, counts
   ``phase_inflate`` and learns as jpeg_tpu does, to the classic decode;
-* ``JPEG_TPU_PHASED=0``, the flat prep and the region placement never
-  sort, and ``JPEG_TPU_PLACE`` picks the placement;
+* ``prepare`` without ``lane_order``, the flat prep and the region
+  placement never sort, and ``place_ri = 0`` takes the general kernel on
+  a stream that the region kernel takes;
 * a kept decoder's public ``prepare`` stays frame-major after learning,
   so ``decode_prepared``, a slice of its rows by frame and
   ``make_sharded_stream_decoder`` decode it as a fresh decoder does;
@@ -71,7 +74,8 @@ from refbin import make_ppm
 from test_torch_flat import cut
 from test_torch_native import _damaged
 
-# name -> (width, height, restart interval, JPEG_TPU_PLACE); 4:2:0 q75
+# name -> (width, height, restart interval, jpeg_tpu's JPEG_TPU_PLACE);
+# 4:2:0 q75, both on the general kernel
 STREAMS = {
     "420_ri3_general": (80, 64, 3, "auto"),  # 5 MCUs a row, short last
     "420_ri1_scatter": (160, 120, 1, "scatter"),  # eligible: 80 segments
@@ -99,8 +103,18 @@ def env(**values):
 
 
 def stream_env(name, **more):
+    """jpeg_tpu's settings for the stream: rows prep, its placement."""
     return env(JPEG_TPU_PREP="rows", JPEG_TPU_PLACE=STREAMS[name][3],
                JPEG_TPU_PHASED=None, **more)
+
+
+def port_decoder(name, frame):
+    """The port's decoder of the stream as jpeg_tpu's is set: rows prep,
+    the general kernel."""
+    dec = DeviceDecoder.for_stream(frame, "cpu")
+    dec.prep_mode = "rows"
+    dec.place_ri = 0
+    return dec
 
 
 _FRAMES = {}
@@ -133,7 +147,7 @@ def learned(name):
         chunk = chunk_of(name)
         with stream_env(name):
             jd = JaxDecoder.for_stream(chunk[0])
-            pd = DeviceDecoder.for_stream(chunk[0], "cpu")
+            pd = port_decoder(name, chunk[0])
             assert jd.place_ri == pd.place_ri == 0
             assert jd.lane_steps is pd.lane_steps is None
             before = default_metrics.counters["device_decode.learn_chunks"]
@@ -364,7 +378,7 @@ def test_misprediction_redoes_the_chunk():
             got = pd2.decode_coeffs_batch(chunk, chunk=F)
         assert default_metrics.counters[key] - p0 == 2
         np.testing.assert_array_equal(pd2.lane_steps, pd.lane_steps)
-        fresh = DeviceDecoder.for_stream(chunk[0], "cpu")
+        fresh = port_decoder(name, chunk[0])
         with pytest.warns(RuntimeWarning, match="MCUs"):
             want = fresh.decode_coeffs_batch(chunk, chunk=F)
     assert torch.equal(got, want)
@@ -375,44 +389,54 @@ def test_misprediction_redoes_the_chunk():
         np.testing.assert_array_equal(got[i].numpy(), host)
 
 
-@pytest.mark.parametrize("how", ["phased=0", "flat"])
+@pytest.mark.parametrize("how", ["prepare", "flat"])
 def test_phased_off_and_flat_never_sort(how):
+    """A learned decoder's ``prepare`` without ``lane_order`` and its flat
+    prep stay frame-major, as jpeg_tpu's prep does under
+    ``JPEG_TPU_PHASED=0`` and ``JPEG_TPU_PREP=flat``: no "mats" chunk,
+    no learning."""
     name = "420_ri3_general"
     jd, pd, _, _ = learned(name)
     chunk = chunk_of(name)
-    more = ({"JPEG_TPU_PHASED": "0"} if how == "phased=0"
+    more = ({"JPEG_TPU_PHASED": "0"} if how == "prepare"
             else {"JPEG_TPU_PREP": "flat"})
     keys = ("device_decode.mats_chunks", "device_decode.learn_chunks")
     with stream_env(name), env(**more):
         kind = jd._prepare_native(chunk)[0]
-        before = [default_metrics.counters[k] for k in keys]
-        assert pd.prepare(chunk, lane_order=True).kind == kind == (
-            "mat" if how == "phased=0" else "flat")
-        learned_steps = pd.lane_steps.copy()
+    before = [default_metrics.counters[k] for k in keys]
+    learned_steps = pd.lane_steps.copy()
+    if how == "prepare":
+        p = pd.prepare(chunk)
+        assert p.kind == kind == "mat"
+        pd.decode_prepared(p[0], p[1], len(chunk), place_ri=pd.place_ri)
+    else:
+        pd.prep_mode = "flat"
+        assert pd.prepare(chunk, lane_order=True).kind == kind == "flat"
         with pytest.warns(RuntimeWarning, match="MCUs"):
             pd.decode_batch(chunk, chunk=len(chunk))
     assert [default_metrics.counters[k] for k in keys] == before
     np.testing.assert_array_equal(pd.lane_steps, learned_steps)
 
 
-@pytest.mark.parametrize("mode", ["auto", "pallas", "scatter", "bogus"])
-def test_place_mode(mode):
-    """``JPEG_TPU_PLACE``: the eligible stream takes the region kernel
-    (no learning) unless "scatter"; the general one never does."""
-    eligible = frames_of("420_ri1_scatter")
-    general = frames_of("420_ri3_general")
+@pytest.mark.parametrize("name", list(STREAMS))
+@pytest.mark.parametrize("place", ["default", "place_ri=0"])
+def test_place_mode(name, place):
+    """``for_stream`` takes the region kernel where the stream's segments
+    tile the MCU rows (as jpeg_tpu's ``JPEG_TPU_PLACE=pallas``), and
+    never learns there; ``place_ri = 0`` takes the general kernel (as
+    ``JPEG_TPU_PLACE=scatter``), which learns from its first batch.  The
+    general-shape stream takes the general kernel either way."""
+    frames = frames_of(name)
+    dec = DeviceDecoder.for_stream(frames[0], "cpu")
+    region = name == "420_ri1_scatter"
+    assert dec.place_ri == (1 if region else 0)
+    if place == "place_ri=0":
+        dec.place_ri = 0
+    mode = "scatter" if dec.place_ri == 0 else "pallas"
     with env(JPEG_TPU_PLACE=mode, JPEG_TPU_PREP="rows"):
-        if mode == "bogus":
-            with pytest.raises(ValueError, match="JPEG_TPU_PLACE"):
-                DeviceDecoder.for_stream(eligible[0], "cpu")
-            return
-        dec = DeviceDecoder.for_stream(eligible[0], "cpu")
-        assert dec.place_ri == (0 if mode == "scatter" else 1)
-        assert DeviceDecoder.for_stream(general[0], "cpu").place_ri == 0
-        if mode != "auto":  # jpeg_tpu's "auto" wants a TPU
-            assert JaxDecoder.for_stream(eligible[0]).place_ri == dec.place_ri
-        dec.decode_batch(eligible)
-    assert (dec.lane_steps is None) == (mode != "scatter")
+        assert JaxDecoder.for_stream(frames[0]).place_ri == dec.place_ri
+    dec.decode_batch(frames)
+    assert (dec.lane_steps is None) == (dec.place_ri != 0)
 
 
 def test_general_ref_lane_order():
@@ -422,36 +446,35 @@ def test_general_ref_lane_order():
     name = "420_ri3_general"
     pd = DeviceDecoder.for_stream(frames_of(name)[0], "cpu")
     spf, tb = pd.segs_per_frame, pd.total_blocks
-    with env(JPEG_TPU_PREP="rows", JPEG_TPU_PHASED=None):
-        for frames in (frames_of(name), chunk_of(name)[FRAMES:]):
-            F = len(frames)
-            words, nbits, _ = pd.prepare(frames)
-            base = place_cuda.decode_segments_general_ref(
-                pd.plan, words, nbits, F, spf, tb, want_nsteps=True)
-            ident = place_cuda.decode_segments_general(
-                pd.plan, words, nbits, F, spf, tb,
-                perm=torch.arange(F * spf, dtype=torch.int32),
-                want_nsteps=True)
-            for a, b in zip(base, ident):
+    for frames in (frames_of(name), chunk_of(name)[FRAMES:]):
+        F = len(frames)
+        words, nbits, _ = pd.prepare(frames)
+        base = place_cuda.decode_segments_general_ref(
+            pd.plan, words, nbits, F, spf, tb, want_nsteps=True)
+        ident = place_cuda.decode_segments_general(
+            pd.plan, words, nbits, F, spf, tb,
+            perm=torch.arange(F * spf, dtype=torch.int32),
+            want_nsteps=True)
+        for a, b in zip(base, ident):
+            assert torch.equal(a, b)
+        assert torch.equal(
+            base[0], place_cuda.decode_segments_general_ref(
+                pd.plan, words, nbits, F, spf, tb)[0])
+        perm = torch.from_numpy(np.random.default_rng(F).permutation(
+            F * spf).astype(np.int32))
+        shuffled = place_cuda.decode_segments_general(
+            pd.plan, words[perm.long()], nbits[perm.long()], F, spf, tb,
+            perm=perm, want_nsteps=True)
+        if frames is frames_of(name):
+            for a, b in zip(base, shuffled):
                 assert torch.equal(a, b)
-            assert torch.equal(
-                base[0], place_cuda.decode_segments_general_ref(
-                    pd.plan, words, nbits, F, spf, tb)[0])
-            perm = torch.from_numpy(np.random.default_rng(F).permutation(
-                F * spf).astype(np.int32))
-            shuffled = place_cuda.decode_segments_general(
-                pd.plan, words[perm.long()], nbits[perm.long()], F, spf, tb,
-                perm=perm, want_nsteps=True)
-            if frames is frames_of(name):
-                for a, b in zip(base, shuffled):
-                    assert torch.equal(a, b)
-            lay = place_cuda._general_layout(pd.plan, words, nbits, F, spf,
-                                             tb)
-            got = place_cuda._general_layout(pd.plan, words[perm.long()],
-                                             nbits[perm.long()], F, spf, tb,
-                                             perm=perm)
-            for a, b in zip(lay, got):
-                assert torch.equal(a, b)
+        lay = place_cuda._general_layout(pd.plan, words, nbits, F, spf,
+                                         tb)
+        got = place_cuda._general_layout(pd.plan, words[perm.long()],
+                                         nbits[perm.long()], F, spf, tb,
+                                         perm=perm)
+        for a, b in zip(lay, got):
+            assert torch.equal(a, b)
     with pytest.raises(dd.UnsupportedError, match="general kernel"):
         pd.decode_prepared(words, nbits, F, place_ri=3,
                            perm=torch.arange(F * spf, dtype=torch.int32))
@@ -486,12 +509,12 @@ def test_kept_decoder_prepare_is_frame_major(name, one_rank_mesh):
     with stream_env(name):
         assert pd.sort_order is not None
         words, nbits, qt = pd.prepare(chunk)
-        fresh = DeviceDecoder.for_stream(chunk[0], "cpu")
+        fresh = port_decoder(name, chunk[0])
         with pytest.warns(RuntimeWarning, match="MCUs"):
             want = fresh.decode_coeffs_batch(chunk, chunk=F)
         with pytest.warns(RuntimeWarning, match="MCUs"):  # fresh again
-            want_px = DeviceDecoder.for_stream(chunk[0], "cpu").decode_batch(
-                chunk, chunk=F)
+            want_px = port_decoder(name, chunk[0]).decode_batch(chunk,
+                                                                chunk=F)
     ri = pd.place_ri  # the decoder's placement (K2 for both streams)
     coeffs, counts = pd.decode_prepared(words, nbits, F, place_ri=ri)
     assert torch.equal(coeffs, want)
@@ -552,11 +575,9 @@ def ri7_kept():
     batch."""
     if "dec" not in _RI7:
         frames = ri7_frames()
-        with env(JPEG_TPU_PREP="rows", JPEG_TPU_PLACE=None,
-                 JPEG_TPU_PHASED=None):
-            dec = DeviceDecoder.for_stream(frames[0], "cpu")
-            assert dec.place_ri == 0 and dec.segs_per_frame == 9
-            dec.decode_batch(frames, chunk=2)
+        dec = DeviceDecoder.for_stream(frames[0], "cpu")
+        assert dec.place_ri == 0 and dec.segs_per_frame == 9
+        dec.decode_batch(frames, chunk=2)
         assert dec.sort_order is not None
         _RI7["dec"] = dec
     return copy.copy(_RI7["dec"])
@@ -586,11 +607,10 @@ def test_ri7_kept_rows_counts_the_frames_in_the_lane_order():
     dec = ri7_kept()
     frames = ri7_frames()
     batch = frames * 2  # chunks of 4 and 2 frames
-    with env(JPEG_TPU_PREP="rows", JPEG_TPU_PHASED=None):
-        before = _snapshot()
-        px = dec.decode_batch(batch, chunk=4).numpy()
-        got = _deltas(*before)
-        coeffs = dec.decode_coeffs_batch(frames, chunk=4)
+    before = _snapshot()
+    px = dec.decode_batch(batch, chunk=4).numpy()
+    got = _deltas(*before)
+    coeffs = dec.decode_coeffs_batch(frames, chunk=4)
     assert got == {"device_decode.mats_chunks": 2,
                    "device_decode.lane_order_frames": len(batch),
                    "device_decode.phase_inflate": 0,
@@ -616,15 +636,14 @@ def test_ri7_redo_opens_inflate_and_counts_none_of_its_frames():
     dec = ri7_kept()
     frames = ri7_frames()
     batch = (frames * 6)[:18]
-    with env(JPEG_TPU_PREP="rows", JPEG_TPU_PHASED=None):
-        want = ri7_kept().decode_batch(batch, chunk=16)
-        dec.lane_steps = np.full(dec.segs_per_frame, 8, np.int64)
-        dec.sort_order = np.arange(dec.segs_per_frame)
-        assert len(dec._phases_for(16, dec.max_steps)) > 1
-        assert len(dec._phases_for(2, dec.max_steps)) == 1
-        before = _snapshot()
-        got_px = dec.decode_batch(batch, chunk=16)
-        got = _deltas(*before)
+    want = ri7_kept().decode_batch(batch, chunk=16)
+    dec.lane_steps = np.full(dec.segs_per_frame, 8, np.int64)
+    dec.sort_order = np.arange(dec.segs_per_frame)
+    assert len(dec._phases_for(16, dec.max_steps)) > 1
+    assert len(dec._phases_for(2, dec.max_steps)) == 1
+    before = _snapshot()
+    got_px = dec.decode_batch(batch, chunk=16)
+    got = _deltas(*before)
     assert got == {"device_decode.mats_chunks": 2,
                    "device_decode.lane_order_frames": 2,
                    "device_decode.phase_inflate": 1,
@@ -664,8 +683,7 @@ def test_decoder_trusts_only_its_own_lane_order(monkeypatch):
     (no host read on the card) and a caller's copy of it as not."""
     dec = ri7_kept()
     frames = ri7_frames()
-    with env(JPEG_TPU_PREP="rows", JPEG_TPU_PHASED=None):
-        p = dec.prepare(frames, lane_order=True)
+    p = dec.prepare(frames, lane_order=True)
     assert p.kind == "mats"
     seen = []
     real = dd.decode_segments_general
