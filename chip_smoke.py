@@ -184,7 +184,10 @@ process exits non-zero without printing the result line:
     ``mjpeg.decode_stream_device`` with every chunk counted native
     (``device_decode.native_prep_chunks``, none in
     ``python_prep_chunks``) and one launch of each kernel a chunk, its
-    pixels equal to the Python prep's; ``host_prep_ms`` and the stream
+    stream entry on the native walks (``mjpeg.native_splits`` and
+    ``device_decode.native_for_stream`` once, neither ``python_*``
+    counter), its pixels equal to the Python prep's (which takes the
+    Python walks too); ``host_prep_ms`` and the stream
     rate under each prep, in turns; ``encode_batch`` of the 16 bench
     frames with every chunk counted in
     ``device_encode.native_finalize_chunks`` (none in
@@ -2705,6 +2708,16 @@ def prep_counts() -> tuple:
             c.get("device_decode.python_prep_chunks", 0))
 
 
+ENTRY_COUNTERS = ("mjpeg.native_splits", "mjpeg.python_splits",
+                  "device_decode.native_for_stream",
+                  "device_decode.python_for_stream")
+
+
+def entry_counts() -> tuple:
+    """The stream entry's walk counters, ``ENTRY_COUNTERS``' order."""
+    return tuple(default_metrics.counters.get(k, 0) for k in ENTRY_COUNTERS)
+
+
 def cli_run(args: list) -> subprocess.Popen:
     """``python -m jpeg_tpu_torch.cli`` with ``args``, started from the
     repository root (the checkout's package) in the background."""
@@ -2776,6 +2789,7 @@ def native_phase(card: str, dev: torch.device, streams: dict) -> None:
     default_metrics.counters["device_decode.native_prep_chunks"] = 0
     default_metrics.counters["device_decode.python_prep_chunks"] = 0
     decode_segments.launches = coeffs_to_pixels.launches = 0
+    e0 = entry_counts()
     px = jpeg_tpu_torch.mjpeg.decode_stream_device(stream, dev, chunk=CHUNK)
     torch.cuda.synchronize()
     counts = prep_counts()
@@ -2784,6 +2798,12 @@ def native_phase(card: str, dev: torch.device, streams: dict) -> None:
         raise AssertionError(f"native stream decode: (native, python) prep "
                              f"chunks {counts}, decode_segments and "
                              f"coeffs_to_pixels launches {launches}")
+    entry = tuple(b - a for a, b in zip(e0, entry_counts()))
+    if entry != (1, 0, 1, 0):
+        raise AssertionError(f"native stream decode: the stream entry's "
+                             f"walks {dict(zip(ENTRY_COUNTERS, entry))}, "
+                             f"want one native split and one native "
+                             f"for_stream")
     with python_prep():
         px_py = jpeg_tpu_torch.mjpeg.decode_stream_device(stream, dev,
                                                           chunk=CHUNK)
@@ -2792,8 +2812,9 @@ def native_phase(card: str, dev: torch.device, streams: dict) -> None:
                              "prep's")
     log(f"native: decode_stream_device of {STREAM_FRAMES} frames, "
         f"(native, python) prep chunks {counts}, launches decode_segments "
-        f"{launches[0]}, coeffs_to_pixels {launches[1]}; pixels equal to "
-        f"the Python prep's")
+        f"{launches[0]}, coeffs_to_pixels {launches[1]}, stream entry "
+        f"{dict(zip(ENTRY_COUNTERS, entry))}; pixels equal to the Python "
+        f"prep's")
 
     # -- times: each prep, and the stream rate under each, in turns
     mpix = STREAM_FRAMES * 1920 * 1080 / 1e6

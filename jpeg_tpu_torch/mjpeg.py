@@ -5,8 +5,9 @@ the implicit Annex-K tables" (common.c:90-99) -- there is no container
 parsing.  This module adds the stream-level pieces around that:
 
   * ``split_stream``: cut a concatenated-JPEG byte stream (the common
-    raw .mjpeg layout: SOI..EOI SOI..EOI ...) into frames (copied
-    unchanged from the JAX package);
+    raw .mjpeg layout: SOI..EOI SOI..EOI ...) into frames: one native
+    walk (``native/stream_entry.cpp``), or ``_split_stream_py``, the
+    JAX package's NumPy walk, where the native library is not available;
   * ``decode_stream``: decode every frame with ``api.decode_jpeg``,
     isolating per-frame failures (``StreamResult``);
   * ``decode_stream_device``: decode a stream into pixels that stay on
@@ -35,6 +36,23 @@ RSTLESS_DEVICE_MAX_BYTES = 8192
 
 def split_stream(data: bytes) -> List[bytes]:
     """Split concatenated JPEG frames on SOI..EOI boundaries.
+
+    One C++ walk of the stream (``native.split_stream_native``) while the
+    native library is available, else ``_split_stream_py``: the same
+    rules, the same frames.  ``mjpeg.native_splits`` and
+    ``python_splits`` count which walk ran.
+    """
+    from . import native
+
+    if native.available():
+        default_metrics.count("mjpeg.native_splits")
+        return [data[s:e] for s, e in native.split_stream_native(data)]
+    default_metrics.count("mjpeg.python_splits")
+    return _split_stream_py(data)
+
+
+def _split_stream_py(data: bytes) -> List[bytes]:
+    """``split_stream``'s NumPy walk (the JAX package's).
 
     Marker-aware: length-prefixed segment payloads are skipped, so an
     EXIF/APPn-embedded thumbnail (which contains its own SOI/EOI) cannot

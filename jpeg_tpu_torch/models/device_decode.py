@@ -56,7 +56,7 @@ from ..entropy.place_cuda import (
     region_path,
 )
 from ..entropy.steps import _grow_steps, _max_steps_for
-from ..errors import UnsupportedError
+from ..errors import JpegError, UnsupportedError
 from ..format.parse import parse_codestream, unstuff, unstuff_ranges
 from ..geometry import FrameGeometry
 from ..models.decode_dense import coeffs_to_pixels
@@ -173,21 +173,30 @@ class DeviceDecoder:
 
     @staticmethod
     def for_stream(sample_jpeg: bytes, device) -> "DeviceDecoder":
+        """The decoder of the stream whose frames are like ``sample_jpeg``.
+
+        While the native library is available, only the frame's header is
+        parsed, and one ``jt_prep_ecs_flat`` walk from its first
+        entropy-coded byte gives the segments' unstuffed lengths
+        (``_native_head``); a frame that walk or the header parse refuses
+        is parsed whole (``_parsed_head``), and raises as that parse
+        does.  Both give equal decoders.  ``device_decode.native_for_stream``
+        and ``python_for_stream`` count which ran."""
         dev = resolve(device)
-        cs = parse_codestream(sample_jpeg)
-        if cs.geometry is None or len(cs.scans) != 1:
-            raise UnsupportedError("device decoder needs a single-scan frame")
-        scan = cs.scans[0]
-        htable_key = tuple(sorted(scan.htables.items()))
-        plan = _cached_plan(cs.geometry, scan.info, htable_key)
+        head = _native_head(sample_jpeg)
+        if head is None:
+            default_metrics.count("device_decode.python_for_stream")
+            head = _parsed_head(sample_jpeg)
+        else:
+            default_metrics.count("device_decode.native_for_stream")
+        cs, scan, htable_key, plan, lens = head
         # Any restart layout, none included (one lane per frame): shapes
         # that tile the MCU rows take the one-pass region kernel, the
         # rest the general one (entropy.place_cuda.decode_segments).
-        spf = len(scan.ecs_ranges)
+        spf = lens.size
         total_blocks = sum(c.n_blocks for c in cs.geometry.components)
         check_shape(plan, 1, spf, total_blocks)
         qt = cs.qtables.astype(np.int32)
-        lens = _segment_bytes(sample_jpeg, scan.ecs_ranges)
         scan_start = scan.ecs_ranges[0][0]
         return DeviceDecoder(
             plan=plan,
@@ -758,6 +767,89 @@ def phase_budgets(phases, lanes: int) -> np.ndarray:
         acc += t
         out[phases[p + 1][0] if p + 1 < len(phases) else 0:n] = acc
     return out
+
+
+def _parsed_head(data: bytes):
+    """``for_stream``'s whole-frame parse: -> (codestream, its one scan,
+    the scan's Huffman table key, its plan, each segment's unstuffed
+    length [S] int64)."""
+    cs = parse_codestream(data)
+    if cs.geometry is None or len(cs.scans) != 1:
+        raise UnsupportedError("device decoder needs a single-scan frame")
+    scan = cs.scans[0]
+    htable_key = tuple(sorted(scan.htables.items()))
+    plan = _cached_plan(cs.geometry, scan.info, htable_key)
+    return cs, scan, htable_key, plan, _segment_bytes(data, scan.ecs_ranges)
+
+
+def _native_head(data: bytes):
+    """``_parsed_head``'s result without the whole-frame parse, or None.
+
+    ``parse_codestream`` reads only the header, closed by an EOI after
+    its last byte (``_first_ecs_byte``), and one ``jt_prep_ecs_flat``
+    walk from there gives the segments' unstuffed lengths.  None, for
+    the whole parse, when the library is not available, the header parse
+    raises or does not end its one scan's header there, the walk refuses
+    the rest (a marker other than RST and EOI: a second scan, a DNL, a
+    table; garbage; no EOI), or the frame has more segments than its
+    restart interval gives.  Else the whole parse reads the same header
+    bytes and only segments after them, so it gives the same result."""
+    from .. import native
+
+    if not native.available():
+        return None
+    data = bytes(data)
+    k = _first_ecs_byte(data)
+    if k is None:
+        return None
+    try:
+        cs = parse_codestream(data[:k] + b"\xff\xd9")
+    except JpegError:
+        return None
+    if cs.geometry is None or len(cs.scans) != 1 or \
+            cs.scans[0].ecs_ranges[0][0] != k:
+        return None
+    # Every segment after the first follows a 2-byte RST marker.
+    rows = (len(data) - k) // 2 + 1
+    starts = np.empty(rows, np.int32)
+    lens = np.empty(rows, np.int32)
+    words = np.empty((len(data) - k) // 4 + rows + 1, np.uint32)
+    nsegs, _ = native.prep_ecs_flat_native(data, k, words, 0, starts, lens)
+    if nsegs < 0:
+        return None
+    scan = cs.scans[0]
+    htable_key = tuple(sorted(scan.htables.items()))
+    plan = _cached_plan(cs.geometry, scan.info, htable_key)
+    if nsegs > (-(-plan.n_mcus // scan.ri) if scan.ri else 1):
+        return None  # surplus restart markers
+    return cs, scan, htable_key, plan, lens[:nsegs].astype(np.int64)
+
+
+def _first_ecs_byte(data: bytes) -> Optional[int]:
+    """The offset after the first SOS segment by its length field, from a
+    walk of the marker segments before it (``_Reader.read_marker``'s
+    rules); None when it meets EOI, a length under 2 or the end first."""
+    n, p = len(data), 0
+    while True:
+        p = data.find(b"\xff", p) + 1
+        if p == 0:
+            return None
+        while p < n and data[p] == 0xFF:  # fill bytes
+            p += 1
+        if p + 2 >= n:
+            return None
+        m = data[p]
+        p += 1
+        if m in (0x00, 0xD8, 0x01) or 0xD0 <= m <= 0xD7:
+            continue  # no marker (stuffing), or no payload
+        if m == 0xD9:
+            return None
+        seglen = (data[p] << 8) | data[p + 1]
+        if seglen < 2:
+            return None
+        if m == 0xDA:
+            return p + seglen
+        p += seglen
 
 
 def _segment_bytes(data: bytes, ranges) -> np.ndarray:

@@ -1,17 +1,19 @@
 """ctypes bindings for the native host library: ``scanner.cpp``, the
-JAX package's entropy kernel, and ``encode_tail.cpp``, the port's
-encode host tail.
+JAX package's entropy kernel, ``encode_tail.cpp``, the port's encode
+host tail, and ``stream_entry.cpp``, the port's stream split.
 
 ``scanner.cpp`` is a byte-for-byte copy of ``jpeg_tpu/native``'s source,
 bound here with the same functions and signatures; only the build
-differs.  ``encode_tail.cpp`` is the port's own: ``finalize_flat_native``
-pads, byte-stuffs and frames a chunk's encoded segments in one pass.
-``load_library`` compiles both sources with one ``g++`` command (the JAX
-package Makefile's flags) into one library in ``build/jpeg_tpu_torch/``
-under the repository root, named by a hash of the sources, the flags and
-the target that ``-march=native`` resolves to, through a temporary file
-and an atomic rename, so concurrent processes never load a half-written
-library.  The build runs at first use, never at import time.
+differs.  The other two are the port's own: ``finalize_flat_native``
+pads, byte-stuffs and frames a chunk's encoded segments in one pass,
+and ``split_stream_native`` cuts a Motion-JPEG stream into frames in
+one.  ``load_library`` compiles the sources with one ``g++`` command
+(the JAX package Makefile's flags) into one library in
+``build/jpeg_tpu_torch/`` under the repository root, named by a hash of
+the sources, the flags and the target that ``-march=native`` resolves
+to, through a temporary file and an atomic rename, so concurrent
+processes never load a half-written library.  The build runs at first
+use, never at import time.
 
 ``available()`` keeps the JAX package's meaning: False when the library
 cannot be built or loaded, and the NumPy backends take over.  Such a
@@ -38,7 +40,8 @@ import numpy as np
 from ..kernels import BUILD_DIR
 
 SOURCES = tuple(Path(__file__).resolve().parent / name
-                for name in ("scanner.cpp", "encode_tail.cpp"))
+                for name in ("scanner.cpp", "encode_tail.cpp",
+                             "stream_entry.cpp"))
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-shared",
              "-pthread")
@@ -404,3 +407,22 @@ def finalize_flat_native(
         raise ValueError(f"jt_finalize_flat refused the chunk ({n}): "
                          f"{words.size} words for {seg_bits.sum()} bits")
     return [out[off[f]:off[f + 1]].tobytes() for f in range(frames)]
+
+
+def split_stream_native(data, cap: int = 64) -> List[Tuple[int, int]]:
+    """Each frame's ``(start, end)`` byte offsets in ``data`` (bytes-like),
+    from one ``jt_split_stream`` walk; ``cap`` frames are tried first,
+    then as many as the input can hold (a frame is 4 bytes or more)."""
+    lib = _load()
+    assert lib is not None
+    buf = np.frombuffer(data, dtype=np.uint8)
+    while True:
+        starts = np.empty(cap, dtype=np.int64)
+        ends = np.empty(cap, dtype=np.int64)
+        k = int(lib.jt_split_stream(
+            _ptr(buf, ctypes.c_uint8), ctypes.c_int64(buf.size),
+            _ptr(starts, ctypes.c_int64), _ptr(ends, ctypes.c_int64),
+            ctypes.c_int64(cap)))
+        if k >= 0:
+            return list(zip(starts[:k].tolist(), ends[:k].tolist()))
+        cap = buf.size // 4 + 1
