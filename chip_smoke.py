@@ -267,7 +267,22 @@ process exits non-zero without printing the result line:
     rows equal, the engine's coefficients equal, and
     ``decode_stream_rstless`` with the stream's decoder to equal pixels
     with and without the native library (one chunk counted by each
-    prep); both preps timed a frame (``rstless_host_prep_ms``).
+    prep); both preps timed a frame (``rstless_host_prep_ms``);
+20. per-frame optimized tables (``frame_tables_phase``): on an 8-frame
+    chunk of 8 distinct 1080p frames on the card, ``block_histogram``
+    with each frame's table rows apart (32 tables) against
+    ``hist_from_blocks_ref``, and ``encode_scan`` with each frame's own
+    Annex K.2 tables against ``encode_scan_ref``, integer for integer;
+    the frames ``pack`` makes from the card's blocks byte for byte
+    against the CPU path's on the first two frames' blocks (the plain
+    versions, the same native builder and tail); ``encode_batch(optimize=
+    "frame")`` of 16 frames at chunk 8 to the same bytes, with
+    ``pixels_to_zz``, ``block_histogram`` and ``encode_scan`` launched
+    once a chunk and every table built natively; times: ``block_histogram``
+    at 32 tables and at 4, ``encode_scan`` with 32 tables and with the
+    4 shared ones, each with its bound, the per-frame and default
+    ``encode_batch`` of the 16 frames (host clock), and a profile of the
+    per-frame call with its host spans.
 
 Every kernel's time is printed beside its bound (``bound``: the bytes it
 must move at 3.35 TB/s or its operations at the peak rate of their type
@@ -1331,6 +1346,117 @@ def encode_phases(card: str, streams: dict, decs: dict,
              "device_ms": times[name][1], "plain_ms": times[name][2],
              **bounds[name]}
             for name, src, replaces, n, err in rows]
+
+def frame_tables_phase(card: str, dev: torch.device) -> dict:
+    """Phase 20: per-frame optimized tables on the card; -> the per-frame
+    histogram kernel's JSON entry."""
+    mark("20")
+    size = (synth.HEIGHT, synth.WIDTH, 3)
+    enc = DeviceEncoder.for_config(*size, BENCH_PARAMS, device=dev)
+    cpu = DeviceEncoder.for_config(*size, BENCH_PARAMS, device="cpu")
+    px = torch.stack([torch.from_numpy(synth.make_frame(s))
+                      for s in range(CHUNK)]).to(dev)
+    T = len(enc.table_keys) * CHUNK
+    zz = enc.dense(px)
+    order, seg_of, dc_tab, ac_tab = enc.chunk_tables(CHUNK, per_frame=True)
+    hist = enc.histogram(zz, per_frame=True)
+    ref_h = hist_from_blocks_ref(zz, dc_tab, ac_tab, T)
+    torch.cuda.synchronize()
+    if hist.shape != (T, 256) or not torch.equal(hist.to(torch.int64),
+                                                 ref_h.to(torch.int64)):
+        raise AssertionError("per-frame block_histogram differs from its "
+                             "plain version")
+    hist_h = hist.cpu().numpy()
+    co, si, headers = enc.frame_tables(hist_h)
+    n = CHUNK * enc.n_segments
+    args = (zz, order, seg_of, dc_tab, ac_tab, co, si, n)
+    out = encode_scan(*args)
+    ref = encode_scan_ref(*args)
+    torch.cuda.synchronize()
+    n_words = int(out[4])
+    got = (out[0][:n_words], *out[1:4])
+    for name, a, b in zip(("words", "seg_wbase", "seg_bits", "missing"),
+                          got, ref):
+        if a.shape != b.shape or not torch.equal(a.to(torch.int64),
+                                                 b.to(torch.int64)):
+            raise AssertionError(f"encode_scan with per-frame tables: "
+                                 f"{name} differs from its plain version")
+    log(f"kernel-vs-plain per-frame tables x{CHUNK}: block_histogram "
+        f"T={T} {int(hist_h.sum())} symbols, encode_scan {zz.shape[0]} "
+        f"blocks, {n} segments -> {n_words} words; equal [{card}]")
+    # The CPU path on the same blocks of the first two frames: plain
+    # kernels, the same native builder and host tail.
+    zz_h = zz[:2 * cpu.blocks_per_frame].cpu()
+    hist_c = cpu.histogram(zz_h, per_frame=True).numpy()
+    co_c, si_c, headers_c = cpu.frame_tables(hist_c)
+    want = cpu.pack(zz_h, co_c, si_c, headers_c, per_frame=True)
+    frames = enc.pack(zz, co, si, headers, per_frame=True)
+    if frames[:2] != want or not (hist_c == hist_h[:len(hist_c)]).all():
+        raise AssertionError("per-frame tables: the card's frames differ "
+                             "from the CPU path's on the same blocks")
+    px16 = torch.cat([px, px.flip(0)])
+    counts = ("device_encode.native_table_builds",
+              "device_encode.python_table_builds")
+    before = [default_metrics.counters[k] for k in counts]
+    launches = [f.launches for f in (pixels_to_zz, block_histogram,
+                                     encode_scan)]
+    batch = enc.encode_batch(px16, optimize="frame", chunk=CHUNK)
+    torch.cuda.synchronize()
+    launches = [f.launches - b for f, b in zip(
+        (pixels_to_zz, block_histogram, encode_scan), launches)]
+    builds = [default_metrics.counters[k] - b
+              for k, b in zip(counts, before)]
+    if batch[:CHUNK] != frames or batch[CHUNK:] != frames[::-1] or \
+            launches != [2, 2, 2] or builds != [2 * T, 0]:
+        raise AssertionError(f"encode_batch(optimize='frame'): launches "
+                             f"(K5, K7, K6) {launches}, (native, python) "
+                             f"table builds {builds}, want [2, 2, 2] and "
+                             f"[{2 * T}, 0], or bytes that differ")
+    log(f"slice: encode_batch(optimize='frame') 16 frames, chunk {CHUNK}: "
+        f"launches (K5, K7, K6) {launches} (once a chunk), table builds "
+        f"(native, python) {builds}, {len(set(headers))} distinct headers "
+        f"of {CHUNK}, {sum(map(len, batch))} bytes; equal to pack [{card}]")
+    # Times: the kernels with per-frame and shared tables.
+    shared = enc.chunk_tables(CHUNK)
+    hist4 = enc.histogram(zz).cpu().numpy()
+    co4, si4, _ = enc.optimized_tables(hist4)
+    coef_bytes = zz.numel() * 4
+    h_ms, hd_ms = kernel_ms(f"block_histogram T={T}",
+                            lambda: enc.histogram(zz, per_frame=True), 20,
+                            card)
+    h4_ms, h4d_ms = kernel_ms("block_histogram T=4",
+                              lambda: enc.histogram(zz), 20, card)
+    # Each coefficient read once at 2 bytes, the fewest that hold a
+    # baseline coefficient (hist_roofline.opt's count), and the [T, 256]
+    # int32 histograms written once.
+    hist_bound = bound(zz.numel() * 2 + T * 256 * 4, 0, "int32")
+    log_bound(f"block_histogram T={T}", h_ms, hist_bound, card, hd_ms)
+    log_bound("block_histogram T=4", h4_ms, hist_bound, card, h4d_ms)
+    s_ms, sd_ms = kernel_ms(f"encode_scan T={T}",
+                            lambda: encode_scan(*args), 20, card)
+    s4_ms, s4d_ms = kernel_ms(
+        "encode_scan T=4", lambda: encode_scan(zz, *shared, co4, si4, n),
+        20, card)
+    scan_bound = bound(coef_bytes + n_words * 4, 0, "int32")
+    log_bound(f"encode_scan T={T}", s_ms, scan_bound, card, sd_ms)
+    log_bound("encode_scan T=4", s4_ms, scan_bound, card, s4d_ms)
+    mpix = px16.shape[0] * synth.WIDTH * synth.HEIGHT / 1e6
+    for mode in ("frame", False):
+        med, runs = median_s(
+            lambda: enc.encode_batch(px16, optimize=mode, chunk=CHUNK), 5)
+        log(f"time encode_batch[optimize={mode!r}]_Mpix_s={mpix / med} "
+            f"(median of 5 runs of 16 frames, host clock; run ms "
+            f"{[round(r * 1e3, 3) for r in runs]}) [{card}]")
+    profile_window(lambda: enc.encode_batch(px16, optimize="frame",
+                                            chunk=CHUNK),
+                   "device_encode.", card,
+                   "16-frame encode, per-frame tables")
+    return {"name": "block_histogram (per-frame tables)", "route": "cuda",
+            "source": "jpeg_tpu_torch/csrc/encode_scan.cu",
+            "replaces": "jpeg_tpu_torch/tables.py optimize_table per frame",
+            "launches": launches[1], "max_abs_err": 0, "ms": h_ms,
+            "device_ms": hd_ms, **hist_bound}
+
 
 def bench_pixels(dev: torch.device) -> torch.Tensor:
     """The 16 frames of 1080p pixels the encode phases use, on ``dev``."""
@@ -4280,6 +4406,7 @@ def main() -> None:
     sharded = parallel_phase(card, dev, streams)
     entries.append(flat_phase(card, dev, streams, flat_launches))
     entries.append(phased_phase(card, dev, streams))
+    entries.append(frame_tables_phase(card, dev))
     for e in entries:
         e["sharded_launches"] = sharded.get(e["name"], {})
     log(f"total {time.perf_counter() - t_start:.1f} s")

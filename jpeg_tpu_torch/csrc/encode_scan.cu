@@ -40,7 +40,7 @@
 //      piece's, for the word they share) into place (~the compressed
 //      size, coalesced); the last segment's warp writes the stream's word
 //      count and the missing flag;
-//   5. hist_blocks (the optimize=True dry pass, encoder.c:525-558): one
+//   5. hist_blocks (the optimize dry pass, encoder.c:525-558): one
 //      warp per block, read by the encode walk's for_each_block (two
 //      coalesced loads, UNROLL blocks in flight, two ballots for the
 //      nonzero mask):
@@ -48,12 +48,14 @@
 //      __clzll, its ZRLs, the (run, cat) symbol; the DC category on lane
 //      0, EOB on lane 31 unless position 63 is nonzero), so no lane loops
 //      over positions, and adds them with shared-memory atomics into its
-//      CTA's one [T, 256] histogram.  A persistent grid
-//      walks groups of 32 blocks, and each CTA adds its nonzero bins into
-//      the global int32 histogram once: integer adds, so the result is
-//      exact and the same in any order.  Exact in int32 at any size,
-//      where the TPU's float32 one-hot sums are exact only below 2^24 per
-//      bin.
+//      CTA's one [T, 256] histogram.  A persistent grid: each CTA walks a
+//      contiguous share of the groups of 32 blocks, so where the tables
+//      are per frame (rows offset by each block's frame, T up to T_MAX) a
+//      CTA's blocks lie in one or two frames and it has few nonzero bins;
+//      each CTA adds its nonzero bins into the global int32 histogram
+//      once: integer adds, so the result is exact and the same in any
+//      order.  Exact in int32 at any size, where the TPU's float32 one-hot
+//      sums are exact only below 2^24 per bin.
 //
 // The symbol rules are those of encode_scan_device3 bit for bit, missing
 // codes included: an item is (ehufco[s] << cat) | extra over
@@ -89,7 +91,11 @@
 
 namespace {
 
-constexpr int T_MAX = 8;  // stacked code tables
+// Stacked code tables: four a frame for the 8 frames of a chunk coded
+// with per-frame tables.  Both kernels size their shared tables by the
+// count a call passes (T * 1 KiB; 32 with the encode walk's rings is
+// 40 KiB, under the 48 KiB a launch gets without opting in).
+constexpr int T_MAX = 32;
 constexpr int HIST_WARPS = 16;  // warps a CTA of hist_blocks
 constexpr int SEG_WARPS = 8;  // segments (warps) per CTA
 constexpr int RING = 256;  // words of each warp's shared-memory ring
@@ -557,8 +563,9 @@ struct Count {
   }
 };
 
-// A persistent grid: warp w takes the groups of 32 blocks from w on, every
-// (grid warps)-th, and walks each with for_each_block.
+// A persistent grid: CTA c takes the c-th of gridDim.x contiguous shares
+// of the groups of 32 blocks, its warp w every HIST_WARPS-th group of the
+// share from the w-th, and walks each with for_each_block.
 __global__ void __launch_bounds__(HIST_WARPS * 32)
 hist_blocks_kernel(const int32_t* __restrict__ zz,
                    const int32_t* __restrict__ dc_tab,
@@ -570,9 +577,11 @@ hist_blocks_kernel(const int32_t* __restrict__ zz,
   for (int i = threadIdx.x; i < bins; i += blockDim.x) h[i] = 0;
   __syncthreads();
   Count count{h, lane};
-  const int64_t step = static_cast<int64_t>(gridDim.x) * HIST_WARPS * 32;
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * HIST_WARPS + warp;
-  for (int64_t lo = first * 32; lo < B; lo += step) {
+  const int64_t groups = (static_cast<int64_t>(B) + 31) / 32;
+  const int64_t g1 = groups * (blockIdx.x + 1) / gridDim.x;
+  for (int64_t g = groups * blockIdx.x / gridDim.x + warp; g < g1;
+       g += HIST_WARPS) {
+    const int64_t lo = g * 32;
     const int hi = static_cast<int>(lo + 32 < B ? lo + 32 : B);
     for_each_block<false>(zz, nullptr, dc_tab, ac_tab, static_cast<int>(lo),
                           hi, lane, count);

@@ -15,10 +15,13 @@ nonzero cap, words per segment or per block) exist here, and the
 stream's length stays on the device until the caller pulls it.
 
 ``block_histogram`` is the port of ``encode_jax.hist_from_blocks`` (the
-optimize=True dry pass): the histogram kernel of ``csrc/encode_scan.cu``
+optimize dry pass): the histogram kernel of ``csrc/encode_scan.cu``
 (one warp per block, a persistent grid) on a CUDA tensor,
 ``encode_torch.hist_from_blocks_ref`` on a CPU tensor; either adds into a
-caller's histogram (``out=``), so a batch keeps one accumulator.
+caller's histogram (``out=``), so a batch keeps one accumulator.  Rows
+of the stacked tables offset by each block's frame give one histogram
+and one set of code tables a frame (``DeviceEncoder`` with per-frame
+tables).
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches`` and
 raises on anything the kernel does not take, and on any CUDA error.
@@ -34,7 +37,7 @@ import torch
 from ..device import check_tensor, cuda_stream
 from .encode_torch import encode_scan_ref, hist_from_blocks_ref
 
-T_MAX = 8  # stacked code tables; csrc/encode_scan.cu
+T_MAX = 32  # stacked code tables (four a frame, 8 frames); csrc/encode_scan.cu
 # The most words one block takes: a DC item and 63 AC items of at most
 # 16 code bits and 16 extra bits each (no EOB after a nonzero position
 # 63), 2048 bits; csrc/encode_scan.cu BLOCK_WORDS.

@@ -23,7 +23,14 @@ offset could undo the pad bits of the byte before it.  On a card a
 failed build of the library raises instead.  With ``optimize=True`` the
 chunks' symbol histograms (entropy.encode_cuda.block_histogram) sum into
 per-batch Annex K.2 tables first, and the entropy stage re-packs the
-quantized blocks still in device memory.
+quantized blocks still in device memory.  With ``optimize="frame"`` each
+frame gets the Annex K.2 tables of its own symbols and its own DHT, as
+``cjpeg -optimize`` writes a file: a chunk's per-frame histograms (the
+histogram kernel with each frame's table rows apart) come to the host in
+one read, the tables are built in one native call
+(``native.optimal_tables_native``; ``tables.optimize_table`` where the
+library is not available), and the entropy stage codes each frame with
+its own tables.
 
 Output is byte-identical to the JAX package's ``DeviceEncoder`` wherever
 the quantized blocks agree (they may differ by 1 on rare rounding
@@ -44,7 +51,7 @@ per-segment kernel writing at exact offsets does not have.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -59,7 +66,7 @@ from .. import native
 from ..device import resolve
 from ..encoder import EncodeParams, geometry_for_image
 from ..entropy.encode import build_visit_order
-from ..entropy.encode_cuda import block_histogram, encode_scan
+from ..entropy.encode_cuda import T_MAX, block_histogram, encode_scan
 from ..errors import UnsupportedError
 from ..format import emit
 from ..geometry import FrameGeometry, ScanInfo
@@ -76,22 +83,34 @@ class _Shape:
     width: int
 
 
+def _dht_keys(geom) -> tuple:
+    """(class, id) of each DHT segment, in the order the header has them
+    (the single-image encoder's, encoder.c:614-630)."""
+    return ((0, 0), (1, 0), (0, 1), (1, 1)) if geom.nf > 1 else ((0, 0),
+                                                                 (1, 0))
+
+
+def _header_ends(geom, qtables, ri, info) -> Tuple[bytes, bytes]:
+    """(SOI, DQT, SOF0; DRI, SOS): a header's bytes before and after its
+    DHT segments."""
+    head = emit.emit_soi() + emit.emit_dqt(qtables[0].astype(np.uint16), 0)
+    if geom.nf > 1:
+        head += emit.emit_dqt(qtables[1].astype(np.uint16), 1)
+    head += emit.emit_sof0(geom)
+    return head, emit.emit_dri(ri) + emit.emit_sos(info)
+
+
 def _build_header(geom, qtables, specs, ri, info) -> bytes:
     """SOI..SOS marker bytes for the given qtables/Huffman specs."""
-    hdr = bytearray()
-    hdr += emit.emit_soi()
-    hdr += emit.emit_dqt(qtables[0].astype(np.uint16), 0)
-    if geom.nf > 1:
-        hdr += emit.emit_dqt(qtables[1].astype(np.uint16), 1)
-    hdr += emit.emit_sof0(geom)
-    hdr += emit.emit_dht(specs[(0, 0)], 0, 0)
-    hdr += emit.emit_dht(specs[(1, 0)], 1, 0)
-    if geom.nf > 1:
-        hdr += emit.emit_dht(specs[(0, 1)], 0, 1)
-        hdr += emit.emit_dht(specs[(1, 1)], 1, 1)
-    hdr += emit.emit_dri(ri)
-    hdr += emit.emit_sos(info)
-    return bytes(hdr)
+    return _build_header_from(_header_ends(geom, qtables, ri, info), specs,
+                              geom)
+
+
+def _build_header_from(ends, specs, geom) -> bytes:
+    """A header from its bytes around the DHT segments (``_header_ends``)
+    and the Huffman specs of its DHT segments."""
+    return ends[0] + b"".join(emit.emit_dht(specs[k], *k)
+                              for k in _dht_keys(geom)) + ends[1]
 
 
 def _code_tables(specs: dict, keys) -> Tuple[np.ndarray, np.ndarray]:
@@ -109,9 +128,14 @@ class DeviceEncoder:
     Build once with ``for_config``, then ``encode_batch`` a [F, H, W, C]
     pixel batch on ``device`` -> list of JPEG byte strings.  Streaming
     shape: shared Huffman tables (the MJPEG defaults, ``htables=``, or
-    per-batch optimized ones), restart markers every ``restart_interval``
-    MCUs, so the output is itself parallel-decodable by DeviceDecoder.
+    per-batch optimized ones) or each frame's own optimized tables,
+    restart markers every ``restart_interval`` MCUs, so the output is
+    itself parallel-decodable by DeviceDecoder.
     """
+
+    # encode_batch's ``optimize``: shared tables, per-batch Annex K.2
+    # tables, or each frame's own.
+    OPTIMIZE_MODES = (False, True, "frame")
 
     geom: FrameGeometry
     info: ScanInfo
@@ -298,21 +322,30 @@ class DeviceEncoder:
             self._dev[name] = t
         return t
 
-    def chunk_tables(self, frames: int):
+    @property
+    def frames_per_scan(self) -> int:
+        """Frames one scan codes with per-frame tables: the kernels take
+        ``T_MAX`` stacked tables."""
+        return T_MAX // len(self.table_keys)
+
+    def chunk_tables(self, frames: int, per_frame: bool = False):
         """(order, seg_of, dc_tab, ac_tab) for a ``frames``-frame chunk,
-        on the device: bitstream positions and segments run frame-major."""
-        key = ("tiled", frames)
+        on the device: bitstream positions and segments run frame-major.
+        With ``per_frame`` frame f's table ids are offset by f times the
+        encoder's tables, so each frame has rows of its own."""
+        key = ("tiled", frames, per_frame)
         got = self._dev.get(key)
         if got is None:
             bf = self.blocks_per_frame
             fr = np.repeat(np.arange(frames, dtype=np.int64), bf)
+            tab = fr * len(self.table_keys) if per_frame else 0
             got = tuple(
                 torch.from_numpy(a.astype(np.int32)).to(self.device)
                 for a in (np.tile(self.visit_src, frames) + fr * bf,
                           np.tile(self.seg_of, frames)
                           + fr * self.n_segments,
-                          np.tile(self.dc_tab, frames),
-                          np.tile(self.ac_tab, frames)))
+                          np.tile(self.dc_tab, frames) + tab,
+                          np.tile(self.ac_tab, frames) + tab))
             self._dev[key] = got
         return got
 
@@ -343,22 +376,28 @@ class DeviceEncoder:
                             self.geom)
 
     def histogram(self, zz: torch.Tensor,
-                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  out: Optional[torch.Tensor] = None,
+                  per_frame: bool = False) -> torch.Tensor:
         """Symbol counts [T, 256] int32 of a chunk's blocks (the dry pass),
-        added into ``out`` where one is given."""
+        added into ``out`` where one is given.  With ``per_frame`` each
+        frame's apart: [frames * T, 256], frame f's tables at rows f * T
+        on, T the encoder's tables (``table_keys``)."""
         frames = zz.shape[0] // self.blocks_per_frame
-        _, _, dc_tab, ac_tab = self.chunk_tables(frames)
-        return block_histogram(zz, dc_tab, ac_tab, len(self.table_keys),
-                               out=out)
+        _, _, dc_tab, ac_tab = self.chunk_tables(frames, per_frame)
+        tables = len(self.table_keys) * (frames if per_frame else 1)
+        return block_histogram(zz, dc_tab, ac_tab, tables, out=out)
 
-    def scan(self, zz: torch.Tensor, ehufco=None, ehufsi=None):
+    def scan(self, zz: torch.Tensor, ehufco=None, ehufsi=None,
+             per_frame: bool = False):
         """Entropy-code a chunk's blocks with the given (default: the
-        encoder's) code tables -> (words, seg_wbase, seg_bits, missing,
-        n_words) on the device, the stream being ``words[:n_words]``
-        (``encode_cuda.encode_scan``; on the card ``words`` is a capacity
-        buffer as large as ``zz``, to trim or drop before keeping)."""
+        encoder's) code tables, with ``per_frame`` each frame's own rows
+        of them (``histogram``'s layout) -> (words, seg_wbase, seg_bits,
+        missing, n_words) on the device, the stream being
+        ``words[:n_words]`` (``encode_cuda.encode_scan``; on the card
+        ``words`` is a capacity buffer as large as ``zz``, to trim or drop
+        before keeping)."""
         frames = zz.shape[0] // self.blocks_per_frame
-        order, seg_of, dc_tab, ac_tab = self.chunk_tables(frames)
+        order, seg_of, dc_tab, ac_tab = self.chunk_tables(frames, per_frame)
         if ehufco is None:
             ehufco = self._on_device("ehufco", self.ehufco)
             ehufsi = self._on_device("ehufsi", self.ehufsi)
@@ -366,12 +405,14 @@ class DeviceEncoder:
                            frames * self.n_segments)
 
     def pack(self, zz: torch.Tensor, ehufco=None, ehufsi=None,
-             header: Optional[bytes] = None) -> List[bytes]:
-        """A chunk's blocks -> one JPEG byte string per frame."""
+             header: Union[None, bytes, Sequence[bytes]] = None,
+             per_frame: bool = False) -> List[bytes]:
+        """A chunk's blocks -> one JPEG byte string per frame; ``header``
+        one for the chunk or, with per-frame tables, one a frame."""
         frames = zz.shape[0] // self.blocks_per_frame
         with trace("device_encode.scan"):
-            words, _, seg_bits, missing, n_words = self.scan(zz, ehufco,
-                                                             ehufsi)
+            words, _, seg_bits, missing, n_words = self.scan(
+                zz, ehufco, ehufsi, per_frame)
         with trace("device_encode.pull"):
             # One sync for both flags; the capacity buffer is dropped here.
             missing, n_words = torch.stack(
@@ -387,19 +428,63 @@ class DeviceEncoder:
             return self._finalize_flat(words_h, seg_bits_h, frames,
                                        header or self.header)
 
+    def _optimal_tables(self, hist: np.ndarray):
+        """Annex K.2 tables of each row of ``hist`` [n, 256] -> (bits
+        [n, 16], values [n, 256], ehufco, ehufsi [n, 256]) on the host
+        (``native.optimal_tables_native``'s form): one native call while
+        the library is available, else ``tables.optimize_table`` a row;
+        the tables are equal.  ``device_encode.native_table_builds`` and
+        ``python_table_builds`` count the tables each built.  An encoder
+        on a card raises where the library failed to build."""
+        n = int(hist.shape[0])
+        if native.available():
+            default_metrics.count("device_encode.native_table_builds", n)
+            return native.optimal_tables_native(hist)
+        if self.device.type != "cpu" and native.load_error():
+            raise RuntimeError("the native table builder is unavailable on "
+                               f"{self.device}: {native.load_error()}")
+        default_metrics.count("device_encode.python_table_builds", n)
+        bits = np.zeros((n, 16), np.uint8)
+        values = np.zeros((n, 256), np.uint8)
+        ehufco = np.zeros((n, 256), np.int32)
+        ehufsi = np.zeros((n, 256), np.int32)
+        for t in range(n):
+            spec = optimize_table(hist[t])
+            bits[t] = spec.counts
+            values[t, :len(spec.values)] = spec.values
+            table = derive_table(spec, build_lut=False)
+            ehufco[t], ehufsi[t] = table.ehufco, table.ehufsi
+        return bits, values, ehufco, ehufsi
+
+    def frame_tables(self, hist: np.ndarray):
+        """The Annex K.2 tables of a chunk's frames from their histograms
+        [frames * T, 256] (``histogram(..., per_frame=True)``) ->
+        (ehufco, ehufsi [frames * T, 256] on the device, one header a
+        frame: its DQT, SOF0, its own DHT, DRI, SOS)."""
+        bits, values, ehufco, ehufsi = self._optimal_tables(hist)
+        codes = torch.from_numpy(np.stack((ehufco, ehufsi))).to(self.device)
+        ends = self._dev.get("header_ends")  # host bytes, built once
+        if ends is None:
+            ends = self._dev["header_ends"] = _header_ends(
+                self.geom, self.qtables, self.ri, self.info)
+        tmap = {k: i for i, k in enumerate(self.table_keys)}
+        T = len(self.table_keys)
+        count = bits.sum(1, dtype=np.int64)
+        headers = []
+        for f in range(hist.shape[0] // T):
+            specs = {k: HuffSpec(tuple(bits[f * T + t].tolist()), tuple(
+                values[f * T + t, :count[f * T + t]].tolist()))
+                for k, t in tmap.items()}
+            headers.append(_build_header_from(ends, specs, self.geom))
+        return codes[0], codes[1], headers
+
     def optimized_tables(self, hist: np.ndarray):
         """Per-batch Annex K.2 tables from a [T, 256] histogram ->
         (ehufco, ehufsi on the device, header bytes)."""
-        specs = {k: HuffSpec.from_pair(v) for k, v in DEFAULT_HTABLES.items()}
-        for i, key in enumerate(self.table_keys):
-            specs[key] = optimize_table(hist[i])
-        ehufco, ehufsi = _code_tables(specs, self.table_keys)
-        header = _build_header(self.geom, self.qtables, specs, self.ri,
-                               self.info)
-        return (torch.from_numpy(ehufco).to(self.device),
-                torch.from_numpy(ehufsi).to(self.device), header)
+        ehufco, ehufsi, (header,) = self.frame_tables(hist)
+        return ehufco, ehufsi, header
 
-    def encode_batch(self, pixels, optimize: bool = False,
+    def encode_batch(self, pixels, optimize: Union[bool, str] = False,
                      chunk: int = 8) -> List[bytes]:
         """[F, H, W, C] uint8/uint16 frames -> JPEG bytes, one per frame.
 
@@ -408,16 +493,44 @@ class DeviceEncoder:
         write_ecs_dry analog, encoder.c:525-558) while the quantized
         blocks stay in device memory, the host derives per-BATCH optimal
         tables, and pass 2 re-packs the same blocks with them.
+
+        ``optimize="frame"`` gives each frame the optimal tables of its
+        own symbols, chunk by chunk (at most ``frames_per_scan`` frames a
+        chunk): the dense stage, the per-frame histograms and their one
+        read (span ``device_encode.frame_hist``), the tables and headers
+        (``frame_tables``, span ``device_encode.frame_tables``), the
+        entropy stage with each frame's tables, the pull and the host
+        tail.  Each frame is the single-image encoder's
+        (``encoder.encode_jpeg_from_planes`` with ``optimize=True``) on
+        the same quantized blocks, byte for byte.
         """
+        if optimize not in self.OPTIMIZE_MODES:
+            raise ValueError(f"optimize={optimize!r}: one of "
+                             f"{self.OPTIMIZE_MODES}")
         px = self._pixels(pixels)
         frames = int(px.shape[0])
         if frames == 0:
             return []
         step = chunk if chunk > 0 else frames
+        if optimize == "frame":
+            step = min(step, self.frames_per_scan)
         spans = [(i, min(i + step, frames)) for i in range(0, frames, step)]
         with trace("device_encode.batch"):
-            if not optimize:
+            if optimize == "frame":
                 out: List[bytes] = []
+                for lo, hi in spans:
+                    with trace("device_encode.dense"):
+                        zz = self.dense(px[lo:hi])
+                    with trace("device_encode.frame_hist"):
+                        hist = self.histogram(zz, per_frame=True).cpu()
+                    with trace("device_encode.frame_tables"):
+                        ehufco, ehufsi, headers = self.frame_tables(
+                            hist.numpy())
+                    out.extend(self.pack(zz, ehufco, ehufsi, headers,
+                                         per_frame=True))
+                return out
+            if not optimize:
+                out = []
                 for lo, hi in spans:
                     with trace("device_encode.dense"):
                         zz = self.dense(px[lo:hi])
@@ -442,11 +555,15 @@ class DeviceEncoder:
             return out
 
     def _finalize_flat(self, flat_words: np.ndarray, seg_bits: np.ndarray,
-                       frames: int, header: bytes = b"") -> List[bytes]:
+                       frames: int,
+                       header: Union[bytes, Sequence[bytes]] = b""
+                       ) -> List[bytes]:
         """The device-compacted word stream of ``frames`` frames -> one
-        JPEG byte string a frame: one native pass while the native
-        library is available (as ``DeviceDecoder.prepare``'s native prep),
-        else the plain ``_finalize_flat_ref``; the bytes are equal.
+        JPEG byte string a frame, behind ``header`` (the encoder's where
+        empty) or each frame's own, ``header[f]``: one native pass while
+        the native library is available (as ``DeviceDecoder.prepare``'s
+        native prep), else the plain ``_finalize_flat_ref``; the bytes are
+        equal.
         ``device_encode.native_finalize_chunks`` and
         ``python_finalize_chunks`` count which ran.  An encoder on a card
         raises where the library failed to build: there the plain version
@@ -464,7 +581,8 @@ class DeviceEncoder:
 
     def _finalize_flat_ref(self, flat_words: np.ndarray,
                            seg_bits: np.ndarray, frames: int,
-                           header: bytes = b"") -> List[bytes]:
+                           header: Union[bytes, Sequence[bytes]] = b""
+                           ) -> List[bytes]:
         """The plain version of ``native.finalize_flat_native``: vectorized
         NumPy passes over the chunk, per-segment live bytes straight from
         word offsets."""
@@ -486,7 +604,7 @@ class DeviceEncoder:
         return self._assemble(arr[live], nbytes, frames, header)
 
     def _assemble(self, flat: np.ndarray, nbytes: np.ndarray, frames: int,
-                  header: bytes = b""):
+                  header: Union[bytes, Sequence[bytes]] = b""):
         """Shared tail: byte-stuff the concatenated live segment bytes,
         then drop RSTn/EOI markers into the per-frame gaps."""
         with trace("device_encode.stuff"):
@@ -504,9 +622,12 @@ class DeviceEncoder:
         # RSTn marker), then the markers drop into the gaps.
         res: List[bytes] = []
         ns = self.n_segments
-        hdr = np.frombuffer(header or self.header, np.uint8)
+        one = isinstance(header, (bytes, bytearray))
+        hdrs = [np.frombuffer(h, np.uint8) for h in
+                ([header or self.header] if one else header)]
         with trace("device_encode.assemble"):
             for f in range(frames):
+                hdr = hdrs[0 if one else f]
                 seg_lens = (s_end[f * ns:(f + 1) * ns]
                             - s_start[f * ns:(f + 1) * ns])
                 body = out[s_start[f * ns]:s_end[(f + 1) * ns - 1]]

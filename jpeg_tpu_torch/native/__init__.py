@@ -1,14 +1,17 @@
 """ctypes bindings for the native host library: ``scanner.cpp``, the
 JAX package's entropy kernel, ``encode_tail.cpp``, the port's encode
-host tail, and ``stream_entry.cpp``, the port's stream split.
+host tail, ``stream_entry.cpp``, the port's stream split, and
+``optimal_tables.cpp``, the port's Annex K.2 table builder.
 
 ``scanner.cpp`` is a byte-for-byte copy of ``jpeg_tpu/native``'s source,
 bound here with the same functions and signatures; only the build
-differs.  The other two are the port's own: ``finalize_flat_native``
+differs.  The others are the port's own: ``finalize_flat_native``
 pads, byte-stuffs and frames a chunk's encoded segments in one pass,
-and ``split_stream_native`` cuts a Motion-JPEG stream into frames in
-one.  ``load_library`` compiles the sources with one ``g++`` command
-(the JAX package Makefile's flags) into one library in
+``split_stream_native`` cuts a Motion-JPEG stream into frames in one,
+and ``optimal_tables_native`` builds the optimal Huffman tables of many
+symbol histograms (``tables.optimize_table``'s tables) in one call.
+``load_library`` compiles the sources with one ``g++`` command (the JAX
+package Makefile's flags) into one library in
 ``build/jpeg_tpu_torch/`` under the repository root, named by a hash of
 the sources, the flags and the target that ``-march=native`` resolves
 to, through a temporary file and an atomic rename, so concurrent
@@ -33,7 +36,7 @@ import warnings
 from dataclasses import dataclass
 from functools import lru_cache
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -41,7 +44,7 @@ from ..kernels import BUILD_DIR
 
 SOURCES = tuple(Path(__file__).resolve().parent / name
                 for name in ("scanner.cpp", "encode_tail.cpp",
-                             "stream_entry.cpp"))
+                             "stream_entry.cpp", "optimal_tables.cpp"))
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-shared",
              "-pthread")
@@ -94,8 +97,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.jt_finalize_flat.restype = ctypes.c_int64
     lib.jt_finalize_flat.argtypes = [
         u32p, ctypes.c_int64, i64p, ctypes.c_int64, ctypes.c_int64,
-        i8p, ctypes.c_int64, i8p, ctypes.c_int64, i64p,
+        i8p, i64p, ctypes.c_int64, i8p, ctypes.c_int64, i64p,
     ]
+    lib.jt_optimal_tables.restype = ctypes.c_int64
+    lib.jt_optimal_tables.argtypes = [i32p, ctypes.c_int64, i8p, i8p, i32p,
+                                      i32p]
 
 
 def _run(cmd) -> subprocess.CompletedProcess:
@@ -379,12 +385,13 @@ def finalize_flat_native(
     seg_bits: np.ndarray,  # [frames * ns] bits a segment, frame-major
     frames: int,
     ns: int,  # segments a frame
-    header: bytes,  # SOI..SOS
+    header: Union[bytes, Sequence[bytes]],  # SOI..SOS, or one a frame
 ) -> List[bytes]:
-    """One JPEG byte string a frame: the header, each segment's bytes
-    padded with 1s and byte-stuffed, RSTn between segments, EOI
-    (``jt_finalize_flat``; ``DeviceEncoder._finalize_flat_ref`` is the
-    plain version)."""
+    """One JPEG byte string a frame: the header (``header``, or
+    ``header[f]`` where a sequence gives each frame its own), each
+    segment's bytes padded with 1s and byte-stuffed, RSTn between
+    segments, EOI (``jt_finalize_flat``;
+    ``DeviceEncoder._finalize_flat_ref`` is the plain version)."""
     lib = _load()
     assert lib is not None
     words = np.ascontiguousarray(words, dtype=np.uint32)
@@ -392,21 +399,59 @@ def finalize_flat_native(
     if seg_bits.size != frames * ns:
         raise ValueError(f"{seg_bits.size} bit counts for {frames} frames "
                          f"of {ns} segments")
+    hdr_off = None  # one header for every frame
+    if not isinstance(header, (bytes, bytearray)):
+        if len(header) != frames:
+            raise ValueError(f"{len(header)} headers for {frames} frames")
+        hdr_off = np.zeros(frames + 1, dtype=np.int64)
+        np.cumsum([len(h) for h in header], out=hdr_off[1:])
+        header = b"".join(header)
     hdr = np.frombuffer(header, dtype=np.uint8)
     # Live bytes are at most 4 a word: the worst case stuffs every one.
-    cap = frames * hdr.size + 8 * words.size + 2 * seg_bits.size
+    cap = (frames * hdr.size if hdr_off is None else hdr.size) \
+        + 8 * words.size + 2 * seg_bits.size
     out = np.empty(cap, dtype=np.uint8)
     off = np.empty(frames + 1, dtype=np.int64)
     n = int(lib.jt_finalize_flat(
         _ptr(words, ctypes.c_uint32), ctypes.c_int64(words.size),
         _ptr(seg_bits, ctypes.c_int64), ctypes.c_int64(frames),
         ctypes.c_int64(ns), _ptr(hdr, ctypes.c_uint8),
+        None if hdr_off is None else _ptr(hdr_off, ctypes.c_int64),
         ctypes.c_int64(hdr.size), _ptr(out, ctypes.c_uint8),
         ctypes.c_int64(cap), _ptr(off, ctypes.c_int64)))
     if n < 0:
         raise ValueError(f"jt_finalize_flat refused the chunk ({n}): "
                          f"{words.size} words for {seg_bits.sum()} bits")
     return [out[off[f]:off[f + 1]].tobytes() for f in range(frames)]
+
+
+def optimal_tables_native(hist: np.ndarray):
+    """Annex K.2 tables of each row of ``hist`` [n, 256] (symbol counts)
+    in one ``jt_optimal_tables`` call -> (bits [n, 16] uint8, the DHT's
+    L1..L16; values [n, 256] uint8, HUFFVAL then zeros; ehufco, ehufsi
+    [n, 256] int32, the Annex C encode tables).  Each table equals
+    ``tables.optimize_table(hist[t])`` and its ``derive_table``; raises
+    ``ValueError`` for a row with no symbol or whose codes do not fit,
+    where ``optimize_table`` raises too."""
+    lib = _load()
+    assert lib is not None
+    hist = np.ascontiguousarray(hist, dtype=np.int32)
+    if hist.ndim != 2 or hist.shape[1] != 256:
+        raise ValueError(f"histograms must be [n, 256], got {hist.shape}")
+    n = hist.shape[0]
+    bits = np.empty((n, 16), dtype=np.uint8)
+    values = np.empty((n, 256), dtype=np.uint8)
+    ehufco = np.empty((n, 256), dtype=np.int32)
+    ehufsi = np.empty((n, 256), dtype=np.int32)
+    rc = int(lib.jt_optimal_tables(
+        _ptr(hist, ctypes.c_int32), ctypes.c_int64(n),
+        _ptr(bits, ctypes.c_uint8), _ptr(values, ctypes.c_uint8),
+        _ptr(ehufco, ctypes.c_int32), _ptr(ehufsi, ctypes.c_int32)))
+    if rc < 0:
+        t = -rc - 1
+        why = "has no symbol" if t < n else "needs codes past 32 bits"
+        raise ValueError(f"histogram {t % n} {why}")
+    return bits, values, ehufco, ehufsi
 
 
 def split_stream_native(data, cap: int = 64) -> List[Tuple[int, int]]:

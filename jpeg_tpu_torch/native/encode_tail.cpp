@@ -4,7 +4,8 @@
 // The device encoder (entropy/encode_cuda.encode_scan) leaves each
 // restart segment's Huffman bits MSB-first in u32 words, segment s at
 // word sum(ceil(bits/32)) of the segments before it.  Per frame this
-// writes the header, then each segment's ceil(bits/8) live bytes with
+// writes the frame's header (one shared by the chunk, or each frame's
+// own where its Huffman tables are its own), then each segment's ceil(bits/8) live bytes with
 // the last byte's pad bits set to 1 (T.81 F.1.2.3), a 0x00 after every
 // 0xFF (F.1.2.3, the byte stuffing), RSTn between segments (n = s & 7
 // with s counted from 0 in the frame) and EOI after the last one.  The
@@ -35,17 +36,25 @@ inline uint8_t* put_stuffed(uint8_t* o, uint8_t b) {
 extern "C" {
 
 // words [n_words]: the stream; seg_bits [frames * ns]: bits a segment;
-// header [hlen]: SOI..SOS; out [cap]; frame_off [frames + 1]: frame f is
-// out[frame_off[f], frame_off[f + 1]).  Returns the bytes written, -1
-// when cap is below the worst case, frames * hlen + 2 * live bytes +
-// 2 * segments (every live byte 0xFF), -2 when a bit count is negative
-// or the segments need more than n_words words.
+// headers: SOI..SOS, headers[0, hlen) for every frame, or with hdr_off
+// [frames + 1] frame f's own, headers[hdr_off[f], hdr_off[f + 1]);
+// out [cap]; frame_off [frames + 1]: frame f is out[frame_off[f],
+// frame_off[f + 1]).  Returns the bytes written, -1 when cap is below the
+// worst case, the headers + 2 * live bytes + 2 * segments (every live
+// byte 0xFF), -2 when a bit count or a header length is negative or the
+// segments need more than n_words words.
 int64_t jt_finalize_flat(const uint32_t* words, int64_t n_words,
                          const int64_t* seg_bits, int64_t frames, int64_t ns,
-                         const uint8_t* header, int64_t hlen, uint8_t* out,
-                         int64_t cap, int64_t* frame_off) {
+                         const uint8_t* headers, const int64_t* hdr_off,
+                         int64_t hlen, uint8_t* out, int64_t cap,
+                         int64_t* frame_off) {
   int64_t need_words = 0;
-  int64_t worst = frames * hlen;
+  int64_t worst = 0;
+  for (int64_t f = 0; f < frames; ++f) {
+    const int64_t n = hdr_off ? hdr_off[f + 1] - hdr_off[f] : hlen;
+    if (n < 0) return -2;
+    worst += n;
+  }
   for (int64_t s = 0; s < frames * ns; ++s) {
     if (seg_bits[s] < 0) return -2;
     need_words += (seg_bits[s] + 31) >> 5;
@@ -58,8 +67,10 @@ int64_t jt_finalize_flat(const uint32_t* words, int64_t n_words,
   const uint32_t* w = words;
   for (int64_t f = 0; f < frames; ++f) {
     frame_off[f] = o - out;
-    std::memcpy(o, header, static_cast<size_t>(hlen));
-    o += hlen;
+    const int64_t h0 = hdr_off ? hdr_off[f] : 0;
+    const int64_t n = hdr_off ? hdr_off[f + 1] - h0 : hlen;
+    std::memcpy(o, headers + h0, static_cast<size_t>(n));
+    o += n;
     for (int64_t s = 0; s < ns; ++s) {
       const int64_t bits = seg_bits[f * ns + s];
       if (bits > 0) {

@@ -6,9 +6,10 @@ chunk's compacted segment words into framed JPEG bytes in one pass;
 here byte for byte on synthetic word streams: empty, one-bit, byte- and
 word-boundary segments, a last byte that padding turns into 0xFF, words
 of 0xFF only, one segment a frame and RSTn wrapping past RST7, one and
-eight frames, the encoder's header and a per-batch one.  A capacity
-below the worst case and a stream short of words are refused.  Without
-the library ``encode_batch`` takes the plain version, except on a card.
+eight frames, the encoder's header, a per-batch one and one a frame
+(per-frame tables).  A capacity below the worst case, a stream short of
+words and a negative header length are refused.  Without the library
+``encode_batch`` takes the plain version, except on a card.
 """
 
 import ctypes
@@ -40,6 +41,16 @@ def _encoder(ns: int, header: str) -> jt.DeviceEncoder:
             0, 50, size=(len(enc.table_keys), 256)).astype(np.int32)
         enc = dataclasses.replace(enc, header=enc.optimized_tables(hist)[2])
     return dataclasses.replace(enc, n_segments=ns)
+
+
+def _headers(enc: jt.DeviceEncoder, header: str, frames: int):
+    """The encoder's header, or with "per_frame" one a frame from seeded
+    per-frame histograms (``frame_tables``): headers of other lengths."""
+    if header != "per_frame":
+        return enc.header
+    hist = np.random.default_rng(9).integers(
+        0, 3, size=(frames * len(enc.table_keys), 256)).astype(np.int32)
+    return enc.frame_tables(hist)[2]
 
 
 def _words(bits: np.ndarray, kind: str, rng) -> np.ndarray:
@@ -80,6 +91,8 @@ CASES = {
     "rst_wraps": ((5, 64, 700), "random", 17, 8, "per_batch"),
     "per_batch_header": ((1, 30, 600, 1000), "random", 9, 1, "per_batch"),
     "frame_sized": ((600, 700, 800, 1000), "random", 2040, 1, "default"),
+    "per_frame_headers": ((0, 1, 33, 600, 1000), "random", 9, 8,
+                          "per_frame"),
 }
 
 
@@ -92,13 +105,18 @@ def test_native_tail_matches_numpy_tail(case):
         bits[-2:] = (30, 0)  # an empty last segment after a padded word
     enc = _encoder(ns, header)
     words = _words(bits, kind, rng)
-    want = enc._finalize_flat_ref(words, bits, frames)
-    got = native.finalize_flat_native(words, bits, frames, ns, enc.header)
+    headers = _headers(enc, header, frames)
+    want = enc._finalize_flat_ref(words, bits, frames, headers)
+    got = native.finalize_flat_native(words, bits, frames, ns, headers)
     assert got == want
-    assert all(f.startswith(enc.header) and f.endswith(b"\xff\xd9")
-               for f in got)
-    for f in got:  # a 0xFF in the data is followed by 0x00, RSTn not
-        body = f[len(enc.header):-2]
+    if isinstance(headers, bytes):
+        headers = [headers] * frames
+    else:
+        assert len(set(headers)) == frames and len(set(map(len, headers))) > 1
+    assert all(f.startswith(h) and f.endswith(b"\xff\xd9")
+               for f, h in zip(got, headers))
+    for f, h in zip(got, headers):  # a 0xFF in the data is followed by
+        body = f[len(h):-2]  # 0x00, RSTn not
         assert [body[i + 1] for i in range(len(body) - 1)
                 if body[i] == 0xFF and body[i + 1]] \
             == [0xD0 + (s & 7) for s in range(ns - 1)]
@@ -148,23 +166,28 @@ def test_finalize_flat_takes_the_native_tail(monkeypatch, case):
         native._attempt.cache_clear()
 
 
-def _raw(words, bits, frames, ns, header, cap):
+def _raw(words, bits, frames, ns, header, cap, hdr_off=None):
+    """``jt_finalize_flat`` with ``header`` for every frame, or with
+    ``hdr_off`` [frames + 1] the frames' headers' offsets in it."""
     out = np.zeros(max(cap, 1), np.uint8)
     off = np.zeros(frames + 1, np.int64)
     hdr = np.frombuffer(header, np.uint8)
     p = lambda a, t: a.ctypes.data_as(ctypes.POINTER(t))  # noqa: E731
+    own = None if hdr_off is None else p(np.asarray(hdr_off, np.int64),
+                                         ctypes.c_int64)
     return int(native.load_library().lib.jt_finalize_flat(
         p(words, ctypes.c_uint32), words.size, p(bits, ctypes.c_int64),
-        frames, ns, p(hdr, ctypes.c_uint8), hdr.size, p(out, ctypes.c_uint8),
-        cap, p(off, ctypes.c_int64))), out, off
+        frames, ns, p(hdr, ctypes.c_uint8), own, hdr.size,
+        p(out, ctypes.c_uint8), cap, p(off, ctypes.c_int64))), out, off
 
 
 @pytest.mark.parametrize("fault", ["capacity", "capacity_exact",
-                                   "short_words", "negative_bits"])
+                                   "short_words", "negative_bits",
+                                   "negative_header"])
 def test_native_tail_refuses(fault):
-    """-1 below the worst-case capacity (frames * header + 2 * live
-    bytes + 2 * segments), -2 for a stream short of words or a negative
-    bit count; the worst case itself is accepted."""
+    """-1 below the worst-case capacity (the headers + 2 * live bytes +
+    2 * segments), -2 for a stream short of words, a negative bit count
+    or a negative header length; the worst case itself is accepted."""
     frames, ns, header = 2, 3, b"\xff\xd8header"
     bits = np.array([8, 31, 33, 1, 0, 64], np.int64)
     words = _words(bits, "ff", None)
@@ -182,6 +205,9 @@ def test_native_tail_refuses(fault):
         assert _raw(words[:-1], bits, frames, ns, header, cap)[0] == -2
         with pytest.raises(ValueError, match="refused"):
             native.finalize_flat_native(words[:-1], bits, frames, ns, header)
-    else:
+    elif fault == "negative_bits":
         bits[2] = -1
         assert _raw(words, bits, frames, ns, header, cap)[0] == -2
+    else:
+        hdr_off = np.asarray([0, len(header), 3], np.int64)
+        assert _raw(words, bits, frames, ns, header, cap, hdr_off)[0] == -2

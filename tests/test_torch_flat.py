@@ -49,9 +49,12 @@ from jpeg_tpu_torch.models import device_decode as dd
 from jpeg_tpu_torch.models.device_decode import DeviceDecoder
 from jpeg_tpu_torch.models.flat_rows import rows_from_flat, rows_from_flat_ref
 from jpeg_tpu_torch.utils.metrics import default_metrics
+import jpeg_tpu_lib
 from refbin import make_pgm, make_ppm
 from test_torch_host import frames_of
 from test_torch_native import _damaged, _truncated
+
+jpeg_tpu_lib.build_once()  # jpeg_tpu's library, whole, before any test
 
 # name -> (gray, width, height, h, v, restart interval); three frames each
 STREAMS = {

@@ -41,8 +41,11 @@ from jpeg_tpu_torch.entropy.lockstep_torch import pack_words
 from jpeg_tpu_torch.format.parse import parse_codestream, unstuff_ranges
 from jpeg_tpu_torch.models.device_decode import DeviceDecoder, _segment_bytes
 from jpeg_tpu_torch.utils.metrics import default_metrics
+import jpeg_tpu_lib
 from refbin import make_pgm, make_ppm
 from test_torch_host import ELIGIBLE, GENERAL, OTHER, frames_of
+
+jpeg_tpu_lib.build_once()  # jpeg_tpu's library, whole, before any test
 
 STREAMS = ELIGIBLE + GENERAL + OTHER
 SINGLE_SCAN = ELIGIBLE + GENERAL  # one geometry and tables a stream
