@@ -147,7 +147,9 @@ process exits non-zero without printing the result line:
     device time of K8's head and tail walks, K9, and K10's piece walk and
     DC pass apart, and K8's survivors (the distinct decodes that walk past
     the strip) in the 8-frame batch; every batch of the main path takes
-    the native prep (``speculative.native_prep_chunks``);
+    the native prep (``speculative.native_prep_chunks``), and the prep's
+    run walk packs every frame and the sample frame and refuses none
+    (``native.ecs_walk_frames`` / ``ecs_walk_refused``);
 14. fast mode: ``decode_frame_fast`` (K11) against ``decode_frame_fast_ref``
     on bench frame 0, every frame of the small corpus streams and the
     crafted frames of ``synth.CRAFTED`` (a sampling ratio that does not
@@ -177,7 +179,7 @@ process exits non-zero without printing the result line:
 15. the native host layer and the CLI: ``jpeg_tpu_torch/native`` built
     with g++ (its seconds logged; a failed build fails the run) and
     ``available()``; on the 16-frame ri=4 bench stream the native prep
-    in its rows mode (``jt_prep_ecs``; phase 17 holds the flat mode)
+    in its rows mode (``jt_walk_ecs_rows``; phase 17 holds the flat mode)
     against the Python prep, chunk by chunk: words
     equal over ``pack_words``' width and zero past it, bit counts and
     tables equal, the word routes (``place_cuda.ROUTE_LAUNCHES``) equal;
@@ -186,8 +188,9 @@ process exits non-zero without printing the result line:
     ``python_prep_chunks``) and one launch of each kernel a chunk, its
     stream entry on the native walks (``mjpeg.native_splits`` and
     ``device_decode.native_for_stream`` once, neither ``python_*``
-    counter), its pixels equal to the Python prep's (which takes the
-    Python walks too); ``host_prep_ms`` and the stream
+    counter), the prep's run walk packing every frame and the sample
+    frame and refusing none, its pixels equal to the Python prep's
+    (which takes the Python walks too); ``host_prep_ms`` and the stream
     rate under each prep, in turns; ``encode_batch`` of the 16 bench
     frames with every chunk counted in
     ``device_encode.native_finalize_chunks`` (none in
@@ -234,9 +237,10 @@ process exits non-zero without printing the result line:
     equal, word routes equal, the ri=4 chunks staged);
     ``decode_stream_device`` of the 16 ri=4 frames (counts set to 0
     before it): K13, the segment kernel and the dense tail once a chunk,
-    every chunk counted flat, its pixels equal to those of a rows decoder
-    (``stream_decode``); K13's times, bound and share; the upload bytes
-    of a chunk in each mode; ``host_prep_ms[rows]`` / ``[flat]`` and the
+    every chunk counted flat, the run walk refusing no frame, its pixels
+    equal to those of a rows decoder (``stream_decode``); K13's times,
+    bound and share; the upload bytes of a chunk in each mode;
+    ``host_prep_ms[rows]`` / ``[flat]`` and the
     ri=4 and ri=7 stream rates in each mode, in turns; the break-even
     upload rate derived from the bytes and K13's device-only time (each
     batch there is a fresh decoder's first, frame-major, and its counts
@@ -282,7 +286,16 @@ process exits non-zero without printing the result line:
     at 32 tables and at 4, ``encode_scan`` with 32 tables and with the
     4 shared ones, each with its bound, the per-frame and default
     ``encode_batch`` of the 16 frames (host clock), and a profile of the
-    per-frame call with its host spans.
+    per-frame call with its host spans;
+21. the prep's run walk (``ecs_walk_phase``, on the host): its two
+    entry points (``jt_walk_ecs_flat``, ``jt_walk_ecs_rows`` with a
+    permuted row map) against the byte-at-a-time loop of the same
+    contract in ``scanner.cpp`` on the bench frames and on
+    two clip frames of each decode configuration of the benchmark
+    (restart every 4 and 7 MCUs, none), made from ``WALK_SEED``: return
+    code, ``used_words``, ``end_off``, starts, lengths and the whole
+    output (dirty before the walk) equal; both timed a frame
+    (``ecs_walk_ms``, host clock).
 
 Every kernel's time is printed beside its bound (``bound``: the bytes it
 must move at 3.35 TB/s or its operations at the peak rate of their type
@@ -329,6 +342,7 @@ result line.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import hashlib
 import importlib.util
 import json
@@ -497,6 +511,20 @@ FAST_GEOMETRY = (tuple((i, 15, 15, i % 2) for i in (1, 2, 3, 4)), 130, 130)
 # such a frame (chroma is 1 x 1); encode_frame_fast takes any sampling
 # that divides.
 FAST_ENCODE_GEOMETRY = (((1, 2, 2, 0), (2, 1, 1, 1), (3, 1, 2, 1)), 38, 54)
+# Phase 21: the benchmark's decode configurations whose clip frames the
+# prep's run walk is held on, the seed they are made from, the rounds
+# each walk is timed over, and the two contracts as (the byte-at-a-time
+# loop of scanner.cpp, the run walk of ecs_walk.cpp).
+WALK_CONFIGS = ("rtp-jpeg-1080p-420-q75-ri4", "rtp-jpeg-1080p-420-q75-ri7",
+                "rtp-jpeg-1080p-420-q75-rstless")
+WALK_SEED = 3_000_000_019
+WALK_ROUNDS = 21
+WALK_KINDS = {"flat": ("jt_prep_ecs_flat", "jt_walk_ecs_flat"),
+              "rows": ("jt_prep_ecs_rows", "jt_walk_ecs_rows")}
+WALK_DIRT = 0xA5C3E1F7  # the output's words before a walk
+# The run walk's counters: frames it packed, frames it refused.
+WALK_COUNTERS = ("native.ecs_walk_frames", "native.ecs_walk_refused")
+
 # The mixed-quality stream's frames: (bench content seed, quality).
 MIXED_QUALITY = ((0, 50), (1, 95), (0, 75), (1, 50))
 
@@ -1458,6 +1486,99 @@ def frame_tables_phase(card: str, dev: torch.device) -> dict:
             "device_ms": hd_ms, **hist_bound}
 
 
+def walk_call(lib, fn: str, kind: str, data: bytes, start: int, rows: int,
+              cap: int) -> tuple:
+    """One walk of ``data`` from ``start`` by ``fn`` under ``kind``'s
+    contract, ``rows`` segments at most, ``cap`` words (the flat buffer's,
+    or a row's) -> (a call that walks it again into the same buffers,
+    (rc, used_words, end_off, starts, lens, out))."""
+    def ptr(a, ct):
+        return a.ctypes.data_as(ctypes.POINTER(ct))
+
+    buf = np.frombuffer(data, np.uint8)
+    starts = np.zeros(rows, np.int32)
+    lens = np.zeros(rows, np.int32)
+    used, end = ctypes.c_int64(-7), ctypes.c_int64(-7)
+    head = (ptr(buf, ctypes.c_uint8), buf.size, start)
+    if kind == "flat":
+        out = np.full(cap, WALK_DIRT, np.uint32)
+        args = (*head, ptr(out, ctypes.c_uint32), cap,
+                ptr(starts, ctypes.c_int32), ptr(lens, ctypes.c_int32), rows,
+                ctypes.byref(used), ctypes.byref(end))
+    else:  # the learned order's rows: a permutation
+        out = np.full((rows, cap), WALK_DIRT, np.uint32)
+        row_map = np.random.default_rng(rows).permutation(rows).astype(
+            np.int32)
+        args = (*head, ptr(out, ctypes.c_uint32), cap,
+                ptr(row_map, ctypes.c_int32), rows,
+                ptr(lens, ctypes.c_int32), ctypes.byref(end))
+    fn = getattr(lib, fn)
+    rc = fn(*args)
+    return (lambda: fn(*args)), (rc, used.value, end.value, starts, lens, out)
+
+
+def ecs_walk_phase(card: str) -> None:
+    """Phase 21: the prep's run walk against scanner.cpp's byte-at-a-time
+    loops on this host, frame for frame, and both timed."""
+    mark("21")
+    from jpeg_tpu_torch import native
+    from jpeg_tpu_torch.models.device_decode import _first_ecs_byte
+    from perfbench import corpus
+
+    lib = native.load_library().lib
+    sets = {"bench": frames_of("bench")}
+    for name in WALK_CONFIGS:
+        path = Path(__file__).resolve().parent / "perfbench" / "configs"
+        config = json.loads((path / f"{name}.json").read_text())
+        config["name"] = name
+        sets[name] = corpus.frames(config, WALK_SEED, 2)[0]
+    for label, frames in sets.items():
+        for kind, (old_fn, new_fn) in WALK_KINDS.items():
+            calls = {"old": [], "new": []}
+            for data in frames:
+                start = _first_ecs_byte(data)
+                _, oracle = walk_call(lib, WALK_KINDS["flat"][0], "flat",
+                                      data, start,
+                                      data.count(b"\xff", start) + 1,
+                                      len(data) // 4 + 16)
+                rows, lens = oracle[0], oracle[4]
+                if rows <= 0:
+                    raise AssertionError(f"ecs walk {label}: the old loop "
+                                         f"refused a frame ({rows})")
+                cap = len(data) // 4 + 16 if kind == "flat" else \
+                    (int(lens[:rows].max()) + 3) // 4 + 1
+                again_old, old = walk_call(lib, old_fn, kind, data, start,
+                                           rows, cap)
+                again_new, new = walk_call(lib, new_fn, kind, data, start,
+                                           rows, cap)
+                if old[:3] != new[:3] or old[0] != rows or not (
+                        np.array_equal(old[3], new[3])
+                        and np.array_equal(old[4], new[4])
+                        and np.array_equal(old[5], new[5])):
+                    raise AssertionError(
+                        f"ecs walk {label} {kind}: {new_fn} gives "
+                        f"{new[:3]}, {old_fn} {old[:3]}, or their starts, "
+                        f"lengths or words differ")
+                calls["old"].append(again_old)
+                calls["new"].append(again_new)
+            ms = {"old": [], "new": []}
+            for _ in range(WALK_ROUNDS):
+                for which, again in calls.items():
+                    t0 = time.perf_counter()
+                    for call in again:
+                        call()
+                    ms[which].append((time.perf_counter() - t0) * 1e3
+                                     / len(again))
+            old_ms, new_ms = (sorted(ms[w])[WALK_ROUNDS // 2]
+                              for w in ("old", "new"))
+            log(f"time ecs_walk_ms[{label},{kind}] old={old_ms} "
+                f"new={new_ms} ratio={old_ms / new_ms} a frame ({len(frames)}"
+                f" frames of {sum(map(len, frames)) // len(frames)} bytes, "
+                f"{rows} segments, median of {WALK_ROUNDS} rounds, host "
+                f"clock; equal rc, used_words, end_off, starts, lengths "
+                f"and words) [{card}]")
+
+
 def bench_pixels(dev: torch.device) -> torch.Tensor:
     """The 16 frames of 1080p pixels the encode phases use, on ``dev``."""
     uniq = [torch.from_numpy(synth.make_frame(s)) for s in range(2)]
@@ -2180,8 +2301,10 @@ def rstless_phase(card: str, dev: torch.device) -> list:
     sc.sync.launches = sc.resolve.launches = sc.final.launches = 0
     sc.sync.stage_launches = {"head": 0, "tail": 0}
     coeffs_to_pixels.launches = 0
+    w0 = walk_counts()
     out = jpeg_tpu_torch.mjpeg.decode_stream_device(stream, dev, chunk=CHUNK)
     torch.cuda.synchronize()
+    check_walked("rstless main path", w0, STREAM_FRAMES + 1)
     launches = {"rstless_sync": sc.sync.launches,
                 "rstless_resolve": sc.resolve.launches,
                 "rstless_final": sc.final.launches}
@@ -2418,7 +2541,7 @@ def rstless_phase(card: str, dev: torch.device) -> list:
 def rstless_prep_phase(card: str, dev: torch.device) -> None:
     """Phase 19 (the RST-less engine's two host preps): an 8-frame 1080p
     chunk of phase 13's stream through the native prep
-    (``prepare_batch_native``, ``jt_prep_ecs`` a frame) and the Python
+    (``prepare_batch_native``, ``jt_walk_ecs_rows`` a frame) and the Python
     prep (``_rstless_scan`` a frame, ``prepare_batch``) on the card:
     words equal over ``pack_words``' width and zero past it, bit counts
     and rows equal, the engine's coefficients equal, and
@@ -2844,6 +2967,20 @@ def entry_counts() -> tuple:
     return tuple(default_metrics.counters.get(k, 0) for k in ENTRY_COUNTERS)
 
 
+def walk_counts() -> tuple:
+    """The prep's run walk counters, ``WALK_COUNTERS``' order."""
+    return tuple(default_metrics.counters.get(k, 0) for k in WALK_COUNTERS)
+
+
+def check_walked(label: str, w0: tuple, frames: int) -> None:
+    """Since ``w0`` (``walk_counts()``) the run walk packed ``frames``
+    frames and refused none."""
+    got = tuple(b - a for a, b in zip(w0, walk_counts()))
+    if got != (frames, 0):
+        raise AssertionError(f"{label}: the prep's run walk packed and "
+                             f"refused {got} frames, want ({frames}, 0)")
+
+
 def cli_run(args: list) -> subprocess.Popen:
     """``python -m jpeg_tpu_torch.cli`` with ``args``, started from the
     repository root (the checkout's package) in the background."""
@@ -2915,9 +3052,11 @@ def native_phase(card: str, dev: torch.device, streams: dict) -> None:
     default_metrics.counters["device_decode.native_prep_chunks"] = 0
     default_metrics.counters["device_decode.python_prep_chunks"] = 0
     decode_segments.launches = coeffs_to_pixels.launches = 0
-    e0 = entry_counts()
+    e0, w0 = entry_counts(), walk_counts()
     px = jpeg_tpu_torch.mjpeg.decode_stream_device(stream, dev, chunk=CHUNK)
     torch.cuda.synchronize()
+    # the sample frame's walk in for_stream, then one a frame
+    check_walked("native stream decode", w0, STREAM_FRAMES + 1)
     counts = prep_counts()
     launches = (decode_segments.launches, coeffs_to_pixels.launches)
     if counts != (len(chunks), 0) or launches != (len(chunks), len(chunks)):
@@ -3559,9 +3698,11 @@ def flat_phase(card: str, dev: torch.device, streams: dict,
     default_metrics.counters["device_decode.rows_prep_chunks"] = 0
     rows_from_flat.launches = 0
     decode_segments.launches = coeffs_to_pixels.launches = 0
+    w0 = walk_counts()
     px_flat = jpeg_tpu_torch.mjpeg.decode_stream_device(stream4, dev,
                                                         chunk=CHUNK)
     torch.cuda.synchronize()
+    check_walked("flat stream decode", w0, STREAM_FRAMES + 1)
     launches = rows_from_flat.launches
     got = (launches, decode_segments.launches, coeffs_to_pixels.launches,
            default_metrics.counters["device_decode.flat_prep_chunks"],
@@ -4407,6 +4548,7 @@ def main() -> None:
     entries.append(flat_phase(card, dev, streams, flat_launches))
     entries.append(phased_phase(card, dev, streams))
     entries.append(frame_tables_phase(card, dev))
+    ecs_walk_phase(card)
     for e in entries:
         e["sharded_launches"] = sharded.get(e["name"], {})
     log(f"total {time.perf_counter() - t_start:.1f} s")

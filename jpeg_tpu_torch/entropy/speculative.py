@@ -41,7 +41,8 @@ The host reads the device once a batch: the frame checks and the
 resolve stats together, after K10.  The host prep is ``prepare_batch``
 (unstuffed segments through ``pack_words``) or, for frames that share
 one header up to their segment, ``prepare_batch_native`` (one
-``jt_prep_ecs`` pass a frame); ``speculative_core`` decodes either.
+``jt_walk_ecs_rows`` pass a frame, with no row map);
+``speculative_core`` decodes either.
 """
 
 from __future__ import annotations
@@ -149,8 +150,8 @@ def prepare_batch_native(frames: Sequence[bytes], scan_start: int,
                          chunk_bytes: int = CHUNK_BYTES):
     """The native host prep of frames that share one header up to their
     entropy-coded segment, which starts at byte ``scan_start`` of each:
-    one C++ pass a frame (``jt_prep_ecs``) unstuffs the segment into its
-    row of a zeroed [F, wn] word matrix; upload.  ``wn`` is
+    one C++ pass a frame (``jt_walk_ecs_rows``, no row map) unstuffs the
+    segment into its row of a zeroed [F, wn] word matrix; upload.  ``wn`` is
     ``pack_words``' width for the longest stuffed segment, which bounds
     the unstuffed one, so no row overflows.  -> ``prepare_batch``'s
     (words, nbits, ``Rows``) on ``device``: equal bit counts and rows,

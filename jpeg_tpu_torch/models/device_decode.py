@@ -176,7 +176,7 @@ class DeviceDecoder:
         """The decoder of the stream whose frames are like ``sample_jpeg``.
 
         While the native library is available, only the frame's header is
-        parsed, and one ``jt_prep_ecs_flat`` walk from its first
+        parsed, and one ``jt_walk_ecs_flat`` walk from its first
         entropy-coded byte gives the segments' unstuffed lengths
         (``_native_head``); a frame that walk or the header parse refuses
         is parsed whole (``_parsed_head``), and raises as that parse
@@ -346,8 +346,8 @@ class DeviceDecoder:
         ``jt_prep_ecs_rows``): row ``rank * frames + f`` holds frame
         ``f``'s segment of rank ``rank``, the bit counts follow the rows,
         and ``perm`` maps a row to its frame-major lane ("mats").  Else
-        ``jt_prep_ecs`` writes them frame-major ("mat").  -> ``prepare``'s
-        ``Prepared``, or None."""
+        ``jt_walk_ecs_rows`` with no row map writes them frame-major
+        ("mat").  -> ``prepare``'s ``Prepared``, or None."""
         from .. import native
 
         spf, frames = self.segs_per_frame, len(jpegs)
@@ -404,7 +404,7 @@ class DeviceDecoder:
 
     def _pack_flat(self, jpegs: Sequence[bytes]):
         """The "flat" mode's host half (jpeg_tpu's, :406-439): one C++
-        pass a frame (``jt_prep_ecs_flat``) packs its restart segments
+        pass a frame (``jt_walk_ecs_flat``) packs its restart segments
         back to back at word offsets of one u32 buffer.  ``wn`` grows to
         hold the longest segment and a lookahead word (a multiple of 16);
         the buffer is rounded up to 65,536 words with at least ``wn + 1``
@@ -786,7 +786,7 @@ def _native_head(data: bytes):
     """``_parsed_head``'s result without the whole-frame parse, or None.
 
     ``parse_codestream`` reads only the header, closed by an EOI after
-    its last byte (``_first_ecs_byte``), and one ``jt_prep_ecs_flat``
+    its last byte (``_first_ecs_byte``), and one ``jt_walk_ecs_flat``
     walk from there gives the segments' unstuffed lengths.  None, for
     the whole parse, when the library is not available, the header parse
     raises or does not end its one scan's header there, the walk refuses

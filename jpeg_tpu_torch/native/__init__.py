@@ -1,15 +1,21 @@
 """ctypes bindings for the native host library: ``scanner.cpp``, the
-JAX package's entropy kernel, ``encode_tail.cpp``, the port's encode
-host tail, ``stream_entry.cpp``, the port's stream split, and
-``optimal_tables.cpp``, the port's Annex K.2 table builder.
+JAX package's entropy kernel, ``ecs_walk.cpp``, the port's prep walk,
+``encode_tail.cpp``, the port's encode host tail, ``stream_entry.cpp``,
+the port's stream split, and ``optimal_tables.cpp``, the port's Annex
+K.2 table builder.
 
 ``scanner.cpp`` is a byte-for-byte copy of ``jpeg_tpu/native``'s source,
 bound here with the same functions and signatures; only the build
-differs.  The others are the port's own: ``finalize_flat_native``
-pads, byte-stuffs and frames a chunk's encoded segments in one pass,
-``split_stream_native`` cuts a Motion-JPEG stream into frames in one,
-and ``optimal_tables_native`` builds the optimal Huffman tables of many
-symbol histograms (``tables.optimize_table``'s tables) in one call.
+differs.  The others are the port's own: the three ``prep_ecs*_native``
+wrappers unstuff and pack a frame's segments one 0xFF-free run at a time
+(``jt_walk_ecs_flat`` and ``jt_walk_ecs_rows``, with the contracts of
+``scanner.cpp``'s byte-at-a-time ``jt_prep_ecs*`` loops, which stay bound
+as their oracle),
+``finalize_flat_native`` pads, byte-stuffs and frames a chunk's encoded
+segments in one pass, ``split_stream_native`` cuts a Motion-JPEG stream
+into frames in one, and ``optimal_tables_native`` builds the optimal
+Huffman tables of many symbol histograms (``tables.optimize_table``'s
+tables) in one call.
 ``load_library`` compiles the sources with one ``g++`` command (the JAX
 package Makefile's flags) into one library in
 ``build/jpeg_tpu_torch/`` under the repository root, named by a hash of
@@ -41,10 +47,12 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from ..kernels import BUILD_DIR
+from ..utils.metrics import default_metrics
 
 SOURCES = tuple(Path(__file__).resolve().parent / name
-                for name in ("scanner.cpp", "encode_tail.cpp",
-                             "stream_entry.cpp", "optimal_tables.cpp"))
+                for name in ("scanner.cpp", "ecs_walk.cpp",
+                             "encode_tail.cpp", "stream_entry.cpp",
+                             "optimal_tables.cpp"))
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-shared",
              "-pthread")
@@ -74,21 +82,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.jt_unstuff.restype = ctypes.c_int64
     lib.jt_unstuff.argtypes = [i8p, ctypes.c_int64, i8p]
     u32p = ctypes.POINTER(ctypes.c_uint32)
-    lib.jt_prep_ecs.restype = ctypes.c_int64
-    lib.jt_prep_ecs.argtypes = [
-        i8p, ctypes.c_int64, ctypes.c_int64,
-        u32p, ctypes.c_int64, ctypes.c_int64, i32p, i64p,
-    ]
-    lib.jt_prep_ecs_rows.restype = ctypes.c_int64
-    lib.jt_prep_ecs_rows.argtypes = [
-        i8p, ctypes.c_int64, ctypes.c_int64,
-        u32p, ctypes.c_int64, i32p, ctypes.c_int64, i32p, i64p,
-    ]
-    lib.jt_prep_ecs_flat.restype = ctypes.c_int64
-    lib.jt_prep_ecs_flat.argtypes = [
-        i8p, ctypes.c_int64, ctypes.c_int64,
-        u32p, ctypes.c_int64, i32p, i32p, ctypes.c_int64, i64p, i64p,
-    ]
+    # The old loops; each run walk shares its old loop's signature (the
+    # rows walk's row_map may be None, a null pointer).
+    rows = [u32p, ctypes.c_int64, i32p, ctypes.c_int64, i32p, i64p]
+    flat = [u32p, ctypes.c_int64, i32p, i32p, ctypes.c_int64, i64p, i64p]
+    for name, args in (
+            ("jt_prep_ecs", [u32p, ctypes.c_int64, ctypes.c_int64, i32p,
+                             i64p]),
+            ("jt_prep_ecs_rows", rows), ("jt_walk_ecs_rows", rows),
+            ("jt_prep_ecs_flat", flat), ("jt_walk_ecs_flat", flat)):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int64
+        fn.argtypes = [i8p, ctypes.c_int64, ctypes.c_int64, *args]
     lib.jt_encode_segments.restype = None
     lib.jt_encode_segments.argtypes = [
         i32p, i32p, i32p, i64p, ctypes.c_int32, i32p, i32p,
@@ -285,6 +290,13 @@ def encode_segments_native(
     return [out[s, : lens[s]].tobytes() for s in range(S)]
 
 
+def _walked(rc: int) -> int:
+    """Count one frame of a prep walk: packed, or refused with a code."""
+    default_metrics.count("native.ecs_walk_frames" if rc > 0
+                          else "native.ecs_walk_refused")
+    return rc
+
+
 def prep_ecs_flat_native(
     data: bytes,
     start: int,
@@ -295,7 +307,8 @@ def prep_ecs_flat_native(
 ):
     """Tight-pack one frame's segments at out_buf[buf_base:].
 
-    Returns (nsegs, words_used); nsegs < 0 is a jt_prep_ecs fallback code.
+    Returns (nsegs, words_used); nsegs < 0 is a jt_prep_ecs* fallback code
+    (``jt_walk_ecs_flat``).
     """
     lib = _load()
     assert lib is not None
@@ -303,8 +316,8 @@ def prep_ecs_flat_native(
     used = ctypes.c_int64(0)
     end_off = ctypes.c_int64(0)
     view = out_buf[buf_base:]
-    rc = int(
-        lib.jt_prep_ecs_flat(
+    rc = _walked(
+        lib.jt_walk_ecs_flat(
             _ptr(buf, ctypes.c_uint8),
             ctypes.c_int64(buf.size),
             ctypes.c_int64(start),
@@ -329,14 +342,15 @@ def prep_ecs_rows_native(
 ) -> int:
     """Unstuff+pack one frame's segments directly into caller-chosen lane
     rows of the padded matrix (no device rebuild gather; rows orderable
-    by predicted symbol count).  Returns segment count or <0 fallback."""
+    by predicted symbol count).  Returns segment count or <0 fallback
+    (``jt_walk_ecs_rows``)."""
     lib = _load()
     assert lib is not None
     assert out_rows.dtype == np.uint32 and out_rows.flags.c_contiguous
     buf = np.frombuffer(data, dtype=np.uint8)
     end_off = ctypes.c_int64(0)
-    return int(
-        lib.jt_prep_ecs_rows(
+    return _walked(
+        lib.jt_walk_ecs_rows(
             _ptr(buf, ctypes.c_uint8),
             ctypes.c_int64(buf.size),
             ctypes.c_int64(start),
@@ -358,21 +372,23 @@ def prep_ecs_native(
 ) -> int:
     """Unstuff+pack one frame's restart segments into BE-u32 lane rows.
 
-    Returns the segment count, or <0 (see jt_prep_ecs) when the caller
-    must fall back to the Python parser / retry with a wider matrix.
+    Returns the segment count, or <0 (see jt_prep_ecs*) when the caller
+    must fall back to the Python parser / retry with a wider matrix
+    (``jt_walk_ecs_rows`` with no row map).
     """
     lib = _load()
     assert lib is not None
     assert out_rows.dtype == np.uint32 and out_rows.flags.c_contiguous
     buf = np.frombuffer(data, dtype=np.uint8)
     end_off = ctypes.c_int64(0)
-    return int(
-        lib.jt_prep_ecs(
+    return _walked(
+        lib.jt_walk_ecs_rows(
             _ptr(buf, ctypes.c_uint8),
             ctypes.c_int64(buf.size),
             ctypes.c_int64(start),
             out_rows.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
             ctypes.c_int64(out_rows.shape[1]),
+            None,
             ctypes.c_int64(out_rows.shape[0]),
             _ptr(lens, ctypes.c_int32),
             ctypes.byref(end_off),

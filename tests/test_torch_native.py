@@ -13,13 +13,14 @@
   jpeg_tpu's serial engine instead.)  "auto" picks native while the
   library is available, lockstep or serial when it is not, and explicit
   "native" then raises (the cases of ``tests/test_no_native.py``);
-* prep: ``DeviceDecoder.prepare`` through ``jt_prep_ecs`` against the
+* prep: ``DeviceDecoder.prepare`` through ``jt_walk_ecs_rows`` against the
   Python prep on every single-scan corpus stream: words equal over
   ``pack_words``' width and zero past it, bit counts, tables and decoded
   coefficients equal, and the counters name the path; a truncated frame
   and a per-frame DQT take the Python prep; a row too narrow is widened;
   ``prep_ecs_flat_native`` and ``prep_ecs_rows_native`` against
-  ``pack_words``;
+  ``pack_words``; the walk's counters ``native.ecs_walk_frames`` and
+  ``native.ecs_walk_refused`` count the frames it packs and refuses;
 * encode: ``entropy_backend="native"`` byte-identical to ``"numpy"`` and
   to ``jpeg_tpu.encode_jpeg``, exact and fast, default and optimized
   tables, restart interval 0 and 2; a symbol with no code raises.
@@ -216,7 +217,7 @@ def test_bad_frames_take_the_python_prep():
 
 @pytest.mark.parametrize("wn", [16, None])
 def test_native_prep_widens_a_narrow_row(wn, monkeypatch):
-    """A row narrower than a segment (``jt_prep_ecs`` returns -2), or one
+    """A row narrower than a segment (``jt_walk_ecs_rows`` returns -2), or one
     that leaves less than ``pack_words``' 8 bytes of slack, widens the
     sticky width and redoes the chunk on the native path."""
     frames = frames_of("bench")
@@ -263,6 +264,33 @@ def test_flat_and_rows_prep_match_pack_words(name):
             n = (int(lens[r]) + 3) // 4
             np.testing.assert_array_equal(buf[starts[r]:starts[r] + n],
                                           want[r, :n])
+
+
+def _walk_counts():
+    c = default_metrics.counters
+    return (c.get("native.ecs_walk_frames", 0),
+            c.get("native.ecs_walk_refused", 0))
+
+
+def test_prep_walk_counts_its_frames():
+    """The run walk counts each frame it packs: the sample frame in
+    ``for_stream``, then each frame of a CPU decode (the rows prep).  A
+    frame with a COM marker inside its scan is refused by the rows walk
+    and again by the flat one, counted each time, and the chunk takes
+    the Python prep."""
+    frames = frames_of("bench")
+    f0, r0 = _walk_counts()
+    dec = DeviceDecoder.for_stream(frames[0], "cpu")
+    assert _walk_counts() == (f0 + 1, r0)
+    dec.decode_batch(frames)
+    assert _walk_counts() == (f0 + 1 + len(frames), r0)
+    at = frames[1].index(b"\xff\xd3", dec.scan_start) + 2
+    bad = frames[1][:at] + b"\xff\xfe\x00\x02" + frames[1][at:]
+    n0, p0 = _counts()
+    with pytest.warns(RuntimeWarning, match="MCUs"):
+        dec.decode_batch([frames[0], bad])
+    assert _walk_counts() == (f0 + 3 + len(frames), r0 + 2)
+    assert _counts() == (n0, p0 + 1)
 
 
 @pytest.mark.parametrize("exact", [True, False], ids=["exact", "fast"])

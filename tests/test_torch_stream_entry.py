@@ -5,7 +5,7 @@
 ``mjpeg._split_stream_py`` and ``jpeg_tpu.mjpeg.split_stream`` are the
 NumPy walk it replaces.  ``DeviceDecoder.for_stream`` parses only the
 sample frame's header and takes the segments' lengths from one
-``jt_prep_ecs_flat`` walk; a frame that route refuses takes the whole
+``jt_walk_ecs_flat`` walk; a frame that route refuses takes the whole
 parse.  Held here on the committed corpus and on hostile streams built
 in the test: the same frames, decoders equal field for field, the same
 exception where the whole parse raises, and counters that say which
